@@ -1,0 +1,8 @@
+"""granite-3-2b [hf:ibm-granite/granite-3.0-2b-base]: dense GQA."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-2b", family="dense",
+    n_layers=40, d_model=2048, n_heads=32, n_kv_heads=8,
+    d_ff=8192, vocab=49155, rope_theta=1e4,
+)

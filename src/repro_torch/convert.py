@@ -1,19 +1,23 @@
 """Carry the JAX package's objects into the port's counterparts.
 
-Every function reads its argument by attribute only (it never imports
-the JAX package), so the parity tests can hand the reference's
-endpoints, tasks, profile store and live state to the port and compare
-like with like.
+Every function reads its argument by attribute, or takes plain numpy
+arrays (it never imports the JAX package), so the parity tests can hand
+the reference's endpoints, tasks, profile store, live state, model
+parameters and serving caches to the port and compare like with like.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+from torch import nn
 
 from repro_torch.core.endpoint import EndpointSpec
 from repro_torch.core.predictor import RunningStat, TaskProfileStore
 from repro_torch.core.scheduler import SoAState, TaskSpec
+from repro_torch.models.common import ParamSpec, Params
+from repro_torch.models.lm import lm_specs
 
 
 def endpoints(eps) -> list[EndpointSpec]:
@@ -54,3 +58,75 @@ def soa_state(state, eps, transfer) -> SoAState:
     out.cached = set(state.cached)
     out.timeline = dict(state.timeline)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The model stack: the reference's parameter tree and caches as numpy
+# ---------------------------------------------------------------------------
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """A numpy array as a tensor; a bfloat16 array (numpy has no such
+    type of its own) goes through float32, which holds it exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def lm_params_from_numpy(tree, cfg, device="cpu", dtype=None):
+    """The port's parameter tables from the reference's parameter tree
+    (nested dicts of numpy arrays, ``tree["layers"]`` stacked along a
+    leading layers axis).  Weights the model casts at use are stored in
+    ``dtype`` (default float32, the reference's masters); the float32
+    leaves stay float32.  Every shape is checked against the port's specs.
+    """
+    dtype = dtype or torch.float32
+
+    def build(src, spec):
+        if isinstance(spec, ParamSpec):
+            t = _tensor(src, device).float()
+            if tuple(t.shape) != spec.shape:
+                raise ValueError(f"shape {tuple(t.shape)} != spec {spec.shape}")
+            return t.to(dtype) if spec.cast else t
+        if isinstance(spec, list):
+            return [build(_index(src, i), s) for i, s in enumerate(spec)]
+        return {k: build(src[k], s) for k, s in spec.items()}
+
+    return Params(build(tree, lm_specs(cfg)))
+
+
+def _index(tree, i):
+    """Layer ``i`` of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The reverse of ``lm_params_from_numpy``: the reference's tree
+    layout (layers stacked), every leaf as a float32 numpy array."""
+    def tree(mod):
+        out = {name: p.detach().float().cpu().numpy()
+               for name, p in mod.named_parameters(recurse=False)}
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):
+                per = [tree(c) for c in child]
+                out[name] = _stack(per)
+            else:
+                out[name] = tree(child)
+        return out
+
+    return tree(params)
+
+
+def _stack(per: list):
+    if isinstance(per[0], dict):
+        return {k: _stack([p[k] for p in per]) for k in per[0]}
+    return np.stack(per)
+
+
+def lm_cache_from_numpy(cache, device="cpu") -> dict:
+    """The reference's serving cache (dict of numpy arrays) as tensors,
+    dtypes kept (bfloat16 buffers stay bfloat16)."""
+    return {k: _tensor(v, device) for k, v in cache.items()}

@@ -16,6 +16,8 @@ from repro_torch.core.endpoint import table1_testbed
 from repro_torch.core.executor import GreenFaaSExecutor
 from repro_torch.core.testbed import TestbedSim as PortSim
 from repro_torch.kernels.placement import ops
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models.registry import get_api
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -31,6 +33,7 @@ def test_port_imports_without_jax():
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.executor\n"
         "import repro_torch.kernels.placement.ops\n"
+        "import repro_torch.launch.serve, repro_torch.models.registry\n"
         "assert not any(m == 'repro' or m.startswith('repro.') "
         "for m in sys.modules), 'the port imported the JAX package'\n"
     )
@@ -61,3 +64,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.greedy_window(1, {}, {}, {})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serving_default_device_raises_without_cuda(monkeypatch):
+    """serve_batch and the model API's init take device=None as the CUDA
+    card: with no CUDA device they raise before building anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_batch("zamba2-2.7b", reduced=True, batch=1, prompt_len=8,
+                    gen_tokens=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_api("zamba2-2.7b", reduced=True).init(0)
