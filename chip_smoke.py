@@ -317,6 +317,21 @@ def zamba2_slice_check(dev, card, get_api) -> float:
     return err
 
 
+def ssd_flops(b, L, nh, hd, n, chunk) -> int:
+    """f32 operations the SSD function needs: the lesser of its two
+    forms.  The chunked form at ``chunk``: per (row, chunk of q tokens)
+    the lower triangle of G = C B^T, shared by the heads (q(q+1) n); per
+    head the triangular M @ xdt (q(q+1) hd), C @ S and the state update
+    (2 q n hd each).  The recurrence: per (row, token, head) the decayed
+    state plus B xdt^T (3 n hd) and its read-out by C (2 n hd)."""
+    chunked = 0
+    for c0 in range(0, L, chunk):
+        q = min(chunk, L - c0)
+        chunked += b * (q * (q + 1) * n + nh * (q * (q + 1) * hd + 4 * q * n * hd))
+    recurrence = b * L * nh * 5 * n * hd
+    return min(chunked, recurrence)
+
+
 def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     """Phase 8: each kernel at the serving shapes (b=8), its plain version
     once, and the one-call PyTorch yardstick; bound from the shapes."""
@@ -384,10 +399,7 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     err = max(check_close("ssd y at the serving shape", y, yp, TOLS["ssd"], card),
               check_close("ssd state at the serving shape", st, stp, TOLS["ssd"], card))
     nbytes = sum(t.numel() * 4 for t in args) + y.numel() * 4 + st.numel() * 4
-    # the chunked algorithm: per (row, head, chunk) G = C B^T, M @ xdt,
-    # C @ S and the state update
-    nc = -(-s // chunk)
-    flops = b * nh * nc * 2 * chunk * (chunk * n + chunk * hd + 2 * n * hd)
+    flops = ssd_flops(b, s, nh, hd, n, chunk)
     rows["ssd"] = dict(ms=ms, plain_ms=plain, library_ms=None, err=err,
                        nbytes=nbytes, flops=flops, peak=FP32_FLOPS)
 
@@ -501,14 +513,10 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     # ---- 1. build: one nvcc per source, all started together ----------
-    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        jobs = [pool.submit(build.build, True)] + [
-            pool.submit(kbuild.build, m.SOURCE, kbuild.NVCC_FLAGS, True)
-            for m in (flash_kernel, dec_kernel, ssd_kernel)]
-        for j in jobs:
-            j.result()
+    kbuild.build_all([(build.SOURCE, build.NVCC_FLAGS)] + [
+        (m.SOURCE, kbuild.NVCC_FLAGS) for m in (flash_kernel, dec_kernel, ssd_kernel)],
+        verbose=True)
     for lib in (build.lib, flash_kernel.lib, dec_kernel.lib, ssd_kernel.lib):
         lib()
     for name, st in kbuild.BUILD_STATS.items():

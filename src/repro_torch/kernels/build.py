@@ -4,7 +4,8 @@ Each kernel package keeps its source under ``csrc/``.  ``nvcc`` compiles
 one source into a shared library with a plain C interface, at first use,
 under ``build/`` beside ``csrc/`` (listed in ``.gitignore``), keyed by a
 hash of the source and the flags; ``ctypes`` loads it.  Nothing is built
-when a module is imported.  Every C entry returns ``cudaGetLastError()``
+when a module is imported.  ``build_all`` starts one nvcc per source and
+waits for them together.  Every C entry returns ``cudaGetLastError()``
 after its launches, and ``check`` raises on a non-zero code.
 ``BUILD_STATS`` counts nvcc runs and their seconds per source.
 """
@@ -16,7 +17,6 @@ import os
 import pathlib
 import shutil
 import subprocess
-import threading
 import time
 from typing import Callable
 
@@ -32,7 +32,6 @@ NVCC_FLAGS = (
 #: not counted).
 BUILD_STATS: dict[str, dict] = {}
 
-_LOCK = threading.Lock()
 _LIBS: dict[pathlib.Path, ctypes.CDLL] = {}
 
 
@@ -63,49 +62,56 @@ def library_path(source: pathlib.Path, flags=NVCC_FLAGS) -> pathlib.Path:
     return source.parent.parent / "build" / f"lib{source.stem}_{digest}.so"
 
 
-def build(source: pathlib.Path, flags=NVCC_FLAGS, verbose: bool = False) -> pathlib.Path:
-    """Compile ``source`` if this version of it has no library yet and
-    return the library's path.  ``verbose`` rebuilds with ``-Xptxas -v``
-    and prints nvcc's report (registers, shared memory, spills)."""
-    out = library_path(source, flags)
-    if out.exists() and not verbose:
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc(), *flags, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {source.name} ({res.returncode}):\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    st = stats(source)
-    with _LOCK:
+def build_all(jobs, verbose: bool = False) -> list[pathlib.Path]:
+    """Compile each ``(source, flags)`` of ``jobs`` that has no library
+    yet, one nvcc process per source, all started together; returns the
+    libraries' paths.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints
+    nvcc's report (registers, shared memory, spills)."""
+    outs = [library_path(source, flags) for source, flags in jobs]
+    running = []
+    for (source, flags), out in zip(jobs, outs):
+        if out.exists() and not verbose:
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *flags, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((source, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for source, out, tmp, proc, t0 in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source.name} ({proc.returncode}):\n"
+                          f"{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        st = stats(source)
         st["builds"] += 1
         st["seconds"] += time.perf_counter() - t0
-    if verbose:
-        print(f"[nvcc {source.name}]\n{res.stdout}{res.stderr}", flush=True)
-    return out
+        if verbose:
+            print(f"[nvcc {source.name}]\n{stdout}{stderr}", flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def build(source: pathlib.Path, flags=NVCC_FLAGS, verbose: bool = False) -> pathlib.Path:
+    """Compile ``source`` if this version of it has no library yet and
+    return the library's path (``build_all`` of one source)."""
+    return build_all([(source, flags)], verbose)[0]
 
 
 def load(source: pathlib.Path, bind: Callable[[ctypes.CDLL], None],
          flags=NVCC_FLAGS) -> ctypes.CDLL:
     """The loaded library of ``source``, built on first use; ``bind``
     declares its entries' ``argtypes`` and ``restype`` once."""
-    with _LOCK:
-        handle = _LIBS.get(source)
-    if handle is not None:
-        return handle
-    path = build(source, flags)
-    with _LOCK:
-        if source not in _LIBS:
-            handle = ctypes.CDLL(str(path))
-            bind(handle)
-            _LIBS[source] = handle
-        return _LIBS[source]
+    if source not in _LIBS:
+        handle = ctypes.CDLL(str(build(source, flags)))
+        bind(handle)
+        _LIBS[source] = handle
+    return _LIBS[source]
 
 
 def check(rc: int, what: str) -> None:

@@ -256,7 +256,6 @@ int dispatch(int d, const void* q, const void* kc, const void* vc, const int* le
              int kvh, int split, float scale, cudaStream_t s) {
   switch (d) {
     case 16: return launch<T, 16>(q, kc, vc, lens, pm, pl, pa, out, b, S, h, kvh, split, scale, s);
-    case 32: return launch<T, 32>(q, kc, vc, lens, pm, pl, pa, out, b, S, h, kvh, split, scale, s);
     case 64: return launch<T, 64>(q, kc, vc, lens, pm, pl, pa, out, b, S, h, kvh, split, scale, s);
     case 80: return launch<T, 80>(q, kc, vc, lens, pm, pl, pa, out, b, S, h, kvh, split, scale, s);
     case 128: return launch<T, 128>(q, kc, vc, lens, pm, pl, pa, out, b, S, h, kvh, split, scale, s);

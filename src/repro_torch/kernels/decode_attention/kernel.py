@@ -20,7 +20,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.decode_attention import ref as _ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 64, 80, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_GROUP = 16            # query heads per kv head (csrc MAXG)
 SPLIT = 256               # cache entries per split of the partial pass

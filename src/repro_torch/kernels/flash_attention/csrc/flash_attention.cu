@@ -205,7 +205,6 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* o, int b,
              cudaStream_t stream) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
     case 80: return launch<T, 80>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);

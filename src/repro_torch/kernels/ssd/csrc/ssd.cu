@@ -16,8 +16,11 @@
 // Yardstick: no single PyTorch call computes it (library_ms is null).
 // Bound on an H100: at b=8, L=2048, 80 heads of 64, state 64, it moves
 //   ~0.69 GB (xdt and y in f32, loga, B, C, the state), ~0.21 ms at
-//   3.35 TB/s, and does ~6.4e10 f32 FLOP, ~1 ms at 67 TFLOP/s on the CUDA
-//   cores: this design is bound by operations.
+//   3.35 TB/s.  The function needs ~2.7e10 f32 FLOP in its recurrence form
+//   (5 n hd per token and head), ~0.40 ms at 67 TFLOP/s on the CUDA cores;
+//   the chunked form at Q=128 needs ~3.2e10 with G shared by the heads and
+//   M @ xdt triangular.  So it is bound by operations.  This design computes
+//   G per head and M @ xdt over the full square, ~6.4e10 FLOP.
 // This first design: one CTA of 256 threads per (head, batch row) walks the
 //   chunks in order with the (n, hd) state in shared memory; per chunk it
 //   stages C and B transposed, xdt and the (Q, Q) matrix M in shared memory

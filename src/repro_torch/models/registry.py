@@ -1,9 +1,10 @@
 """Model API over the families the port serves (the hybrid family).
 
-``get_config`` reads any architecture the reference lists (the port
-keeps a copy of every config); ``get_api`` raises
-``NotImplementedError``, naming the later slice, for a family the port
-does not serve yet.
+``get_config`` reads an architecture whose config the port keeps
+(``repro_torch/configs/``: zamba2-2.7b, and granite-3-2b of the dense
+family); each later slice adds the configs of the family it serves.
+``get_api`` raises ``NotImplementedError``, naming the later slice, for a
+family the port does not serve yet.
 """
 from __future__ import annotations
 
