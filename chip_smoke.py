@@ -5,8 +5,8 @@
 
 1. Prints the card's name and power limit and builds every kernel of the
    port with nvcc, one process per source, all started together:
-   ``placement.cu``, ``flash_attention.cu``, ``decode_attention.cu`` and
-   ``ssd.cu``.
+   ``placement.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
+   ``ssd.cu`` and ``selective_scan.cu``.
 
 The batch placement path (the first slice):
 
@@ -47,6 +47,30 @@ The zamba2-2.7b serving path (the second slice):
    serving shapes: the device's busy and idle share and the kernels that
    take the most device time.
 
+The falcon-mamba-7b loss forward and serving paths (the third slice):
+
+10. The selective-scan kernel against its plain version on the card, y
+    and the final state, within the reference's 1e-4 (atol and rtol): the
+    reference's ``SCAN_CASES``, a ragged length (L=1000, d=520), one
+    full-width layer at the loss shape (b=4, L=4096, d=8192, n=16), where
+    it is also timed beside the plain version and its bound, and one at
+    the serving prefill's shape (b=8, L=2048).  Then the cost of the
+    Mamba1 block's bf16 SiLU in the reference's rounding steps beside
+    ``F.silu``: launches and time at the loss shape.
+11. The reduced falcon-mamba slice on the card against the CPU (same
+    weights and tokens): the loss within 4e-4, the forward's, the
+    prefill's (128 tokens) and 4 decode steps' logits within 0.125 and
+    the forward's within 2e-3 on average, the strict-precision bounds of
+    ``tests/test_torch_falcon_mamba.py``.
+12. Main path: ``api.loss`` of falcon-mamba-7b at full width on b=4 x
+    4,096 tokens (bf16 weights from seed 0) under ``torch.inference_mode()``;
+    counts zeroed just before and read just after (64 scan launches); a
+    finite loss; wall seconds, tokens/s, peak memory; a profiler trace of
+    one more forward.
+13. ``serve_batch("falcon-mamba-7b", batch=8, prompt_len=2048,
+    gen_tokens=128, seed=0)``: 64 scan launches, all in the prefill; a
+    trace of a prefill and 4 decode steps (64 and 0 launches).
+
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -66,6 +90,7 @@ CU_SOURCE = "src/repro_torch/kernels/placement/csrc/placement.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+SCAN_SOURCE = "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu"
 
 N_TASKS = 32768          # the main path's batch (largest gated cell)
 REPLICAS = 8             # scaled_testbed(8): 32 endpoints
@@ -76,11 +101,29 @@ HBM_BYTES_PER_S = 3.35e12   # device memory rate
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
 BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
 FP32_FLOPS = 67e12          # f32 outside the tensor cores
+# exp on the special-function units: 16 results a clock on each SM (CUDA
+# C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0), against 256 f32 FLOP a clock in the FMA lanes behind
+# FP32_FLOPS: a sixteenth of that rate
+SFU_PER_S = FP32_FLOPS / 16
 
 # zamba2-2.7b serving (the second slice's main path)
 ARCH = "zamba2-2.7b"
 SERVE_BATCH, PROMPT_LEN, GEN_TOKENS = 8, 2048, 128
 SLICE_TOL = 0.15            # logits, card against CPU (tests/test_torch_zamba2.py)
+
+# falcon-mamba-7b (the third slice's main path): the loss forward at the
+# reference's train_4k sequence length, and serving
+FM_ARCH = "falcon-mamba-7b"
+LOSS_BATCH, LOSS_LEN = 4, 4096
+# (b, L, d, n): tests/test_kernels.py SCAN_CASES, a ragged length, then one
+# full-width layer at the loss shape (checked, and timed, in falcon_scan)
+SCAN_CASES = [(2, 64, 128, 16), (1, 128, 64, 8), (1, 64, 256, 16), (2, 1000, 520, 16)]
+SCAN_TOL = (1e-4, 1e-4)     # the reference's (tests/test_kernels.py)
+# the reduced slice, card against CPU: both sides round bf16 at the same
+# places, as the port and the reference without excess precision do, so
+# the bounds of that comparison (tests/test_torch_falcon_mamba.py, (c))
+FM_LOSS_TOL, FM_LOGIT_TOL, FM_LOGIT_MEAN = 4e-4, 0.125, 2e-3
 
 
 def card_line() -> str:
@@ -417,57 +460,322 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     return rows
 
 
-def zamba2_profile(dev, card, serve, api) -> dict:
-    """Phase 9: the device's busy share of the serving path, from a
-    ``torch.profiler`` trace of one prefill at the serving shapes and of 4
-    decode steps after it: the CUDA kernels' summed time over the host
-    clock.  Where the trace holds no device time it says so (None)."""
+def trace(label, fn, card) -> dict:
+    """A ``torch.profiler`` trace of ``fn()`` (ended by a synchronise): the
+    CUDA kernels' summed time over the host clock, the launches, and the
+    kernels that take the most device time.  Where the trace holds no
+    device time it says so (None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+
+    busy_us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    out = {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3 if busy_us else None,
+        "device_idle_share": 1.0 - busy_us / wall_us if busy_us else None,
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                         "count": e.count} for e in top],
+    }
+    share = out["device_idle_share"]
+    print(f"profile {label}: wall {wall_us / 1e3:.6g} ms, device busy "
+          f"{busy_us / 1e3:.6g} ms, idle share "
+          f"{'not measured' if share is None else f'{share:.4f}'}, "
+          f"{out['kernel_launches']} kernel launches [{card}]", flush=True)
+    for e in top:
+        print(f"  {dev_us(e) / 1e3:10.4f} ms x{e.count:5d}  {e.key[:90]}", flush=True)
+    return out
+
+
+def serving_profile(dev, card, serve, api, counts=None) -> dict:
+    """The device's busy share of the serving path: a trace of one prefill
+    at the serving shapes (b=8, prompt 2048) and of 4 decode steps after
+    it.  ``counts`` (a kernel's LAUNCHES) is read per window."""
+    import torch
     params, prompts = serve.make_inputs(api, SERVE_BATCH, PROMPT_LEN, 0, dev)
     serve.generate(api, params, prompts[:, :256], 3)    # warm-up
+    state = {}
+
+    def prefill():
+        logits, state["cache"] = api.prefill(params, {"tokens": prompts},
+                                             max_len=PROMPT_LEN + 8)
+        state["tok"] = torch.argmax(logits, dim=-1)[:, None]
+
+    def decode():
+        for i in range(4):
+            logits, state["cache"] = api.decode_step(params, state["tok"],
+                                                     state["cache"], PROMPT_LEN + i)
+            state["tok"] = torch.argmax(logits[:, 0], dim=-1)[:, None]
+
     out = {}
-    cache, tok = None, None
-    for phase in ("prefill", "decode"):
+    for phase, fn in (("prefill", prefill), ("decode", decode)):
+        before = dict(counts) if counts is not None else None
+        out[phase] = trace(f"{api.cfg.name} {phase} (b={SERVE_BATCH})", fn, card)
+        if counts is not None:
+            out[phase]["launches"] = {k: counts[k] - before[k] for k in counts}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# falcon-mamba-7b: the scan kernel, the slice, the loss forward, serving
+# ---------------------------------------------------------------------------
+
+
+def scan_bound(b, L, d, n) -> dict:
+    """The least time the selective scan's function takes on the card at
+    (b, L, d, n), without the final state: x, dt, A, B, C, D read once and
+    y written once, in f32; one exp per (token, channel, state) on the
+    special-function units, and 6 f32 operations (dt*A, the state's FMA,
+    dt*x*B, the read-out FMA) beside it, plus 3 per (token, channel)
+    (dt*x, D*x + sum).  The FMA lanes and the special-function units run
+    side by side, so the operations take the longer of their two times."""
+    nbytes = 4 * (3 * b * L * d + 2 * b * L * n + d * n + d)
+    exps = b * L * d * n
+    flops = b * L * d * (6 * n + 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS, exps / SFU_PER_S) * 1e3
+    return dict(nbytes=nbytes, exps=exps, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_inputs(gen, b, L, d, n, dev):
+    """As the reference's kernel tests draw them: dt = softplus(0.5 g - 1),
+    A = -exp(0.3 g)."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn((b, L, d), generator=gen, device=dev)
+    dt = F.softplus(torch.randn((b, L, d), generator=gen, device=dev) * 0.5 - 1)
+    A = -torch.exp(torch.randn((d, n), generator=gen, device=dev) * 0.3)
+    B = torch.randn((b, L, n), generator=gen, device=dev)
+    C = torch.randn((b, L, n), generator=gen, device=dev)
+    D = torch.randn((d,), generator=gen, device=dev)
+    return x, dt, A, B, C, D
+
+
+def falcon_scan(dev, card, sk, sr, cfg) -> dict:
+    """Phase 10: the scan kernel against its plain version, y and the final
+    state, on SCAN_CASES, on one full-width layer at the loss shape, where
+    it is also timed beside the plain version and its bound, and on one at
+    the serving prefill's shape."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = 0.0
+    for b, L, d, n in SCAN_CASES:
+        args = scan_inputs(gen, b, L, d, n, dev)
+        y, h = sk.selective_scan(*args, return_state=True)
+        yp, hp = sr.selective_scan_plain(*args, return_state=True)
+        err = max(err, check_close(f"selective_scan y b={b} L={L} d={d} n={n}", y, yp,
+                                   SCAN_TOL, card),
+                  check_close(f"selective_scan state b={b} L={L} d={d} n={n}", h, hp,
+                              SCAN_TOL, card))
+    b, L, d, n = LOSS_BATCH, LOSS_LEN, cfg.inner, cfg.ssm_state
+    args = scan_inputs(gen, b, L, d, n, dev)
+    ms = cuda_ms(lambda: sk.selective_scan(*args), reps=10)
+    out = {}
+    plain = event_ms(lambda: out.setdefault("p", sr.selective_scan_plain(
+        *args, return_state=True)))
+    y, h = sk.selective_scan(*args, return_state=True)
+    yp, hp = out.pop("p")
+    err = max(err, check_close(f"selective_scan y at the loss shape b={b} L={L} d={d} "
+                               f"n={n}", y, yp, SCAN_TOL, card),
+              check_close("selective_scan state at the loss shape", h, hp, SCAN_TOL,
+                          card))
+    # the loss forward asks for no state
+    row = dict(scan_bound(b, L, d, n), ms=ms, plain_ms=plain, library_ms=None, err=err)
+    print(f"time selective_scan b={b} L={L} d={d} n={n}: kernel {ms:.6g} ms, plain "
+          f"version {plain:.6g} ms, library call none, bound {row['bound_ms']:.6g} ms "
+          f"by {row['bound_by']} ({row['nbytes']} B take {row['t_bytes']:.6g} ms; "
+          f"{row['exps']} exp take {row['exps'] / SFU_PER_S * 1e3:.6g} ms; "
+          f"{row['flops']} f32 FLOP take {row['flops'] / FP32_FLOPS * 1e3:.6g} ms) "
+          f"[{card}]", flush=True)
+    if row["nbytes"] != sum(t.numel() * 4 for t in args) + y.numel() * 4:
+        raise AssertionError("scan_bound counts other bytes than the call moves")
+    del args, y, h, yp, hp
+    b, L = SERVE_BATCH, PROMPT_LEN
+    args = scan_inputs(gen, b, L, d, n, dev)
+    y, h = sk.selective_scan(*args, return_state=True)
+    yp, hp = sr.selective_scan_plain(*args, return_state=True)
+    row["err"] = max(row["err"], check_close(
+        f"selective_scan y at the serving prefill's shape b={b} L={L} d={d} n={n}", y, yp,
+        SCAN_TOL, card), check_close("selective_scan state at the serving prefill's shape",
+                                     h, hp, SCAN_TOL, card))
+    return row
+
+
+def silu_cost(dev, card, common, cfg) -> dict:
+    """What the Mamba1 block's bf16 SiLU in the reference's rounding steps
+    (``common.silu``, taken once a layer for the reference's loss parity)
+    costs beside ``F.silu`` on the same input at the loss shape: launches
+    (from a profiler trace of one call) and time (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = randn(gen, (LOSS_BATCH, LOSS_LEN, cfg.inner), "bfloat16", dev)
+
+    def kernels_in_trace(fn, calls):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if phase == "prefill":
-                logits, cache = api.prefill(params, {"tokens": prompts},
-                                            max_len=PROMPT_LEN + 8)
-                tok = torch.argmax(logits, dim=-1)[:, None]
-            else:
-                for i in range(4):
-                    logits, cache = api.decode_step(params, tok, cache, PROMPT_LEN + i)
-                    tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+            for _ in range(calls):
+                fn(x)
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", None) or \
-                getattr(e, "self_cuda_time_total", 0.0)
-
-        busy_us = sum(dev_us(e) for e in kernels)
-        top = sorted(kernels, key=dev_us, reverse=True)[:6]
-        out[phase] = {
-            "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3 if busy_us else None,
-            "device_idle_share": 1.0 - busy_us / wall_us if busy_us else None,
-            "kernel_launches": sum(e.count for e in kernels),
-            "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
-                             "count": e.count} for e in top],
-        }
-        share = out[phase]["device_idle_share"]
-        print(f"profile {phase} (b={SERVE_BATCH}): wall {wall_us / 1e3:.6g} ms, "
-              f"device busy {busy_us / 1e3:.6g} ms, idle share "
-              f"{'not measured' if share is None else f'{share:.4f}'}, "
-              f"{out[phase]['kernel_launches']} kernel launches [{card}]",
-              flush=True)
-        for e in top:
-            print(f"  {dev_us(e) / 1e3:10.4f} ms x{e.count:5d}  {e.key[:90]}", flush=True)
+    out = {}
+    for name, fn in (("stepwise", common.silu), ("F.silu", F.silu)):
+        fn(x)
+        # a fresh trace can miss its first kernel: count the 10 calls that a
+        # trace of 11 holds beyond a trace of 1
+        launches = (kernels_in_trace(fn, 11) - kernels_in_trace(fn, 1)) / 10
+        out[name] = {"launches": launches, "ms": cuda_ms(lambda: fn(x), reps=20)}
+    extra = out["stepwise"]["ms"] - out["F.silu"]["ms"]
+    print(f"silu bf16 ({LOSS_BATCH}, {LOSS_LEN}, {cfg.inner}): stepwise "
+          f"{out['stepwise']['launches']:g} launches {out['stepwise']['ms']:.6g} ms, F.silu "
+          f"{out['F.silu']['launches']:g} launches {out['F.silu']['ms']:.6g} ms; the "
+          f"stepwise form adds {extra:.6g} ms a layer, {extra * cfg.n_layers:.6g} ms a "
+          f"loss forward [{card}]", flush=True)
     return out
+
+
+def falcon_slice_check(dev, card, get_api, lm) -> dict:
+    """Phase 11: reduced falcon-mamba on the card (the scan kernel) against
+    the same paths on the CPU (its plain version), same weights and
+    tokens: ``api.loss`` and the forward's logits over 128 tokens, then a
+    prefill of 128 tokens and 4 teacher-forced decode steps."""
+    import numpy as np
+    import torch
+    api = get_api(FM_ARCH, reduced=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, api.cfg.vocab, (2, 133)))
+    outs = []
+    for where in ("cpu", dev):
+        params = api.init(0, "cpu").to(where)
+        t = toks.to(where)
+        batch = {"tokens": t[:, :128], "labels": t[:, 1:129]}
+        loss, _ = api.loss(params, batch)
+        got = [loss.reshape(1).cpu(),
+               lm.lm_forward(params, api.cfg, batch["tokens"]).float().cpu()]
+        lg, cache = api.prefill(params, {"tokens": t[:, :128]})
+        got.append(lg.float().cpu())
+        for i in range(4):
+            lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+            got.append(lg[:, 0].float().cpu())
+        outs.append(got)
+    loss_err = abs(float(outs[0][0] - outs[1][0]))
+    logit_err = max(float((a - b).abs().max()) for a, b in zip(outs[0][1:], outs[1][1:]))
+    mean_err = float((outs[0][1] - outs[1][1]).abs().mean())
+    if not all(bool(torch.isfinite(b).all()) for b in outs[1]) or \
+            loss_err >= FM_LOSS_TOL or logit_err >= FM_LOGIT_TOL or \
+            mean_err >= FM_LOGIT_MEAN:
+        raise AssertionError(f"reduced falcon-mamba on the card differs from the CPU: "
+                             f"loss by {loss_err}, logits by {logit_err} (forward's "
+                             f"mean {mean_err})")
+    print(f"slice reduced {FM_ARCH} b=2: loss over 128 tokens, card vs CPU |err| "
+          f"{loss_err:.6g} < {FM_LOSS_TOL}; forward, prefill 128 + 4 decode steps max "
+          f"|logit err| {logit_err:.6g} < {FM_LOGIT_TOL}; forward's mean |logit err| "
+          f"{mean_err:.6g} < {FM_LOGIT_MEAN} [{card}]", flush=True)
+    return {"loss_err": loss_err, "logit_err": logit_err, "mean_logit_err": mean_err}
+
+
+def falcon_loss(dev, card, api, scan_counts, zero_counts, others) -> dict:
+    """Phase 12, the main path: ``api.loss`` of falcon-mamba-7b at full
+    width (bf16 weights from seed 0) on b=4 x 4096 tokens under
+    ``torch.inference_mode()``; counts zeroed just before and read just
+    after; then a profiler trace of one more forward."""
+    import torch
+    cfg = api.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init(gen, dev)
+    toks = torch.randint(0, cfg.vocab, (LOSS_BATCH, LOSS_LEN + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.inference_mode():
+        api.loss(params, {k: v[:1, :256] for k, v in batch.items()})   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        loss, parts = api.loss(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = scan_counts["selective_scan"]
+        stray = {k: v for c in others for k, v in c.items() if v}
+        peak = torch.cuda.max_memory_allocated(dev)
+        value = float(loss)
+        if launches != cfg.n_layers or stray:
+            raise AssertionError(f"the loss forward launched selective_scan {launches} "
+                                 f"times (and {stray}), expected {cfg.n_layers}")
+        if not (torch.isfinite(loss) and float(parts["aux"]) == 0.0):
+            raise AssertionError(f"loss {value}, aux {float(parts['aux'])}")
+        ntok = LOSS_BATCH * LOSS_LEN
+        res = {"arch": FM_ARCH, "params": api.n_params(), "batch": LOSS_BATCH,
+               "seq_len": LOSS_LEN, "loss": value, "wall_s": wall,
+               "tokens_per_s": ntok / wall, "peak_mem_bytes": peak,
+               "selective_scan_launches": launches, "card": card}
+        print(f"loss {FM_ARCH} b={LOSS_BATCH} L={LOSS_LEN}: loss {value:.6g} (finite), "
+              f"wall {wall:.6g} s, {ntok / wall:.6g} tokens/s, peak memory {peak} B, "
+              f"selective_scan launches {launches} [{card}]", flush=True)
+        res["profile"] = trace(f"{FM_ARCH} loss forward (b={LOSS_BATCH}, L={LOSS_LEN})",
+                               lambda: api.loss(params, batch), card)
+    return res
+
+
+def falcon_serving(dev, card, serve, api, scan_counts, zero_counts, others) -> dict:
+    """Phase 13, the serving path: ``serve_batch(falcon-mamba-7b)`` at full
+    width, b=8, prompt 2048, 128 new tokens; counts zeroed just before and
+    read just after (64 scan launches, all in the prefill: decode is plain
+    ops), then a trace of a prefill and 4 decode steps."""
+    import torch
+    cfg = api.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens, t_prefill, t_decode = serve.serve_batch(
+        FM_ARCH, reduced=False, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+        gen_tokens=GEN_TOKENS, seed=0)
+    wall = time.perf_counter() - t0
+    launches = scan_counts["selective_scan"]
+    stray = {k: v for c in others for k, v in c.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != cfg.n_layers or stray:
+        raise AssertionError(f"serving launched selective_scan {launches} times (and "
+                             f"{stray}), expected {cfg.n_layers}")
+    if tokens.shape != (SERVE_BATCH, GEN_TOKENS) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"bad generated tokens {tokens.shape}")
+    tps = SERVE_BATCH * (GEN_TOKENS - 1) / t_decode
+    print(f"serve {FM_ARCH} b={SERVE_BATCH} prompt {PROMPT_LEN} gen {GEN_TOKENS}: "
+          f"prefill {t_prefill:.6g} s, decode {t_decode:.6g} s ({tps:.6g} tok/s), "
+          f"peak memory {peak} B, selective_scan launches {launches} [{card}]",
+          flush=True)
+    prof = serving_profile(dev, card, serve, api, scan_counts)
+    if prof["prefill"]["launches"]["selective_scan"] != cfg.n_layers or \
+            prof["decode"]["launches"]["selective_scan"] != 0:
+        raise AssertionError(f"scan launches by window: {prof}")
+    return {"arch": FM_ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
+            "gen_tokens": GEN_TOKENS, "prefill_s": t_prefill, "decode_s": t_decode,
+            "decode_tok_per_s": tps, "serve_batch_wall_s": wall, "peak_mem_bytes": peak,
+            "selective_scan_launches": launches,
+            "launches_by_window": {k: v["launches"] for k, v in prof.items()},
+            "profile": prof, "card": card}
 
 
 def main() -> int:
@@ -495,10 +803,11 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.placement import build, kernel, ops, ref
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
 
     counters = (kernel.LAUNCHES, flash_kernel.LAUNCHES, dec_kernel.LAUNCHES,
-                ssd_kernel.LAUNCHES)
+                ssd_kernel.LAUNCHES, scan_kernel.LAUNCHES)
 
     def zero_counts():
         for c in counters:
@@ -515,9 +824,10 @@ def main() -> int:
     # ---- 1. build: one nvcc per source, all started together ----------
     t0 = time.perf_counter()
     kbuild.build_all([(build.SOURCE, build.NVCC_FLAGS)] + [
-        (m.SOURCE, kbuild.NVCC_FLAGS) for m in (flash_kernel, dec_kernel, ssd_kernel)],
-        verbose=True)
-    for lib in (build.lib, flash_kernel.lib, dec_kernel.lib, ssd_kernel.lib):
+        (m.SOURCE, kbuild.NVCC_FLAGS)
+        for m in (flash_kernel, dec_kernel, ssd_kernel, scan_kernel)], verbose=True)
+    for lib in (build.lib, flash_kernel.lib, dec_kernel.lib, ssd_kernel.lib,
+                scan_kernel.lib):
         lib()
     for name, st in kbuild.BUILD_STATS.items():
         print(f"build {name}: nvcc {st['builds']} build(s), {st['seconds']:.2f} s "
@@ -767,9 +1077,11 @@ def main() -> int:
     # the decode steps
     want = {"flash_attention": napp, "ssd": cfg.n_layers,
             "decode_attention": napp * (GEN_TOKENS - 1)}
-    if zlaunches != want or any(kernel.LAUNCHES.values()):
+    if zlaunches != want or any(kernel.LAUNCHES.values()) or \
+            any(scan_kernel.LAUNCHES.values()):
         raise AssertionError(f"serving launched {zlaunches} (placement "
-                             f"{dict(kernel.LAUNCHES)}), expected {want}")
+                             f"{dict(kernel.LAUNCHES)}, scan {scan_kernel.LAUNCHES}), "
+                             f"expected {want}")
     if tokens.shape != (SERVE_BATCH, GEN_TOKENS) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab:
         raise AssertionError(f"bad generated tokens {tokens.shape}")
@@ -802,8 +1114,38 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
 
     # ---- 9. where the serving time goes: a profiler trace -----------------
-    print(json.dumps({"profile": zamba2_profile(dev, card, serve, get_api(ARCH))}),
+    print(json.dumps({"profile": serving_profile(dev, card, serve, get_api(ARCH))}),
           flush=True)
+
+    # ---- 10. the scan kernel against its plain version, and its time -------
+    from repro_torch.kernels.selective_scan import ref as scan_ref
+    from repro_torch.models import common, lm
+    fm_api = get_api(FM_ARCH)
+    scan_row = falcon_scan(dev, card, scan_kernel, scan_ref, fm_api.cfg)
+    silu = silu_cost(dev, card, common, fm_api.cfg)
+
+    # ---- 11. the reduced falcon-mamba slice, card against CPU --------------
+    fm_slice = falcon_slice_check(dev, card, get_api, lm)
+
+    # ---- 12. main path: falcon-mamba-7b's loss forward at full width -------
+    others = [c for c in counters if c is not scan_kernel.LAUNCHES]
+    fm_loss = falcon_loss(dev, card, fm_api, scan_kernel.LAUNCHES, zero_counts, others)
+    fm_loss["slice"] = fm_slice
+    fm_loss["silu_cost"] = silu
+    print(json.dumps({"falcon_loss": fm_loss}), flush=True)
+
+    # ---- 13. falcon-mamba-7b serving at full width ---------------------------
+    torch.cuda.empty_cache()
+    fm_serving = falcon_serving(dev, card, serve, fm_api, scan_kernel.LAUNCHES,
+                                zero_counts, others)
+    print(json.dumps({"falcon_serving": fm_serving}), flush=True)
+    kernels.append({
+        "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:23",
+        "launches": fm_loss["selective_scan_launches"], "max_abs_err": scan_row["err"],
+        "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
+        "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     # the run used one card (cuda:0), whatever else the host has

@@ -77,7 +77,7 @@ def _tensor(arr, device) -> torch.Tensor:
 def lm_params_from_numpy(tree, cfg, device="cpu", dtype=None):
     """The port's parameter tables from the reference's parameter tree
     (nested dicts of numpy arrays, ``tree["layers"]`` stacked along a
-    leading layers axis).  Weights the model casts at use are stored in
+    leading layers axis), for either family the port serves.  Weights the model casts at use are stored in
     ``dtype`` (default float32, the reference's masters); the float32
     leaves stay float32.  Every shape is checked against the port's specs.
     """
@@ -127,6 +127,7 @@ def _stack(per: list):
 
 
 def lm_cache_from_numpy(cache, device="cpu") -> dict:
-    """The reference's serving cache (dict of numpy arrays) as tensors,
-    dtypes kept (bfloat16 buffers stay bfloat16)."""
+    """The reference's serving cache (dict of numpy arrays: zamba2's conv,
+    h and shared k/v, or falcon-mamba's conv and h) as tensors, dtypes
+    kept (bfloat16 buffers stay bfloat16)."""
     return {k: _tensor(v, device) for k, v in cache.items()}

@@ -1,7 +1,10 @@
-"""Batched serving: prefill a prompt batch, decode greedily.
+"""Batched serving: prefill a prompt batch, decode greedily, for the
+families the port serves: zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 8 --prompt-len 2048 --gen 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --reduced --device cpu
 
 Mesh-free: one card (``device=None``) or, when asked by name, the CPU.
 Weights and prompts are drawn from one ``torch.Generator`` seeded with

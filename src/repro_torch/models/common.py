@@ -1,5 +1,5 @@
 """Shared model substrate: the parameter spec table, initialisation,
-norms, RoPE and vocab padding.
+norms, RoPE, vocab padding and the cross-entropy loss.
 
 A spec records what the port needs to make a parameter of its own:
 shape, init kind, fan-in and whether the weight is cast to the
@@ -127,6 +127,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (y * (1.0 + scale.float())).to(dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU in the reference's steps: ``x * logistic(x)`` with the logistic
+    expanded to ``1 / (1 + exp(-x))``, each step rounded to ``x``'s dtype,
+    as XLA lowers ``jax.nn.silu`` (in bf16 this rounds four times where
+    ``F.silu`` rounds once; in float32 the two agree to an ulp, so float32
+    callers take ``F.silu``, which is one launch where this is five)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
     half = x.shape[-1] // 2
@@ -142,3 +151,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
     return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       true_vocab: int) -> torch.Tensor:
+    """Mean CE over positions with label >= 0; padded vocab entries masked
+    (the reference's ``cross_entropy_loss``).  The label logit is gathered
+    rather than picked by an iota mask of the logits' shape, which gives
+    the same value; beside the float32 logits the loss holds one more
+    logits-sized tensor (the shifted exponentials, taken in place)."""
+    logits = logits.float()
+    vocab = logits.shape[-1]
+    if vocab > true_vocab:
+        keep = torch.arange(vocab, device=logits.device) < true_vocab
+        logits = torch.where(keep, logits, -1e30)
+    m = logits.amax(dim=-1)
+    lse = m + torch.log((logits - m[..., None]).exp_().sum(dim=-1))
+    ll = logits.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

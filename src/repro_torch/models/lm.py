@@ -1,17 +1,20 @@
-"""Decoder-only LM assembly, the hybrid family (zamba2), inference only.
+"""Decoder-only LM assembly for the hybrid (zamba2) and ssm (falcon-mamba)
+families, inference only.
 
 Entry points:
   lm_forward     — forward over a sequence -> logits (b, s, V)
+  lm_loss        — the cache-free forward, then next-token CE (+ aux)
   lm_prefill     — forward over a prompt -> (last logits, caches)
   lm_decode_step — single-token step against the caches
 
 Zamba2 runs its layers in groups: the shared attention block (input
 concat(x, x0) at width 2d, output back to d) once per group, then
-``shared_attn_every`` Mamba2 layers.  The layers are an
-``nn.ModuleList`` of per-layer parameter tables (the reference scans a
-stacked tree).  The other families, the training loss, remat and
-sharding (the reference's ``remat=`` and ``shd=``) belong to later
-slices of the port and raise ``NotImplementedError``.
+``shared_attn_every`` Mamba2 layers.  Falcon-mamba runs its Mamba1
+layers one after the other.  The layers are an ``nn.ModuleList`` of
+per-layer parameter tables (the reference scans a stacked tree).  The
+other families, gradients, remat and sharding (the reference's
+``remat=`` and ``shd=``) belong to later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,19 +25,29 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamSpec, pad_vocab, rms_norm, stacked
+from repro_torch.models.common import (
+    ParamSpec,
+    cross_entropy_loss,
+    pad_vocab,
+    rms_norm,
+    stacked,
+)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 COMPUTE_DTYPE = torch.bfloat16
 
 
-def require_hybrid(cfg: ArchConfig) -> None:
-    if cfg.family != "hybrid":
+#: The families the port serves.
+FAMILIES = ("hybrid", "ssm")
+
+
+def require_served(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
-            "serves the hybrid family (zamba2).  falcon-mamba's cache-free "
-            "forward is the next slice, then the dense, MoE, VLM and enc-dec "
+            "serves the hybrid (zamba2) and ssm (falcon-mamba) families.  The "
+            "dense family is the next slice, then the MoE, VLM and enc-dec "
             "families"
         )
 
@@ -51,8 +64,9 @@ def _norm_spec(d):
 
 
 def _layer_specs(cfg: ArchConfig) -> dict[str, Any]:
-    require_hybrid(cfg)
-    return {"ln": _norm_spec(cfg.d_model), "mamba": ssm_mod.mamba2_specs(cfg)}
+    require_served(cfg)
+    mamba = ssm_mod.mamba1_specs if cfg.family == "ssm" else ssm_mod.mamba2_specs
+    return {"ln": _norm_spec(cfg.d_model), "mamba": mamba(cfg)}
 
 
 def _wide_cfg(cfg: ArchConfig) -> ArchConfig:
@@ -100,6 +114,12 @@ def n_shared_apps(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _ssm_layer(pl, x, cfg, collect):
+    h = rms_norm(x, pl["ln"], cfg.norm_eps)
+    out, state = ssm_mod.mamba1_apply(pl["mamba"], h, cfg, return_cache=collect)
+    return x + out, state
+
+
 def _hybrid_layer(pl, x, cfg, collect):
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
     out, state = ssm_mod.mamba2_apply(pl["mamba"], h, cfg, return_cache=collect)
@@ -130,16 +150,24 @@ def _logits(params, cfg, x):
 
 
 def _backbone(params, cfg: ArchConfig, tokens, cache=None):
-    """Embed and run every group; with ``cache`` (from ``init_cache``),
-    write each layer's conv tail and state and each shared application's
-    k/v into it.  Returns the last hidden states (b, s, d)."""
-    require_hybrid(cfg)
+    """Embed and run every layer (zamba2: every group); with ``cache``
+    (from ``init_cache``), write each layer's conv tail and state and each
+    shared application's k/v into it.  Returns the last hidden states
+    (b, s, d)."""
+    require_served(cfg)
+    x = embed_tokens(params, tokens)
+    collect = cache is not None
+    if not cfg.shared_attn_every:
+        for li in range(cfg.n_layers):
+            x, entry = _ssm_layer(params["layers"][li], x, cfg, collect)
+            if collect:
+                cache["conv"][li] = entry["conv"]
+                cache["h"][li] = entry["h"]
+        return x
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = embed_tokens(params, tokens)
     x0 = x
     every = cfg.shared_attn_every
-    collect = cache is not None
     for g in range(n_shared_apps(cfg)):
         x, kv = _shared_block(params["shared"], x, x0, cfg, positions, collect)
         if collect:
@@ -159,8 +187,21 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False):
     return _logits(params, cfg, _backbone(params, cfg, tokens))
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError("lm_loss (training) belongs to a later slice of the port")
+def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
+    """The cache-free forward over ``batch["tokens"]``, then the mean
+    next-token CE over ``batch["labels"]`` (positions labelled -1 do not
+    count) plus 0.01 x the MoE aux loss, which is 0 for the families the
+    port serves.  Returns (loss, {"ce", "aux"}).  Forward only: parameters
+    that require a gradient raise (the trainer is a later slice)."""
+    _mesh_free(shd, remat)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        raise NotImplementedError(
+            "gradients belong to the training slice, a later slice of the port: "
+            "lm_loss runs the forward only")
+    logits = lm_forward(params, cfg, batch["tokens"])
+    ce = cross_entropy_loss(logits, batch["labels"], cfg.vocab)
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +211,16 @@ def lm_loss(*args, **kwargs):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=COMPUTE_DTYPE,
                device="cpu"):
-    require_hybrid(cfg)
+    """Per layer the conv tail and the state; zamba2 adds the shared
+    block's k/v at ``max_len``, which falcon-mamba does not use."""
+    require_served(cfg)
     L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    c = ssm_mod.mamba2_init_cache(cfg, batch, dtype, device)
+    init = ssm_mod.mamba1_init_cache if cfg.family == "ssm" else ssm_mod.mamba2_init_cache
+    c = init(cfg, batch, dtype, device)
     base = {k: torch.zeros((L,) + tuple(v.shape), dtype=v.dtype, device=device)
             for k, v in c.items()}
+    if cfg.family == "ssm":
+        return base
     napp = n_shared_apps(cfg)
     for name in ("shared_k", "shared_v"):
         base[name] = torch.zeros((napp, batch, max_len, kv, hd), dtype=dtype,
@@ -220,12 +266,23 @@ def _decode_attn(p_attn, x_norm, kc, vc, pos, positions, cache_len, qk_cfg):
 def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None):
     """tokens: (b, 1); pos: the position being written -> (logits (b, 1, V),
     cache).  The cache is updated in place (the same dict is returned):
-    the token's k/v at ``pos`` and every layer's conv tail and state."""
-    require_hybrid(cfg)
+    every layer's conv tail and state, and (zamba2) the token's k/v at
+    ``pos``."""
+    require_served(cfg)
     _mesh_free(shd)
+    x = embed_tokens(params, tokens)
+    if cfg.family == "ssm":
+        for li in range(cfg.n_layers):
+            pl = params["layers"][li]
+            hh = rms_norm(x, pl["ln"], cfg.norm_eps)
+            out, c2 = ssm_mod.mamba1_decode_step(
+                pl["mamba"], hh, {"conv": cache["conv"][li], "h": cache["h"][li]}, cfg)
+            cache["conv"][li] = c2["conv"]
+            cache["h"][li] = c2["h"]
+            x = x + out
+        return _logits(params, cfg, x), cache
     pos = int(pos)
     b = tokens.shape[0]
-    x = embed_tokens(params, tokens)
     x0 = x
     positions = torch.full((1, 1), pos, device=tokens.device)
     cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=tokens.device)

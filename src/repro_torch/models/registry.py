@@ -1,8 +1,9 @@
-"""Model API over the families the port serves (the hybrid family).
+"""Model API over the families the port serves (hybrid and ssm).
 
 ``get_config`` reads an architecture whose config the port keeps
-(``repro_torch/configs/``: zamba2-2.7b, and granite-3-2b of the dense
-family); each later slice adds the configs of the family it serves.
+(``repro_torch/configs/``: zamba2-2.7b, falcon-mamba-7b, and granite-3-2b
+of the dense family); each later slice adds the configs of the family it
+serves.
 ``get_api`` raises ``NotImplementedError``, naming the later slice, for a
 family the port does not serve yet.
 """
@@ -57,12 +58,14 @@ class ModelAPI:
     def init_cache(self, batch: int, max_len: int, device=None):
         return lm.init_cache(self.cfg, batch, max_len, device=resolve_device(device))
 
-    def loss(self, *args, **kwargs):
-        return lm.lm_loss(*args, **kwargs)
+    def loss(self, params, batch: dict, *, shd=None):
+        """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``),
+        forward only."""
+        return lm.lm_loss(params, self.cfg, batch, shd=shd)
 
 
 def build_api(cfg: ArchConfig) -> ModelAPI:
-    lm.require_hybrid(cfg)
+    lm.require_served(cfg)
     return ModelAPI(cfg)
 
 

@@ -1,18 +1,22 @@
-"""State-space blocks: the Mamba2 block (zamba2) and its causal conv.
+"""State-space blocks: the Mamba1 block (falcon-mamba), the Mamba2 block
+(zamba2) and their causal conv.
 
-The full-sequence path runs the SSD op (the hand-written kernel on the
-card, the sequential recurrence on the CPU) on the pre-weighted inputs
-the reference's kernel route builds (``ssm.py`` of the reference,
-``mamba2_apply``'s kernel branch).  Decode is plain ops, as in the
-reference.  Mamba1 waits for a later slice.
+Each full-sequence path takes the op order of the reference's kernel
+branch (``ssm.py`` of the reference: ``mamba1_apply``'s and
+``mamba2_apply``'s) and runs its scan op: the hand-written kernel on the
+card, the sequential recurrence on the CPU.  One route serves every
+length; with ``return_cache`` the same op also returns the final state
+(the reference's XLA path, an associative or chunked scan, computes the
+same function).  Decode is plain ops, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.selective_scan.ops import selective_scan_op
 from repro_torch.kernels.ssd.ops import ssd_op
-from repro_torch.models.common import ParamSpec, rms_norm
+from repro_torch.models.common import ParamSpec, rms_norm, silu
 from repro_torch.models.config import ArchConfig
 
 
@@ -30,6 +34,88 @@ def _causal_conv(x, w, b, state=None):
     out = sum(xp[:, i:i + s] * w[None, None, :, width - 1 - i] for i in range(width))
     new_state = xp[:, -(width - 1):] if width > 1 else pad
     return out + b, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 (falcon-mamba)
+# ---------------------------------------------------------------------------
+
+
+def mamba1_specs(cfg: ArchConfig):
+    d, din, st, r, w = cfg.d_model, cfg.inner, cfg.ssm_state, cfg.dtrank, cfg.conv_width
+    return {
+        "in_proj": ParamSpec((d, 2 * din)),
+        "conv_w": ParamSpec((din, w), init="small"),
+        "conv_b": ParamSpec((din,), init="zeros"),
+        "x_proj": ParamSpec((din, r + 2 * st)),
+        "dt_w": ParamSpec((r, din)),
+        "dt_b": ParamSpec((din,), init="small", cast=False),
+        "A_log": ParamSpec((din, st), init="small", cast=False),
+        "D": ParamSpec((din,), init="ones", cast=False),
+        "out_proj": ParamSpec((din, d)),
+    }
+
+
+def _mamba1_dt_bc(p, xc, cfg: ArchConfig):
+    """x_proj and dt_w in the compute dtype, softplus in float32 ->
+    (dt (b, L, din) f32, B, C (b, L, st) in the compute dtype)."""
+    r, st = cfg.dtrank, cfg.ssm_state
+    dtv, B, C = torch.split(xc @ p["x_proj"].to(xc.dtype), [r, st, st], dim=-1)
+    dtv = dtv @ p["dt_w"].to(xc.dtype)
+    return F.softplus(dtv.float() + p["dt_b"]), B, C
+
+
+def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
+    """Full-sequence Mamba1 block. x: (b, s, d) -> ((b, s, d), cache|None).
+    The cache keeps the pre-conv tail of xin and the scan's final state."""
+    dt_ = x.dtype
+    xin, z = (x @ p["in_proj"].to(dt_)).chunk(2, dim=-1)
+    xc, _ = _causal_conv(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
+    xc = silu(xc)
+    dtv, B, C = _mamba1_dt_bc(p, xc, cfg)
+    A = -torch.exp(p["A_log"].float())
+    res = selective_scan_op(xc.float(), dtv, A, B.float(), C.float(), p["D"],
+                            return_state=return_cache)
+    y, h = res if return_cache else (res, None)
+    y = (y * F.silu(z.float())).to(dt_)
+    out = y @ p["out_proj"].to(dt_)
+    if not return_cache:
+        return out, None
+    w = cfg.conv_width
+    return out, {"conv": xin[:, -(w - 1):].to(dt_), "h": h}
+
+
+def mamba1_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device="cpu"):
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, cfg.inner, cfg.ssm_state), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def mamba1_decode_step(p, x, cache, cfg: ArchConfig):
+    """x: (b, 1, d) -> (y (b, 1, d), new cache)."""
+    dt_ = x.dtype
+    xin, z = (x @ p["in_proj"].to(dt_)).chunk(2, dim=-1)
+    xc, conv_state = _causal_conv(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_),
+                                  cache["conv"])
+    xc = silu(xc)
+    dtv, B, C = _mamba1_dt_bc(p, xc, cfg)
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dtv[..., None] * A)                                 # (b, 1, din, st)
+    bu = (dtv * xc.float())[..., None] * B.float()[:, :, None, :]
+    h = a[:, 0] * cache["h"] + bu[:, 0]
+    y = torch.einsum("bcs,bs->bc", h, C[:, 0].float())[:, None]
+    y = y + xc.float() * p["D"]
+    y = (y * F.silu(z.float())).to(dt_)
+    out = y @ p["out_proj"].to(dt_)
+    return out, {"conv": conv_state.to(cache["conv"].dtype), "h": h}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (zamba2)
+# ---------------------------------------------------------------------------
 
 
 def mamba2_specs(cfg: ArchConfig):

@@ -1,5 +1,5 @@
 """The port's shared nvcc builder (``repro_torch.kernels.build``) and the
-smoke run's operation count for the SSD bound, on the CPU.
+smoke run's operation counts for the SSD and selective-scan bounds, on the CPU.
 
 The builder is driven with a stand-in ``nvcc`` (a shell script under
 ``$CUDA_HOME/bin`` that writes its ``-o`` file, or fails), so these tests
@@ -122,3 +122,23 @@ def test_ssd_bound_counts_the_lesser_form(b, L, nh, hd, n, chunk, form):
     assert _chip_smoke().ssd_flops(b, L, nh, hd, n, chunk) == want
     if (b, L) == (8, 2048):
         assert want == 26_843_545_600
+
+
+@pytest.mark.parametrize("b,L,d,n,by", [
+    (4, 4096, 8192, 16, "operations"),   # falcon-mamba-7b's layer at the loss shape
+    (8, 2048, 8192, 16, "operations"),   # its prefill at the serving shape
+    (2, 1000, 520, 1, "bytes"),          # one state: the bytes dominate
+])
+def test_scan_bound_counts_the_function(b, L, d, n, by):
+    """Bytes of x, dt, A, B, C, D and y in f32; one exp per (token,
+    channel, state) at a sixteenth of the f32 rate; the larger time."""
+    cs = _chip_smoke()
+    r = cs.scan_bound(b, L, d, n)
+    assert r["nbytes"] == 4 * (3 * b * L * d + 2 * b * L * n + d * n + d)
+    assert r["exps"] == b * L * d * n
+    assert r["bound_by"] == by
+    assert r["bound_ms"] == max(r["nbytes"] / cs.HBM_BYTES_PER_S,
+                                r["exps"] * 16 / cs.FP32_FLOPS,
+                                r["flops"] / cs.FP32_FLOPS) * 1e3
+    if (b, L, d, n) == (4, 4096, 8192, 16):
+        assert r["exps"] == 2_147_483_648 and r["nbytes"] == 1_613_266_944

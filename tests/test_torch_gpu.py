@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each wrapper against its plain
 PyTorch version on the same inputs (the placement kernels bitwise, the
-attention and SSD kernels within the reference's tolerances), placement
-on the card against the reference's SoA engine, and the reduced zamba2
-slice on the card against the same slice on the CPU.  Marked ``gpu``;
+attention, SSD and selective-scan kernels within the reference's
+tolerances), placement on the card against the reference's SoA engine,
+and the reduced zamba2 and falcon-mamba slices on the card against the
+same slices on the CPU.  Marked ``gpu``;
 every test skips where there is no CUDA device (decided in the
 ``cuda_device`` fixture).  This file imports no JAX, so it runs on a GPU
 machine without it::
@@ -26,8 +27,11 @@ from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.placement import kernel, ops, ref
+from repro_torch.kernels.selective_scan import kernel as scan_kernel
+from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.models import lm
 from repro_torch.models.registry import get_api
 
 REGS = ("e_base", "nl", "g_base", "lk", "fw", "wt")
@@ -276,3 +280,96 @@ def test_reduced_zamba2_on_card_matches_cpu(cuda_device):
     for a, b_ in zip(*outs):
         assert torch.isfinite(b_).all()
         assert float((a - b_).abs().max()) < 0.15
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 selective scan (tolerance of tests/test_kernels.py: 1e-4)
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(gen, b, L, d, n, device):
+    x = torch.randn((b, L, d), generator=gen, device=device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, L, d), generator=gen, device=device) * 0.5 - 1)
+    A = -torch.exp(torch.randn((d, n), generator=gen, device=device) * 0.3)
+    B = torch.randn((b, L, n), generator=gen, device=device)
+    C = torch.randn((b, L, n), generator=gen, device=device)
+    D = torch.randn((d,), generator=gen, device=device)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,L,d,n", [
+    (2, 64, 128, 16),      # tests/test_kernels.py SCAN_CASES
+    (1, 128, 64, 8),
+    (1, 64, 256, 16),
+    (2, 130, 128, 8),      # the reduced config's widths, ragged L
+    (3, 1000, 200, 5),     # ragged L and d, a state that is not a multiple of 4
+    (1, 77, 96, 64),       # the largest state
+    (2, 40, 64, 1),
+])
+def test_selective_scan_kernel_matches_plain(cuda_device, b, L, d, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(L + d + n)
+    args = _scan_inputs(gen, b, L, d, n, cuda_device)
+    before = scan_kernel.LAUNCHES["selective_scan"]
+    y, h = scan_kernel.selective_scan(*args, return_state=True)
+    y_only = scan_kernel.selective_scan(*args)
+    yp, hp = scan_ref.selective_scan_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES["selective_scan"] == before + 2
+    assert y.shape == (b, L, d) and h.shape == (b, d, n)
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.gpu
+def test_selective_scan_rejects_cpu_tensors_and_gradients(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x, dt, A, B, C, D = _scan_inputs(gen, 1, 16, 64, 16, cuda_device)
+    before = scan_kernel.LAUNCHES["selective_scan"]
+    with pytest.raises(ValueError, match="B is on cpu"):
+        scan_kernel.selective_scan(x, dt, A, B.cpu(), C, D)
+    with pytest.raises(ValueError, match="state of 1 to"):
+        scan_kernel.selective_scan(x, dt, torch.zeros((64, 65), device=cuda_device),
+                                   torch.zeros((1, 16, 65), device=cuda_device),
+                                   torch.zeros((1, 16, 65), device=cuda_device), D)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        scan_kernel.selective_scan(x.requires_grad_(), dt, A, B, C, D)
+    assert scan_kernel.LAUNCHES["selective_scan"] == before
+
+
+@pytest.mark.gpu
+def test_reduced_falcon_mamba_on_card_matches_cpu(cuda_device):
+    """The loss forward and the serving path on the card (the scan kernel)
+    against the same paths on the CPU (its plain version), same weights
+    and tokens: loss within 4e-4, logits within 0.125 and the forward's
+    within 2e-3 on average, the strict-precision bounds of
+    tests/test_torch_falcon_mamba.py (both sides round bf16 at the same
+    places)."""
+    api = get_api("falcon-mamba-7b", reduced=True)
+    cpu_params = api.init(0, "cpu")
+    gpu_params = api.init(0, "cpu").to(cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, api.cfg.vocab, (2, 133)))
+    before = scan_kernel.LAUNCHES["selective_scan"]
+    outs = []
+    for params, dev in ((cpu_params, torch.device("cpu")), (gpu_params, cuda_device)):
+        t = toks.to(dev)
+        batch = {"tokens": t[:, :128], "labels": t[:, 1:129]}
+        loss, _ = api.loss(params, batch)
+        got = [loss.reshape(1).cpu(), lm.lm_forward(params, api.cfg, batch["tokens"])
+               .float().cpu()]
+        lg, cache = api.prefill(params, {"tokens": t[:, :128]})
+        got.append(lg.float().cpu())
+        for i in range(4):
+            lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+            got.append(lg[:, 0].float().cpu())
+        outs.append(got)
+    # a loss, a forward and a prefill, one launch a layer each
+    assert scan_kernel.LAUNCHES["selective_scan"] == before + 3 * api.cfg.n_layers
+    assert abs(float(outs[0][0] - outs[1][0])) < 4e-4
+    assert float((outs[0][1] - outs[1][1]).abs().mean()) < 2e-3
+    for a, b_ in zip(outs[0][1:], outs[1][1:]):
+        assert torch.isfinite(b_).all()
+        assert float((a - b_).abs().max()) < 0.125
