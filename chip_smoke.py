@@ -6,7 +6,12 @@
 1. Prints the card's name and power limit and builds every kernel of the
    port with nvcc, one process per source, all started together:
    ``placement.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
-   ``ssd.cu`` and ``selective_scan.cu``.
+   ``ssd.cu`` and ``selective_scan.cu``.  For the two attention libraries
+   it prints each kernel's registers, shared memory and spills
+   (``-Xptxas -v``) and its tensor-core (HMMA, HGMMA), asynchronous-copy
+   (LDGSTS, UTMALDG) and LDSM instruction counts (``cuobjdump -sass``),
+   and fails unless the bf16 flash kernels use the tensor cores and both
+   bf16 kernels copy asynchronously.
 
 The batch placement path (the first slice):
 
@@ -27,8 +32,11 @@ The zamba2-2.7b serving path (the second slice):
 
 5. Kernels against their plain versions on the card: flash attention at
    the shared block's width (b=2, s=2048, 32 heads of 80, bf16, causal)
-   and GQA, d=128, sq < sk and non-causal cases; flash-decode at b=8,
-   S=2176 with ragged ``cache_len``, a GQA case and a stale-tail case; the
+   and GQA, d=128, sq < sk and non-causal cases, and the bf16 kernel's
+   tile edges (one query row, 65 rows, 129 keys, ragged tiles, every
+   head_dim, groups of 4 and 8); flash-decode at b=8, S=2176 with ragged
+   ``cache_len``, a GQA case, a group of 16 and the f32 route at lengths
+   of 1 and around a split boundary, each also with a stale NaN tail; the
    SSD at b=2, L=2048, 80 heads of 64, state 64, chunk 128.  Tolerances
    are the reference's (``tests/test_kernels.py``): bf16 2e-2, f32 2e-5,
    SSD 5e-4 / 5e-3.
@@ -42,7 +50,9 @@ The zamba2-2.7b serving path (the second slice):
    decode steps); every logit finite.
 8. Timing with CUDA events after warm-up at the serving shapes (b=8),
    beside each plain version's time and the one-call PyTorch yardstick
-   (``scaled_dot_product_attention``) where there is one.
+   (``scaled_dot_product_attention``) where there is one, with the
+   achieved TFLOP/s and GB/s of the kernel and the yardstick beside the
+   bound.
 9. A ``torch.profiler`` trace of one prefill and 4 decode steps at the
    serving shapes: the device's busy and idle share and the kernels that
    take the most device time.
@@ -80,6 +90,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -133,6 +144,106 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+# SASS opcodes that show which units a kernel uses: tensor-core products
+# (HMMA from mma.sync, HGMMA from wgmma), asynchronous copies (LDGSTS from
+# cp.async, UTMALDG from TMA) and shared-memory matrix loads (LDSM)
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM")
+
+
+def kernel_label(mangled: str) -> str:
+    """``_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi80EEv...`` ->
+    ``flash_fwd_bf16_kernel<80>`` (the base name and the head_dim)."""
+    base, i = mangled[:60], 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[i:])):      # <length><identifier>, nested
+        i += m.end()
+        name, i = mangled[i:i + int(m.group())], i + int(m.group())
+        if name.endswith("_kernel"):
+            base = name
+            break
+    d = re.search(r"_kernelI\w*?Li(\d+)E", mangled)
+    tag = "bf16" if "_kernelI13__nv_bfloat16" in mangled else \
+        "f32" if "_kernelIf" in mangled else ""
+    args = ", ".join(x for x in (tag, d.group(1) if d else "") if x)
+    return f"{base}<{args}>" if args else base
+
+
+def ptxas_usage(report: str) -> dict:
+    """Per kernel (``kernel_label``) in an ``nvcc -Xptxas -v`` report:
+    registers, static shared memory and spill bytes."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {
+                "registers": 0, "static_smem": 0, "spill_stores": 0, "spill_loads": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_counts(sass: str) -> dict:
+    """Per kernel (``kernel_label``) in ``cuobjdump -sass`` output: the
+    count of each opcode of ``SASS_OPS``."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), dict.fromkeys(SASS_OPS, 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur is not None and m and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return out
+
+
+def kernel_resources(kbuild, card, flash_kernel, dec_kernel) -> dict:
+    """After a verbose build: each kernel of the two attention libraries
+    with its registers, static shared memory and spills (``-Xptxas -v``)
+    and its SASS counts (``cuobjdump -sass``), and the dynamic shared
+    memory each route asks at head_dim 80.  Raises unless every bf16 flash
+    kernel runs on the tensor cores (HMMA or HGMMA) and every bf16 kernel
+    of both copies asynchronously (LDGSTS or UTMALDG)."""
+    cuobjdump = pathlib.Path(kbuild.nvcc()).parent / "cuobjdump"
+    dyn = {flash_kernel: {"bf16": flash_kernel.lib().gf_flash_smem(80, 1),
+                          "f32": flash_kernel.lib().gf_flash_smem(80, 0)},
+           dec_kernel: {"bf16": dec_kernel.lib().gf_decode_smem(1, 80, 1),
+                        "f32": dec_kernel.lib().gf_decode_smem(1, 80, 0)}}
+    out = {}
+    for mod, smem in dyn.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(kbuild.library_path(mod.SOURCE))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        counts = sass_counts(sass)
+        usage = ptxas_usage(kbuild.BUILD_STATS[mod.SOURCE.name]["report"])
+        print(f"kernels of {mod.SOURCE.name}: dynamic shared memory at d=80 "
+              f"{smem['bf16']} B (bf16 route), {smem['f32']} B (f32 route) [{card}]",
+              flush=True)
+        for name in sorted(set(counts) | set(usage)):
+            row = {**usage.get(name, {}), **counts.get(name, {})}
+            out[name] = row
+            print(f"  {name}: {row.get('registers')} registers, static smem "
+                  f"{row.get('static_smem')} B, spills {row.get('spill_stores')}/"
+                  f"{row.get('spill_loads')} B; SASS "
+                  + ", ".join(f"{op} {row.get(op, 0)}" for op in SASS_OPS), flush=True)
+    for name, row in out.items():
+        bf16 = "_bf16_kernel" in name
+        if bf16 and name.startswith("flash") and not (row["HMMA"] or row["HGMMA"]):
+            raise AssertionError(f"{name} has no tensor-core instruction")
+        if bf16 and not (row["LDGSTS"] or row["UTMALDG"]):
+            raise AssertionError(f"{name} has no asynchronous copy")
+    if not any("_bf16_kernel" in n for n in out):
+        raise AssertionError("no bf16 attention kernel found in the libraries")
+    return out
 
 
 def base_machine(name: str) -> tuple[str, int]:
@@ -225,18 +336,31 @@ def device():
 # ---------------------------------------------------------------------------
 
 # (b, sq, sk, h, kv, d, causal, dtype name): the shared block's full width,
-# then GQA, d=128, sq < sk (bottom-right causal) and non-causal
+# then GQA, d=128, sq < sk (bottom-right causal) and non-causal; then the
+# bf16 kernel's tile edges (128 query rows a CTA, 32 a warp at d <= 80,
+# 64-key tiles): one query row, one row or key past a tile, ragged q and k
+# tiles, every head_dim, GQA groups of 4 and 8
 FLASH_CASES = [
     (2, 2048, 2048, 32, 32, 80, True, "bfloat16"),
     (2, 512, 512, 32, 8, 64, True, "bfloat16"),
     (1, 512, 512, 16, 16, 128, True, "float32"),
     (2, 256, 640, 8, 8, 80, True, "bfloat16"),
     (2, 384, 512, 8, 4, 80, False, "float32"),
+    (2, 1, 300, 8, 2, 80, True, "bfloat16"),
+    (1, 65, 65, 4, 4, 80, True, "bfloat16"),
+    (1, 129, 129, 32, 4, 64, True, "bfloat16"),
+    (2, 100, 229, 16, 2, 128, True, "bfloat16"),
+    (2, 130, 130, 4, 4, 16, True, "bfloat16"),
+    (2, 90, 333, 8, 1, 16, False, "bfloat16"),
 ]
-# (b, S, h, kv, d, dtype name): the serving cache with ragged lengths, GQA
+# (b, S, h, kv, d, dtype name, lengths): the serving cache with ragged
+# lengths, GQA; then a group of 16 and the f32 route with lengths of 1 and
+# around the first split boundary the wrapper plans ("edges")
 DECODE_CASES = [
-    (8, PROMPT_LEN + GEN_TOKENS, 32, 32, 80, "bfloat16"),
-    (4, 1000, 32, 8, 64, "bfloat16"),
+    (8, PROMPT_LEN + GEN_TOKENS, 32, 32, 80, "bfloat16", None),
+    (4, 1000, 32, 8, 64, "bfloat16", None),
+    (5, PROMPT_LEN + GEN_TOKENS, 16, 1, 128, "bfloat16", "edges"),
+    (5, 777, 8, 2, 80, "float32", "edges"),
 ]
 # (b, L, nh, hd, n, chunk): zamba2's Mamba2 layer at prompt length
 SSD_CASES = [(2, PROMPT_LEN, 80, 64, 64, 128)]
@@ -293,13 +417,18 @@ def zamba2_kernel_checks(dev, card, fk, fr, dk, dr, sk, sr) -> dict:
         e = check_close(f"flash_attention b={b} sq={sq} sk={skk} h={h} kv={kv} "
                         f"d={d} causal={causal} {dt}", got, want, TOLS[dt], card)
         errs["flash_attention"] = max(errs["flash_attention"], e)
-    for b, S, h, kv, d, dt in DECODE_CASES:
+    for b, S, h, kv, d, dt, edges in DECODE_CASES:
         q = randn(gen, (b, 1, h, d), dt, dev)
         kc = randn(gen, (b, S, kv, d), dt, dev)
         vc = randn(gen, (b, S, kv, d), dt, dev)
-        lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        lens[0] = S
+        if edges:
+            split = dk.plan_splits(b, S, h, kv, d)["split"]
+            lens = torch.tensor([1, split - 1, split, split + 1, S], dtype=torch.int32,
+                                device=dev)
+        else:
+            lens = torch.randint(1, S + 1, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            lens[0] = S
         got = dk.decode_attention(q, kc, vc, lens)
         want = dr.decode_attention_plain(q, kc, vc, lens)
         e = check_close(f"decode_attention b={b} S={S} h={h} kv={kv} d={d} {dt} "
@@ -352,11 +481,13 @@ def zamba2_slice_check(dev, card, get_api) -> float:
             lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
             got.append(lg[:, 0].float().cpu())
         outs.append(got)
-    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
+    err = max(errs)
     if not all(bool(torch.isfinite(b).all()) for b in outs[1]) or err >= SLICE_TOL:
         raise AssertionError(f"reduced zamba2 on the card differs from the CPU by {err}")
     print(f"slice reduced {ARCH} b=2 prefill 128 + 4 decode steps: card vs CPU "
-          f"max |logit err| {err:.6g} < {SLICE_TOL} [{card}]", flush=True)
+          f"max |logit err| {err:.6g} < {SLICE_TOL} (prefill {errs[0]:.6g}, decode "
+          f"steps {', '.join(f'{e:.6g}' for e in errs[1:])}) [{card}]", flush=True)
     return err
 
 
@@ -457,6 +588,17 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
               f"{r['plain_ms']:.6g} ms, library call {lib_txt}, bound "
               f"{r['bound_ms']:.6g} ms by {r['bound_by']} ({r['nbytes']} B, "
               f"{r['flops']} FLOP) [{card}]", flush=True)
+        # achieved rates: the function's operations and bytes over each time
+        r["tflops"] = r["flops"] / r["ms"] / 1e9
+        r["gbps"] = r["nbytes"] / r["ms"] / 1e6
+        lib_rate = (f"; the library call {r['flops'] / r['library_ms'] / 1e9:.6g} TFLOP/s, "
+                    f"{r['nbytes'] / r['library_ms'] / 1e6:.6g} GB/s, the kernel "
+                    f"{r['library_ms'] / r['ms']:.4g}x its speed"
+                    if r["library_ms"] is not None else "")
+        print(f"rate {name} b={b}: kernel {r['tflops']:.6g} TFLOP/s (peak "
+              f"{r['peak'] / 1e12:g}), {r['gbps']:.6g} GB/s (peak "
+              f"{HBM_BYTES_PER_S / 1e9:g}); {r['bound_ms'] / r['ms']:.4f} of its bound"
+              f"{lib_rate} [{card}]", flush=True)
     return rows
 
 
@@ -834,6 +976,7 @@ def main() -> int:
               f"[{card}]", flush=True)
     print(f"build: wall {time.perf_counter() - t0:.2f} s for "
           f"{len(kbuild.BUILD_STATS)} sources in parallel [{card}]", flush=True)
+    kernel_resources(kbuild, card, flash_kernel, dec_kernel)
 
     # ---- 2. kernel phase ------------------------------------------------
     def score_case(seed, n, ties):
@@ -1148,9 +1291,8 @@ def main() -> int:
         "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
-    # the run used one card (cuda:0), whatever else the host has
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": 1}}), flush=True)
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 
 #: Per source file name: ``builds`` nvcc runs and ``seconds`` spent in them
 #: (a library already built for this source and these flags is loaded,
-#: not counted).
+#: not counted), and after a ``verbose`` build nvcc's ``report``.
 BUILD_STATS: dict[str, dict] = {}
 
 _LIBS: dict[pathlib.Path, ctypes.CDLL] = {}
@@ -91,6 +91,7 @@ def build_all(jobs, verbose: bool = False) -> list[pathlib.Path]:
         st["builds"] += 1
         st["seconds"] += time.perf_counter() - t0
         if verbose:
+            st["report"] = stdout + stderr
             print(f"[nvcc {source.name}]\n{stdout}{stderr}", flush=True)
     if failed:
         raise RuntimeError("\n".join(failed))

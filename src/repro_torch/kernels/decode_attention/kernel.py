@@ -2,12 +2,15 @@
 (``csrc/decode_attention.cu``).
 
 The wrapper checks device, dtype, shape, contiguity and 16-byte
-alignment, allocates the output and the per-split partials with
-``torch.empty``, launches both passes on the current CUDA stream and
-raises if a launch was refused.  ``LAUNCHES`` counts wrapper calls that
-reach the kernel (one per call: the partial pass and its combine).  On
-CPU tensors it runs the plain version (``ref.decode_attention_plain``)
-instead and counts nothing.
+alignment, plans the splits (``plan_splits``), allocates the output and
+the per-split partials with ``torch.empty``, launches on the current CUDA
+stream and raises if a launch was refused.  The dtype picks the route
+before the launch: bf16 runs the tensor-core kernel, f32 the CUDA-core
+kernel (f32 products keep the f32 tolerance); a second launch merges the
+splits.  ``LAUNCHES`` counts wrapper calls that reach the kernel (one per
+call: the partial pass and its combine).  On CPU tensors it runs the
+plain version (``ref.decode_attention_plain``) instead and counts
+nothing.
 """
 from __future__ import annotations
 
@@ -23,7 +26,10 @@ SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "decode_attention.cu
 HEAD_DIMS = (16, 64, 80, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_GROUP = 16            # query heads per kv head (csrc MAXG)
-SPLIT = 256               # cache entries per split of the partial pass
+TILE = 64                 # keys a stage of the bf16 kernel's ring (csrc TILE)
+MIN_TILES = 4             # a split walks at least this many tiles
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+WAVES = 8                 # the grid fills every SM at least this many times
 MAX_SMEM_BYTES = 232448   # an H100 block's dynamic shared memory limit
 
 #: Kernel launches (plain-version calls are not counted).
@@ -32,7 +38,7 @@ LAUNCHES = {"decode_attention": 0}
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.gf_decode_smem.argtypes = [I, I]
+    lib.gf_decode_smem.argtypes = [I, I, I]
     lib.gf_decode_smem.restype = ctypes.c_size_t
     lib.gf_decode_attention.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, P]
     lib.gf_decode_attention.restype = I
@@ -40,6 +46,22 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def lib() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
+
+
+def plan_splits(b: int, S: int, h: int, kvh: int, d: int) -> dict:
+    """How the partial pass cuts a (b, S, kvh, d) cache: ``split`` keys a
+    split (whole tiles, at least ``MIN_TILES``), ``nsplit`` splits covering
+    [0, S) exactly once, ``ctas`` = b * kvh * nsplit (at least ``WAVES``
+    per SM where the cache is long enough), and the float32 workspace
+    shapes of the per-split partials (m, l, acc)."""
+    tiles = -(-S // TILE)
+    want = -(-WAVES * SMS // (b * kvh))        # splits per (row, kv head)
+    per = min(tiles, max(MIN_TILES, -(-tiles // want)))
+    split = per * TILE
+    nsplit = -(-S // split)
+    return {"split": split, "nsplit": nsplit, "ctas": b * kvh * nsplit,
+            "part_m": (b, h, nsplit), "part_l": (b, h, nsplit),
+            "part_acc": (b, h, nsplit, d)}
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):
@@ -67,19 +89,19 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     _build.check_tensor(v_cache, "v_cache", dev, (q.dtype,), (b, S, kvh, d), 16)
     _build.check_tensor(cache_len, "cache_len", dev, (torch.int32,), (b,))
     handle = lib()
-    smem = handle.gf_decode_smem(h // kvh, d)
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    smem = handle.gf_decode_smem(h // kvh, d, is_bf16)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention needs {smem} B of shared memory")
-    nsplit = -(-S // SPLIT)
-    part_m = torch.empty((b, h, nsplit), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, nsplit, d), dtype=torch.float32, device=dev)
+    plan = plan_splits(b, S, h, kvh, d)
+    part_m, part_l, part_acc = (torch.empty(plan[k], dtype=torch.float32, device=dev)
+                                for k in ("part_m", "part_l", "part_acc"))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = handle.gf_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        b, S, h, kvh, d, SPLIT, int(q.dtype == torch.bfloat16), d ** -0.5, stream,
+        b, S, h, kvh, d, plan["split"], is_bf16, d ** -0.5, stream,
     )
     _build.check(rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1

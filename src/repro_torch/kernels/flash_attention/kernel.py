@@ -1,11 +1,13 @@
 """Python wrapper of the hand-written flash-attention kernel
 (``csrc/flash_attention.cu``).
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output with ``torch.empty``, launches on the current CUDA stream and
-raises if the launch was refused.  ``LAUNCHES`` counts its launches.  On
-CPU tensors it runs the plain version (``ref.attention_plain``) instead
-and counts nothing.
+The wrapper checks device, dtype, shape, contiguity and (bf16) 16-byte
+alignment, allocates the output with ``torch.empty``, launches on the
+current CUDA stream and raises if the launch was refused.  The dtype
+picks the route before the launch: bf16 runs the tensor-core kernel, f32
+the CUDA-core kernel (f32 products keep the f32 tolerance).
+``LAUNCHES`` counts its launches.  On CPU tensors it runs the plain
+version (``ref.attention_plain``) instead and counts nothing.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ LAUNCHES = {"flash_attention": 0}
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
+    lib.gf_flash_smem.argtypes = [I, I]
+    lib.gf_flash_smem.restype = ctypes.c_size_t
     lib.gf_flash_attention.argtypes = [P] * 4 + [I] * 7 + [ctypes.c_float, I, P]
     lib.gf_flash_attention.restype = I
 
@@ -54,9 +58,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
         raise ValueError("flash_attention: empty sequence")
     if causal and sq > sk:
         raise ValueError(f"flash_attention: causal needs sq <= sk, got {sq} > {sk}")
-    _build.check_tensor(q, "q", dev, DTYPES)
-    _build.check_tensor(k, "k", dev, (q.dtype,), (b, sk, kvh, d))
-    _build.check_tensor(v, "v", dev, (q.dtype,), (b, sk, kvh, d))
+    # the bf16 route copies 16-byte chunks with cp.async
+    align = 16 if q.dtype == torch.bfloat16 else 1
+    _build.check_tensor(q, "q", dev, DTYPES, align=align)
+    _build.check_tensor(k, "k", dev, (q.dtype,), (b, sk, kvh, d), align)
+    _build.check_tensor(v, "v", dev, (q.dtype,), (b, sk, kvh, d), align)
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib().gf_flash_attention(

@@ -142,3 +142,54 @@ def test_scan_bound_counts_the_function(b, L, d, n, by):
                                 r["flops"] / cs.FP32_FLOPS) * 1e3
     if (b, L, d, n) == (4, 4096, 8192, 16):
         assert r["exps"] == 2_147_483_648 and r["nbytes"] == 1_613_266_944
+
+
+def _mangled(name: str, targs: str, ns: str = "_GLOBAL__N__8c2aef73_18_flash_attention_cu_bb5a16b1"):
+    """A kernel's name as nvcc mangles it inside an anonymous namespace."""
+    return f"_ZN{len(ns)}{ns}{len(name)}{name}I{targs}EEvPKfi"
+
+
+@pytest.mark.parametrize("targs,label", [
+    ("Li80E", "flash_fwd_bf16_kernel<80>"),
+    ("13__nv_bfloat16Li128E", "flash_fwd_bf16_kernel<bf16, 128>"),
+    ("fLi16E", "flash_fwd_bf16_kernel<f32, 16>"),
+])
+def test_kernel_label_reads_nvcc_names(targs, label):
+    assert _chip_smoke().kernel_label(_mangled("flash_fwd_bf16_kernel", targs)) == label
+
+
+def test_ptxas_and_sass_reports_are_read_per_kernel():
+    cs = _chip_smoke()
+    flash = _mangled("flash_fwd_bf16_kernel", "Li80E")
+    dec = _mangled("decode_bf16_kernel", "Li80E")
+    report = (
+        f"ptxas info    : Compiling entry function '{flash}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {flash}\n"
+        "    0 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 165 registers, 400 bytes cmem[0]\n"
+        f"ptxas info    : Compiling entry function '{dec}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 1024 bytes smem, 400 bytes cmem[0]\n"
+    )
+    assert cs.ptxas_usage(report) == {
+        "flash_fwd_bf16_kernel<80>": {"registers": 165, "static_smem": 0,
+                                      "spill_stores": 12, "spill_loads": 8},
+        "decode_bf16_kernel<80>": {"registers": 128, "static_smem": 1024,
+                                   "spill_stores": 0, "spill_loads": 0}}
+    sass = (
+        f"\t\tFunction : {flash}\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+        "        /*0100*/                   LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR4][R4.64] ;\n"
+        "        /*0110*/               @!P0 LDGSTS.E.BYPASS.LTC128B.128 [R3+0x80], desc[UR4][R6.64] ;\n"
+        "        /*0200*/                   LDSM.16.M88.4 R8, [R2] ;\n"
+        "        /*0210*/                   HMMA.16816.F32.BF16 R20, R8, R12, R20 ;\n"
+        "        /*0220*/                   HMMA.16816.F32.BF16 R24, R8, R14, R24 ;\n"
+        f"\t\tFunction : {dec}\n"
+        "        /*0000*/                   UTMALDG.2D [UR8], [UR4] ;\n"
+        "        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
+    )
+    counts = cs.sass_counts(sass)
+    assert counts["flash_fwd_bf16_kernel<80>"] == {
+        "HMMA": 2, "HGMMA": 0, "LDGSTS": 2, "UTMALDG": 0, "LDSM": 1}
+    assert counts["decode_bf16_kernel<80>"] == {
+        "HMMA": 0, "HGMMA": 1, "LDGSTS": 0, "UTMALDG": 1, "LDSM": 0}

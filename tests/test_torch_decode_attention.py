@@ -76,3 +76,35 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
     b_ = ref.decode_attention_plain(q, k, v, torch.from_numpy(lens))
     assert torch.equal(a, b_)
     assert kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b,S,h,kv,d", [
+    (8, 2176, 32, 32, 80),     # zamba2's serving cache: prompt 2048 + 128 generated
+    (1, 1, 4, 4, 64),          # one entry
+    (3, 300, 16, 1, 128),      # a GQA group of 16, S not a multiple of a tile
+    (2, 136, 8, 8, 16),        # the reduced config's cache
+    (1, 100_000, 8, 1, 128),   # a long cache, one kv head: many splits
+    (64, 4096, 32, 8, 128),    # a large batch: the grid is full without splitting much
+])
+def test_plan_splits_cover_the_cache_once(b, S, h, kv, d):
+    plan = kernel.plan_splits(b, S, h, kv, d)
+    split, nsplit = plan["split"], plan["nsplit"]
+    assert split % kernel.TILE == 0 and split >= kernel.TILE
+    starts = [i * split for i in range(nsplit)]
+    covered = np.concatenate([np.arange(s0, min(s0 + split, S)) for s0 in starts])
+    np.testing.assert_array_equal(covered, np.arange(S))   # each entry once, in order
+    assert plan["ctas"] == b * kv * nsplit
+    assert plan["part_m"] == plan["part_l"] == (b, h, nsplit)
+    assert plan["part_acc"] == (b, h, nsplit, d)
+    # a split walks at least MIN_TILES tiles unless the cache is shorter
+    assert split >= min(kernel.MIN_TILES * kernel.TILE, -(-S // kernel.TILE) * kernel.TILE)
+
+
+def test_plan_splits_fill_the_card_at_the_serving_shape():
+    """b=8, S=2176 with 2,112 live entries, 32 kv heads of 80: the live
+    splits alone give every one of 132 SMs several CTAs."""
+    b, S, h, kv, d, live = 8, 2176, 32, 32, 80, 2112
+    plan = kernel.plan_splits(b, S, h, kv, d)
+    live_ctas = b * kv * -(-live // plan["split"])
+    assert live_ctas >= kernel.WAVES * kernel.SMS >= 4 * 132
+    assert plan["nsplit"] > 1

@@ -75,3 +75,55 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
     b_ = ref.attention_plain(q, k, v, causal=True)
     assert torch.equal(a, b_)
     assert kernel.LAUNCHES == before
+
+
+def _tensor_core_route_emulated(q, k, v, causal, block_k=64):
+    """Test-only emulation of the bf16 kernel's arithmetic (``csrc/
+    flash_attention.cu``, the tensor-core route): f32 scores of the bf16
+    inputs, an online softmax in 64-key steps in the log2 domain with P
+    rounded to bf16 before P V, f32 row sums of the unrounded P and f32
+    accumulation.  Nothing in the package uses it."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(h // kv, dim=2).float()
+    v = v.repeat_interleave(h // kv, dim=2).float()
+    c = d ** -0.5 * float(np.log2(np.e))
+    m = torch.full((b, h, sq), ref.NEG_INF)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, d))
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    for k0 in range(0, sk, block_k):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, k0:k0 + block_k])
+        if causal:
+            keys = torch.arange(k0, k0 + s.shape[-1])[None, :]
+            s = torch.where(keys <= qpos, s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), v[:, k0:k0 + block_k])
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (2, 128, 256, 4, 2, 16),     # the reduced config's head_dim
+    (1, 128, 192, 8, 8, 80),     # zamba2's head_dim
+    (1, 64, 256, 8, 2, 128),
+])
+def test_tensor_core_rounding_of_p_within_bf16_tolerance(b, sq, sk, h, kv, d):
+    """The bf16 kernel's one change of precision, P rounded to bf16 before
+    P V, held against the JAX oracle and the Pallas kernel in interpret
+    mode at the bf16 tolerance, causal with sq < sk."""
+    (jq, jk, jv), (q, k, v) = _inputs(sq + sk + d, b, sq, sk, h, kv, d, "bfloat16")
+    got = _tensor_core_route_emulated(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, d)
+    tol = _tol("bfloat16")
+    np.testing.assert_allclose(_np(got), _np(attention_ref(jq, jk, jv, causal=True)), **tol)
+    pallas = pallas_flash(jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **tol)
+    # the rounding moves the output, but by less than a bf16 ulp of its scale
+    plain = ref.attention_plain(q, k, v, causal=True)
+    assert float((got.float() - plain.float()).abs().max()) < 2e-2

@@ -154,6 +154,20 @@ def _randn(gen, shape, dtype, device):
     (1, 100, 300, 4, 4, 80, True, torch.bfloat16),     # sq < sk, ragged tiles
     (2, 77, 77, 4, 4, 16, True, torch.float32),        # the reduced config's head_dim
     (1, 200, 130, 8, 2, 128, False, torch.bfloat16),
+    # the tensor-core route's tile edges (128 query rows a CTA, two m16
+    # tiles a warp at d <= 80, 64-key tiles)
+    (2, 1, 1, 4, 4, 64, True, torch.bfloat16),         # one query, one key
+    (2, 1, 300, 8, 2, 80, True, torch.bfloat16),       # one query row, sq < sk
+    (1, 65, 65, 4, 4, 80, True, torch.bfloat16),       # one row past a q tile
+    (1, 129, 129, 4, 1, 64, True, torch.bfloat16),     # one key past two tiles
+    (2, 100, 229, 8, 8, 80, True, torch.bfloat16),     # sq < sk, ragged q and k tiles
+    (2, 130, 130, 4, 4, 16, True, torch.bfloat16),     # the reduced config's head_dim
+    (1, 192, 192, 8, 8, 64, True, torch.bfloat16),
+    (1, 256, 320, 8, 8, 128, True, torch.bfloat16),
+    (2, 200, 200, 16, 4, 80, True, torch.bfloat16),    # GQA group 4
+    (1, 160, 300, 32, 4, 128, True, torch.bfloat16),   # GQA group 8, sq < sk
+    (2, 90, 333, 8, 1, 16, False, torch.bfloat16),     # non-causal, ragged keys
+    (8, 2048, 2048, 32, 32, 80, True, torch.bfloat16),  # zamba2's prefill shape
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
                                               causal, dtype):
@@ -177,6 +191,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
     (1, 512, 8, 1, 128, torch.float32),
     (3, 300, 16, 1, 128, torch.bfloat16),    # a GQA group of 16, ragged S
     (2, 64, 4, 4, 16, torch.float32),
+    (2, 1000, 16, 1, 80, torch.bfloat16),    # a GQA group of 16 at d=80
+    (4, 777, 8, 2, 64, torch.bfloat16),      # S not a multiple of the 64-key tile
+    (3, 200, 4, 4, 16, torch.bfloat16),      # the reduced config's head_dim
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, b, S, h, kv, d, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + h)
@@ -186,6 +203,28 @@ def test_decode_attention_kernel_matches_plain(cuda_device, b, S, h, kv, d, dtyp
     lens = torch.randint(1, S + 1, (b,), generator=gen, device=cuda_device,
                          dtype=torch.int32)
     lens[0] = S
+    before = dec_kernel.LAUNCHES["decode_attention"]
+    got = dec_kernel.decode_attention(q, kc, vc, lens)
+    want = dec_ref.decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert dec_kernel.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_at_split_edges(cuda_device, dtype):
+    """cache_len of 1, exactly on a split boundary, one past it, one short
+    of it, and the whole cache, for the split the wrapper plans."""
+    b, S, h, kv, d = 6, 2176, 8, 2, 80
+    split = dec_kernel.plan_splits(b, S, h, kv, d)["split"]
+    assert split < S
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q = _randn(gen, (b, 1, h, d), dtype, cuda_device)
+    kc = _randn(gen, (b, S, kv, d), dtype, cuda_device)
+    vc = _randn(gen, (b, S, kv, d), dtype, cuda_device)
+    lens = torch.tensor([1, split, split + 1, split - 1, 2 * split, S],
+                        dtype=torch.int32, device=cuda_device)
     before = dec_kernel.LAUNCHES["decode_attention"]
     got = dec_kernel.decode_attention(q, kc, vc, lens)
     want = dec_ref.decode_attention_plain(q, kc, vc, lens)
