@@ -7,11 +7,12 @@
    port with nvcc, one process per source, all started together:
    ``placement.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
    ``ssd.cu`` and ``selective_scan.cu``.  For the two attention libraries
-   it prints each kernel's registers, shared memory and spills
+   and the SSD it prints each kernel's registers, shared memory and spills
    (``-Xptxas -v``) and its tensor-core (HMMA, HGMMA), asynchronous-copy
    (LDGSTS, UTMALDG) and LDSM instruction counts (``cuobjdump -sass``),
-   and fails unless the bf16 flash kernels use the tensor cores and both
-   bf16 kernels copy asynchronously.
+   and fails unless the bf16 flash kernels and every SSD kernel use the
+   tensor cores and the bf16 attention kernels and every SSD kernel copy
+   asynchronously.
 
 The batch placement path (the first slice):
 
@@ -37,7 +38,8 @@ The zamba2-2.7b serving path (the second slice):
    head_dim, groups of 4 and 8); flash-decode at b=8, S=2176 with ragged
    ``cache_len``, a GQA case, a group of 16 and the f32 route at lengths
    of 1 and around a split boundary, each also with a stale NaN tail; the
-   SSD at b=2, L=2048, 80 heads of 64, state 64, chunk 128.  Tolerances
+   SSD at b=2, L=2048, 80 heads of 64, state 64, chunk 128, and at its
+   edges (one token, L=17 < chunk, hd = n = 128, n=8 at hd=16).  Tolerances
    are the reference's (``tests/test_kernels.py``): bf16 2e-2, f32 2e-5,
    SSD 5e-4 / 5e-3.
 6. The reduced zamba2 slice on the card against the same slice on the
@@ -52,7 +54,9 @@ The zamba2-2.7b serving path (the second slice):
    beside each plain version's time and the one-call PyTorch yardstick
    (``scaled_dot_product_attention``) where there is one, with the
    achieved TFLOP/s and GB/s of the kernel and the yardstick beside the
-   bound.
+   bound; the SSD's bound from ``ssd_bound_ms`` (bytes, or the faster of
+   its recurrence on the f32 cores and its chunked form as 3xTF32 on the
+   tensor cores) and its achieved 3xTF32 rate.
 9. A ``torch.profiler`` trace of one prefill and 4 decode steps at the
    serving shapes: the device's busy and idle share and the kernels that
    take the most device time.
@@ -111,6 +115,7 @@ CHECK_TASKS = 4096       # window of the kernel-vs-plain check
 HBM_BYTES_PER_S = 3.35e12   # device memory rate
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
 BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
+TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
 FP32_FLOPS = 67e12          # f32 outside the tensor cores
 # exp on the special-function units: 16 results a clock on each SM (CUDA
 # C++ Programming Guide, arithmetic instruction throughput, compute
@@ -154,7 +159,9 @@ SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG", "LDSM")
 
 def kernel_label(mangled: str) -> str:
     """``_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi80EEv...`` ->
-    ``flash_fwd_bf16_kernel<80>`` (the base name and the head_dim)."""
+    ``flash_fwd_bf16_kernel<80>``: the base name, the element type where
+    there is one, and the integer template arguments (the head_dim; the
+    SSD's width bound and compile-time widths, ``ssd_tc_kernel<8, 64, 64>``)."""
     base, i = mangled[:60], 3 if mangled.startswith("_ZN") else 2
     while (m := re.match(r"\d+", mangled[i:])):      # <length><identifier>, nested
         i += m.end()
@@ -162,10 +169,11 @@ def kernel_label(mangled: str) -> str:
         if name.endswith("_kernel"):
             base = name
             break
-    d = re.search(r"_kernelI\w*?Li(\d+)E", mangled)
+    targs = re.search(r"_kernelI(\w*?)EEv", mangled)
+    ints = re.findall(r"Li(\d+)", targs.group(1)) if targs else []
     tag = "bf16" if "_kernelI13__nv_bfloat16" in mangled else \
         "f32" if "_kernelIf" in mangled else ""
-    args = ", ".join(x for x in (tag, d.group(1) if d else "") if x)
+    args = ", ".join(x for x in (tag, *ints) if x)
     return f"{base}<{args}>" if args else base
 
 
@@ -207,26 +215,30 @@ def sass_counts(sass: str) -> dict:
     return out
 
 
-def kernel_resources(kbuild, card, flash_kernel, dec_kernel) -> dict:
+def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict:
     """After a verbose build: each kernel of the two attention libraries
-    with its registers, static shared memory and spills (``-Xptxas -v``)
-    and its SASS counts (``cuobjdump -sass``), and the dynamic shared
-    memory each route asks at head_dim 80.  Raises unless every bf16 flash
-    kernel runs on the tensor cores (HMMA or HGMMA) and every bf16 kernel
-    of both copies asynchronously (LDGSTS or UTMALDG)."""
+    and of the SSD with its registers, static shared memory and spills
+    (``-Xptxas -v``) and its SASS counts (``cuobjdump -sass``), and the
+    dynamic shared memory each route asks at head_dim 80 (the SSD's at
+    zamba2's serving widths).  Raises unless every bf16 flash kernel and
+    every SSD kernel runs on the tensor cores (HMMA or HGMMA) and every
+    bf16 attention kernel and every SSD kernel copies asynchronously
+    (LDGSTS or UTMALDG)."""
     cuobjdump = pathlib.Path(kbuild.nvcc()).parent / "cuobjdump"
-    dyn = {flash_kernel: {"bf16": flash_kernel.lib().gf_flash_smem(80, 1),
-                          "f32": flash_kernel.lib().gf_flash_smem(80, 0)},
-           dec_kernel: {"bf16": dec_kernel.lib().gf_decode_smem(1, 80, 1),
-                        "f32": dec_kernel.lib().gf_decode_smem(1, 80, 0)}}
+    fl, dl, sl = flash_kernel.lib(), dec_kernel.lib(), ssd_kernel.lib()
+    dyn = {flash_kernel: f"at d=80 {fl.gf_flash_smem(80, 1)} B (bf16 route), "
+                         f"{fl.gf_flash_smem(80, 0)} B (f32 route)",
+           dec_kernel: f"at d=80 {dl.gf_decode_smem(1, 80, 1)} B (bf16 route), "
+                       f"{dl.gf_decode_smem(1, 80, 0)} B (f32 route)",
+           ssd_kernel: f"at chunk 128, n=hd=64 {sl.gf_ssd_smem(128, 64, 64)} B, at "
+                       f"n=hd=128 {sl.gf_ssd_smem(128, 128, 128)} B"}
     out = {}
     for mod, smem in dyn.items():
         sass = subprocess.run([str(cuobjdump), "-sass", str(kbuild.library_path(mod.SOURCE))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         counts = sass_counts(sass)
         usage = ptxas_usage(kbuild.BUILD_STATS[mod.SOURCE.name]["report"])
-        print(f"kernels of {mod.SOURCE.name}: dynamic shared memory at d=80 "
-              f"{smem['bf16']} B (bf16 route), {smem['f32']} B (f32 route) [{card}]",
+        print(f"kernels of {mod.SOURCE.name}: dynamic shared memory {smem} [{card}]",
               flush=True)
         for name in sorted(set(counts) | set(usage)):
             row = {**usage.get(name, {}), **counts.get(name, {})}
@@ -236,13 +248,15 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel) -> dict:
                   f"{row.get('spill_loads')} B; SASS "
                   + ", ".join(f"{op} {row.get(op, 0)}" for op in SASS_OPS), flush=True)
     for name, row in out.items():
-        bf16 = "_bf16_kernel" in name
-        if bf16 and name.startswith("flash") and not (row["HMMA"] or row["HGMMA"]):
+        bf16, ssd = "_bf16_kernel" in name, name.startswith("ssd")
+        if (ssd or bf16 and name.startswith("flash")) and not (row["HMMA"] or row["HGMMA"]):
             raise AssertionError(f"{name} has no tensor-core instruction")
-        if bf16 and not (row["LDGSTS"] or row["UTMALDG"]):
+        if (ssd or bf16) and not (row["LDGSTS"] or row["UTMALDG"]):
             raise AssertionError(f"{name} has no asynchronous copy")
     if not any("_bf16_kernel" in n for n in out):
         raise AssertionError("no bf16 attention kernel found in the libraries")
+    if not any(n.startswith("ssd") for n in out):
+        raise AssertionError("no SSD kernel found in its library")
     return out
 
 
@@ -362,8 +376,12 @@ DECODE_CASES = [
     (5, PROMPT_LEN + GEN_TOKENS, 16, 1, 128, "bfloat16", "edges"),
     (5, 777, 8, 2, 80, "float32", "edges"),
 ]
-# (b, L, nh, hd, n, chunk): zamba2's Mamba2 layer at prompt length
-SSD_CASES = [(2, PROMPT_LEN, 80, 64, 64, 128)]
+# (b, L, nh, hd, n, chunk): zamba2's Mamba2 layer at prompt length; then
+# the kernel's edges: one token, one ragged chunk shorter than the chunk,
+# the widest head and state, the reduced config's n=8 at hd=16 (chunk 64)
+SSD_CASES = [(2, PROMPT_LEN, 80, 64, 64, 128), (2, 1, 4, 64, 64, 128),
+             (1, 17, 4, 64, 64, 128), (1, 300, 4, 128, 128, 128),
+             (2, 256, 6, 16, 8, 64)]
 # the reference's tolerances (tests/test_kernels.py): (atol, rtol)
 TOLS = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-5), "ssd": (5e-4, 5e-3)}
 
@@ -491,19 +509,43 @@ def zamba2_slice_check(dev, card, get_api) -> float:
     return err
 
 
-def ssd_flops(b, L, nh, hd, n, chunk) -> int:
-    """f32 operations the SSD function needs: the lesser of its two
-    forms.  The chunked form at ``chunk``: per (row, chunk of q tokens)
-    the lower triangle of G = C B^T, shared by the heads (q(q+1) n); per
-    head the triangular M @ xdt (q(q+1) hd), C @ S and the state update
-    (2 q n hd each).  The recurrence: per (row, token, head) the decayed
-    state plus B xdt^T (3 n hd) and its read-out by C (2 n hd)."""
+def ssd_forms(b, L, nh, hd, n, chunk) -> tuple[int, int]:
+    """f32 operations of the SSD function's two forms, (chunked, recurrence).
+    The chunked form at ``chunk``: per (row, chunk of q tokens) the lower
+    triangle of G = C B^T, shared by the heads (q(q+1) n); per head the
+    triangular M @ xdt (q(q+1) hd), C @ S and the state update (2 q n hd
+    each).  The recurrence: per (row, token, head) the decayed state plus
+    B xdt^T (3 n hd) and its read-out by C (2 n hd)."""
     chunked = 0
     for c0 in range(0, L, chunk):
         q = min(chunk, L - c0)
         chunked += b * (q * (q + 1) * n + nh * (q * (q + 1) * hd + 4 * q * n * hd))
-    recurrence = b * L * nh * 5 * n * hd
-    return min(chunked, recurrence)
+    return chunked, b * L * nh * 5 * n * hd
+
+
+def ssd_flops(b, L, nh, hd, n, chunk) -> int:
+    """f32 operations the SSD function needs: the lesser of its two forms."""
+    return min(ssd_forms(b, L, nh, hd, n, chunk))
+
+
+def ssd_bound_ms(b, L, nh, hd, n, chunk) -> dict:
+    """The least time the SSD's function takes on the card: the larger of
+    its bytes (xdt, loga, B, C read once, y and the final state written
+    once, f32) at the memory rate and its operations, which take the lesser
+    of two times: the recurrence on the f32 CUDA cores, or the chunked form
+    as 3xTF32 products (three TF32 products a product) on the tensor cores."""
+    chunked, recurrence = ssd_forms(b, L, nh, hd, n, chunk)
+    nbytes = 4 * (2 * b * L * nh * hd + b * L * nh + 2 * b * L * n + b * nh * n * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_rec = recurrence / FP32_FLOPS * 1e3
+    t_chunked = 3 * chunked / TF32_FLOPS * 1e3
+    t_ops = min(t_rec, t_chunked)
+    form = ("the recurrence on the f32 CUDA cores at 67 TFLOP/s" if t_rec <= t_chunked
+            else "the chunked form as 3xTF32 on the tensor cores at 495 TFLOP/s")
+    return dict(nbytes=nbytes, chunked_flops=chunked, recurrence_flops=recurrence,
+                t_bytes=t_bytes, t_ops=t_ops, ops_form=form,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
@@ -572,16 +614,25 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     yp, stp = out.pop("p")
     err = max(check_close("ssd y at the serving shape", y, yp, TOLS["ssd"], card),
               check_close("ssd state at the serving shape", st, stp, TOLS["ssd"], card))
-    nbytes = sum(t.numel() * 4 for t in args) + y.numel() * 4 + st.numel() * 4
-    flops = ssd_flops(b, s, nh, hd, n, chunk)
+    bound = ssd_bound_ms(b, s, nh, hd, n, chunk)
+    if bound["nbytes"] != sum(t.numel() * 4 for t in args) + y.numel() * 4 + st.numel() * 4:
+        raise AssertionError("ssd_bound_ms counts other bytes than the call moves")
     rows["ssd"] = dict(ms=ms, plain_ms=plain, library_ms=None, err=err,
-                       nbytes=nbytes, flops=flops, peak=FP32_FLOPS)
+                       nbytes=bound["nbytes"], flops=ssd_flops(b, s, nh, hd, n, chunk),
+                       peak=FP32_FLOPS, bound_ms=bound["bound_ms"],
+                       bound_by=bound["bound_by"])
+    print(f"bound ssd b={b}: {bound['nbytes']} B take {bound['t_bytes']:.6g} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s; operations {bound['t_ops']:.6g} ms, set by "
+          f"{bound['ops_form']} (chunked {bound['chunked_flops']} FLOP x 3, recurrence "
+          f"{bound['recurrence_flops']} FLOP); the kernel's 3xTF32 rate "
+          f"{3 * bound['chunked_flops'] / ms / 1e9:.6g} TFLOP/s of {TF32_FLOPS / 1e12:g} "
+          f"[{card}]", flush=True)
 
     for name, r in rows.items():
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r["peak"] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r.setdefault("bound_ms", max(t_bytes, t_ops))
+        r.setdefault("bound_by", "bytes" if t_bytes >= t_ops else "operations")
         lib_txt = (f"{r['library_ms']:.6g} ms" if r["library_ms"] is not None
                    else "none")
         print(f"time {name} b={b}: kernel {r['ms']:.6g} ms, plain version "
@@ -976,7 +1027,7 @@ def main() -> int:
               f"[{card}]", flush=True)
     print(f"build: wall {time.perf_counter() - t0:.2f} s for "
           f"{len(kbuild.BUILD_STATS)} sources in parallel [{card}]", flush=True)
-    kernel_resources(kbuild, card, flash_kernel, dec_kernel)
+    kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel)
 
     # ---- 2. kernel phase ------------------------------------------------
     def score_case(seed, n, ties):

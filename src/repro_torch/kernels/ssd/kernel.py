@@ -52,7 +52,7 @@ def ssd(xdt, loga, B, C, *, chunk: int = 128):
     if chunk % 16 or not 16 <= chunk <= 128:
         raise ValueError(f"ssd: chunk must be a multiple of 16 up to 128, got {chunk}")
     f32 = (torch.float32,)
-    _build.check_tensor(xdt, "xdt", dev, f32)
+    _build.check_tensor(xdt, "xdt", dev, f32, align=16)
     _build.check_tensor(loga, "loga", dev, f32, (b, L, nh))
     _build.check_tensor(B, "B", dev, f32, (b, L, n))
     _build.check_tensor(C, "C", dev, f32, (b, L, n))

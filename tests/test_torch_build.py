@@ -124,6 +124,30 @@ def test_ssd_bound_counts_the_lesser_form(b, L, nh, hd, n, chunk, form):
         assert want == 26_843_545_600
 
 
+@pytest.mark.parametrize("b,L,nh,hd,n,chunk,by", [
+    (8, 2048, 80, 64, 64, 128, "bytes"),          # the serving shape
+    (2, 512, 8, 128, 128, 128, "operations"),     # the widest head and state
+])
+def test_ssd_bound_is_bytes_or_the_faster_form(b, L, nh, hd, n, chunk, by):
+    """Bytes of xdt, loga, B, C, y and the state in f32 at 3.35 TB/s,
+    against the lesser of the recurrence on the f32 CUDA cores (67
+    TFLOP/s) and the chunked form as three TF32 products a product on the
+    tensor cores (495 TFLOP/s); the larger time."""
+    nbytes = 4 * (b * L * nh * hd * 2 + b * L * nh + 2 * b * L * n + b * nh * n * hd)
+    chunked, recurrence = _ssd_flops_by_pairs(b, L, nh, hd, n, chunk)
+    t_ops = min(recurrence / 67e12, 3 * chunked / 495e12) * 1e3
+    t_bytes = nbytes / 3.35e12 * 1e3
+    r = _chip_smoke().ssd_bound_ms(b, L, nh, hd, n, chunk)
+    assert r["nbytes"] == nbytes
+    assert r["bound_by"] == by
+    assert r["bound_ms"] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    if by == "bytes":
+        assert nbytes == 695_205_888 and chunked == 32_431_407_104
+        assert round(r["bound_ms"], 4) == 0.2075
+    else:
+        assert "3xTF32" in r["ops_form"] and 3 * chunked / 495e12 < recurrence / 67e12
+
+
 @pytest.mark.parametrize("b,L,d,n,by", [
     (4, 4096, 8192, 16, "operations"),   # falcon-mamba-7b's layer at the loss shape
     (8, 2048, 8192, 16, "operations"),   # its prefill at the serving shape
@@ -151,6 +175,7 @@ def _mangled(name: str, targs: str, ns: str = "_GLOBAL__N__8c2aef73_18_flash_att
 
 @pytest.mark.parametrize("targs,label", [
     ("Li80E", "flash_fwd_bf16_kernel<80>"),
+    ("Li1ELi8E", "flash_fwd_bf16_kernel<1, 8>"),
     ("13__nv_bfloat16Li128E", "flash_fwd_bf16_kernel<bf16, 128>"),
     ("fLi16E", "flash_fwd_bf16_kernel<f32, 16>"),
 ])

@@ -259,6 +259,11 @@ def test_decode_attention_kernel_ignores_stale_tail(cuda_device):
     (1, 128, 8, 128, 64, 32),
     (2, 130, 8, 16, 8, 128),     # the reduced config's widths, ragged L
     (1, 1000, 16, 64, 64, 128),  # zamba2's head_dim and state
+    (1, 2048, 80, 64, 64, 128),  # one row of zamba2's serving prefill
+    (2, 1, 4, 64, 64, 128),      # one token
+    (1, 17, 4, 64, 64, 128),     # one ragged chunk, L < chunk
+    (1, 300, 4, 128, 128, 128),  # the widest head and state
+    (1, 256, 6, 16, 8, 64),      # n=8 at hd=16 (the reduced config)
 ])
 def test_ssd_kernel_matches_plain(cuda_device, b, L, nh, hd, n, chunk):
     gen = torch.Generator(device=cuda_device).manual_seed(L + nh)
@@ -281,6 +286,26 @@ def test_ssd_kernel_matches_plain(cuda_device, b, L, nh, hd, n, chunk):
         y2, S2 = ssd_kernel.ssd(*args, chunk=other)
         torch.testing.assert_close(y2, y, atol=5e-4, rtol=5e-3)
         torch.testing.assert_close(S2, S, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,L,nh,hd,n,chunk", [
+    (2, 1000, 16, 64, 64, 128),
+    (1, 500, 8, 32, 24, 64),     # widths other than zamba2's
+])
+def test_ssd_kernel_is_deterministic(cuda_device, b, L, nh, hd, n, chunk):
+    """The kernel uses no atomics: two calls on the same inputs give the
+    same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    args = (torch.randn((b, L, nh, hd), generator=gen, device=cuda_device),
+            -torch.rand((b, L, nh), generator=gen, device=cuda_device) * 0.5,
+            torch.randn((b, L, n), generator=gen, device=cuda_device),
+            torch.randn((b, L, n), generator=gen, device=cuda_device))
+    y1, S1 = ssd_kernel.ssd(*args, chunk=chunk)
+    y2, S2 = ssd_kernel.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(S1, S2)
+    assert bool(torch.isfinite(y1).all()) and bool(torch.isfinite(S1).all())
 
 
 @pytest.mark.gpu
