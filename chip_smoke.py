@@ -21,7 +21,10 @@ The batch placement path (the first slice):
    every double, ``+inf`` included, and the same indices):
    ``score_fleet`` at 32 and 1000 lanes with dead lanes and forced ties,
    ``greedy_window`` on a 4096-task and on a 32,768-task x 32-endpoint
-   window, 4 heuristics.
+   window, 4 heuristics, and on 384-task windows of 400 endpoints (416
+   lanes, C = 64) and 1,028 endpoints (1,056 lanes), each timed with its
+   launch plan; ``mhra(device=None)`` on the 400-endpoint fleet against
+   the CPU's plain path.
 3. Main path: ``GreenFaaSExecutor`` with ``MHRAPolicy`` on the card,
    ``TestbedSim(seed=0)``, monitoring on, three ``run_batch`` calls of
    32,768 tasks on the 32-endpoint ``scaled_testbed(8)`` federation;
@@ -63,14 +66,20 @@ The zamba2-2.7b serving path (the second slice):
 
 The falcon-mamba-7b loss forward and serving paths (the third slice):
 
-10. The selective-scan kernel against its plain version on the card, y
-    and the final state, within the reference's 1e-4 (atol and rtol): the
-    reference's ``SCAN_CASES``, a ragged length (L=1000, d=520), one
-    full-width layer at the loss shape (b=4, L=4096, d=8192, n=16), where
-    it is also timed beside the plain version and its bound, and one at
-    the serving prefill's shape (b=8, L=2048).  Then the cost of the
-    Mamba1 block's bf16 SiLU in the reference's rounding steps beside
-    ``F.silu``: launches and time at the loss shape.
+10. The selective-scan kernel in both forms against its plain versions
+    on the card.  The reference's interface (f32): y and the final state
+    within the reference's 1e-4 (atol and rtol) on the reference's
+    ``SCAN_CASES``, a ragged length (L=1000, d=520), one full-width layer
+    at the loss shape (b=4, L=4096, d=8192, n=16), where it is also timed
+    beside the plain version and its bound, and one at the serving
+    prefill's shape (b=8, L=2048).  The fused form the model runs
+    (``mamba1_scan_fused``: softplus, scan, D*x, SiLU gate, bf16 cast;
+    z, B and C read through the projections' strided views): the same
+    shapes, y within 1e-4 and one bf16 ulp, the state within 1e-4, with
+    and without the state at the loss and prefill shapes, timed at the
+    loss shape beside ``fused_scan_bound``.  Then the cost of the Mamba1
+    block's bf16 SiLU in the reference's rounding steps beside ``F.silu``:
+    launches and time at the loss shape.
 11. The reduced falcon-mamba slice on the card against the CPU (same
     weights and tokens): the loss within 4e-4, the forward's, the
     prefill's (128 tokens) and 4 decode steps' logits within 0.125 and
@@ -78,12 +87,13 @@ The falcon-mamba-7b loss forward and serving paths (the third slice):
     ``tests/test_torch_falcon_mamba.py``.
 12. Main path: ``api.loss`` of falcon-mamba-7b at full width on b=4 x
     4,096 tokens (bf16 weights from seed 0) under ``torch.inference_mode()``;
-    counts zeroed just before and read just after (64 scan launches); a
-    finite loss; wall seconds, tokens/s, peak memory; a profiler trace of
-    one more forward.
+    counts zeroed just before and read just after (64 fused-scan
+    launches, no unfused one); a finite loss; wall seconds, tokens/s,
+    peak memory; a profiler trace of one more forward (its 12 largest
+    kernels, the fused scan's 64 launches).
 13. ``serve_batch("falcon-mamba-7b", batch=8, prompt_len=2048,
-    gen_tokens=128, seed=0)``: 64 scan launches, all in the prefill; a
-    trace of a prefill and 4 decode steps (64 and 0 launches).
+    gen_tokens=128, seed=0)``: 64 fused-scan launches, all in the
+    prefill; a trace of a prefill and 4 decode steps (64 and 0 launches).
 
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
@@ -111,6 +121,10 @@ N_TASKS = 32768          # the main path's batch (largest gated cell)
 REPLICAS = 8             # scaled_testbed(8): 32 endpoints
 N_BATCHES = 3
 CHECK_TASKS = 4096       # window of the kernel-vs-plain check
+# fleets past the old kernel's cap (scaled_testbed(100): 400 endpoints, 416
+# lanes; (257): 1,028 endpoints, 1,056 lanes), on a window of LARGE_TASKS
+LARGE_REPLICAS = (100, 257)
+LARGE_TASKS = 384
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12   # device memory rate
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
@@ -136,6 +150,9 @@ LOSS_BATCH, LOSS_LEN = 4, 4096
 # full-width layer at the loss shape (checked, and timed, in falcon_scan)
 SCAN_CASES = [(2, 64, 128, 16), (1, 128, 64, 8), (1, 64, 256, 16), (2, 1000, 520, 16)]
 SCAN_TOL = (1e-4, 1e-4)     # the reference's (tests/test_kernels.py)
+# the fused scan's bf16 y: the scan's 1e-4 before the cast, and one bf16 ulp
+# (at most 2^-7 of the value) after it, where the two sides round apart
+FUSED_TOL = (1e-4, 1e-4 + 2.0 ** -7)
 # the reduced slice, card against CPU: both sides round bf16 at the same
 # places, as the port and the reference without excess precision do, so
 # the bounds of that comparison (tests/test_torch_falcon_mamba.py, (c))
@@ -653,7 +670,7 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     return rows
 
 
-def trace(label, fn, card) -> dict:
+def trace(label, fn, card, top_n=6) -> dict:
     """A ``torch.profiler`` trace of ``fn()`` (ended by a synchronise): the
     CUDA kernels' summed time over the host clock, the launches, and the
     kernels that take the most device time.  Where the trace holds no
@@ -674,7 +691,7 @@ def trace(label, fn, card) -> dict:
             getattr(e, "self_cuda_time_total", 0.0)
 
     busy_us = sum(dev_us(e) for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
     out = {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if busy_us else None,
@@ -693,7 +710,7 @@ def trace(label, fn, card) -> dict:
     return out
 
 
-def serving_profile(dev, card, serve, api, counts=None) -> dict:
+def serving_profile(dev, card, serve, api, counts=None, top_n=6) -> dict:
     """The device's busy share of the serving path: a trace of one prefill
     at the serving shapes (b=8, prompt 2048) and of 4 decode steps after
     it.  ``counts`` (a kernel's LAUNCHES) is read per window."""
@@ -716,7 +733,7 @@ def serving_profile(dev, card, serve, api, counts=None) -> dict:
     out = {}
     for phase, fn in (("prefill", prefill), ("decode", decode)):
         before = dict(counts) if counts is not None else None
-        out[phase] = trace(f"{api.cfg.name} {phase} (b={SERVE_BATCH})", fn, card)
+        out[phase] = trace(f"{api.cfg.name} {phase} (b={SERVE_BATCH})", fn, card, top_n)
         if counts is not None:
             out[phase]["launches"] = {k: counts[k] - before[k] for k in counts}
     return out
@@ -757,6 +774,110 @@ def scan_inputs(gen, b, L, d, n, dev):
     C = torch.randn((b, L, n), generator=gen, device=dev)
     D = torch.randn((d,), generator=gen, device=dev)
     return x, dt, A, B, C, D
+
+
+def fused_scan_bound(b, L, d, n, state=False) -> dict:
+    """The least time the fused Mamba1 scan's function takes on the card at
+    (b, L, d, n): xc, dt_raw and z read once and y written once, in bf16;
+    B and C (bf16), A, dt_b and D (f32) read once; the final state (f32)
+    written once when asked for.  On the special-function units: one exp
+    per (token, channel, state) and, per (token, channel), the softplus's
+    exp and log and the gate's exp and reciprocal, as the kernel's
+    formulas take them; beside them 6 f32 operations per (token, channel,
+    state) and 8 per (token, channel) (the dt_b add, the softplus's series
+    or scale, dt*x, D*x, the sum, the gate's add and two products).  The
+    FMA lanes and the special-function units run side by side."""
+    nbytes = 2 * (4 * b * L * d + 2 * b * L * n) + 4 * (d * n + 2 * d)
+    if state:
+        nbytes += 4 * b * d * n
+    sfu = b * L * d * (n + 4)
+    flops = b * L * d * (6 * n + 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS, sfu / SFU_PER_S) * 1e3
+    return dict(nbytes=nbytes, sfu=sfu, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_scan_inputs(gen, b, L, d, n, r, dev):
+    """The fused op's inputs laid out as the Mamba1 block leaves them: xc
+    and dt_raw contiguous bf16, z the second half of an in_proj product
+    (rows of 2d), B and C views of an x_proj product (rows of r + 2n);
+    dt_raw drawn so that softplus(dt_raw + dt_b) is spread as the
+    reference's kernel tests draw dt."""
+    import torch
+    bf = torch.bfloat16
+    xc = torch.randn((b, L, d), generator=gen, device=dev).to(bf)
+    dt_raw = (torch.randn((b, L, d), generator=gen, device=dev) * 0.5 - 1).to(bf)
+    dt_b = torch.randn((d,), generator=gen, device=dev) * 0.1
+    A = -torch.exp(torch.randn((d, n), generator=gen, device=dev) * 0.3)
+    D = torch.randn((d,), generator=gen, device=dev)
+    xz = torch.randn((b, L, 2 * d), generator=gen, device=dev).to(bf)
+    dbc = torch.randn((b, L, r + 2 * n), generator=gen, device=dev).to(bf)
+    z = xz[..., d:]
+    B, C = dbc[..., r:r + n], dbc[..., r + n:]
+    return xc, dt_raw, dt_b, A, B, C, D, z
+
+
+def falcon_fused_scan(dev, card, sk, sr, cfg) -> dict:
+    """Phase 10b: the fused scan against its plain version, y (bf16) and
+    the final state, on the SCAN_CASES shapes with strided z, B and C, and
+    at the loss and the serving prefill's shapes with and without the
+    state; timed at the loss shape beside its plain version and its
+    bound."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(4)
+    r = cfg.dtrank
+    err = 0.0
+
+    def check(label, args, state):
+        nonlocal err
+        if state:
+            y, h = sk.mamba1_scan_fused(*args, return_state=True)
+            yp, hp = sr.mamba1_scan_fused_plain(*args, return_state=True)
+            err = max(err, check_close(f"mamba1_scan_fused state {label}", h, hp,
+                                       SCAN_TOL, card))
+        else:
+            y = sk.mamba1_scan_fused(*args)
+            yp = sr.mamba1_scan_fused_plain(*args)
+        if y.dtype != torch.bfloat16 or y.shape != args[0].shape:
+            raise AssertionError(f"mamba1_scan_fused {label}: y {y.dtype} {y.shape}")
+        err = max(err, check_close(f"mamba1_scan_fused y {label} state={state}", y, yp,
+                                   FUSED_TOL, card))
+        return y
+
+    for b, L, d, n in SCAN_CASES:
+        args = fused_scan_inputs(gen, b, L, d, n, r, dev)
+        check(f"b={b} L={L} d={d} n={n}", args, True)
+    b, L, d, n = LOSS_BATCH, LOSS_LEN, cfg.inner, cfg.ssm_state
+    args = fused_scan_inputs(gen, b, L, d, n, r, dev)
+    ms = cuda_ms(lambda: sk.mamba1_scan_fused(*args), reps=10)
+    ms_state = cuda_ms(lambda: sk.mamba1_scan_fused(*args, return_state=True), reps=10)
+    out = {}
+    plain = event_ms(lambda: out.setdefault("p", sr.mamba1_scan_fused_plain(*args)))
+    out.clear()
+    y = check(f"at the loss shape b={b} L={L} d={d} n={n}", args, False)
+    check("at the loss shape", args, True)
+    row = dict(fused_scan_bound(b, L, d, n), ms=ms, ms_with_state=ms_state,
+               plain_ms=plain, library_ms=None)
+    moved = sum(t.numel() * t.element_size() for t in args) + y.numel() * y.element_size()
+    if row["nbytes"] != moved:
+        raise AssertionError(f"fused_scan_bound counts {row['nbytes']} B, the call "
+                             f"moves {moved} B")
+    print(f"time mamba1_scan_fused b={b} L={L} d={d} n={n}: kernel {ms:.6g} ms "
+          f"({ms_state:.6g} ms with the state), plain version {plain:.6g} ms, library "
+          f"call none, bound {row['bound_ms']:.6g} ms by {row['bound_by']} "
+          f"({row['nbytes']} B take {row['t_bytes']:.6g} ms; {row['sfu']} special-"
+          f"function operations take {row['sfu'] / SFU_PER_S * 1e3:.6g} ms; "
+          f"{row['flops']} f32 FLOP take {row['flops'] / FP32_FLOPS * 1e3:.6g} ms); "
+          f"{row['bound_ms'] / ms:.4f} of its bound [{card}]", flush=True)
+    del args, y
+    b, L = SERVE_BATCH, PROMPT_LEN
+    args = fused_scan_inputs(gen, b, L, d, n, r, dev)
+    check(f"at the serving prefill's shape b={b} L={L} d={d} n={n}", args, True)
+    check("at the serving prefill's shape", args, False)
+    row["err"] = err
+    return row
 
 
 def falcon_scan(dev, card, sk, sr, cfg) -> dict:
@@ -908,25 +1029,34 @@ def falcon_loss(dev, card, api, scan_counts, zero_counts, others) -> dict:
         loss, parts = api.loss(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = scan_counts["selective_scan"]
+        launches = scan_counts["mamba1_scan_fused"]
         stray = {k: v for c in others for k, v in c.items() if v}
+        stray.update({k: v for k, v in scan_counts.items()
+                      if v and k != "mamba1_scan_fused"})
         peak = torch.cuda.max_memory_allocated(dev)
         value = float(loss)
         if launches != cfg.n_layers or stray:
-            raise AssertionError(f"the loss forward launched selective_scan {launches} "
-                                 f"times (and {stray}), expected {cfg.n_layers}")
+            raise AssertionError(f"the loss forward launched mamba1_scan_fused "
+                                 f"{launches} times (and {stray}), expected "
+                                 f"{cfg.n_layers} and no other kernel")
         if not (torch.isfinite(loss) and float(parts["aux"]) == 0.0):
             raise AssertionError(f"loss {value}, aux {float(parts['aux'])}")
         ntok = LOSS_BATCH * LOSS_LEN
         res = {"arch": FM_ARCH, "params": api.n_params(), "batch": LOSS_BATCH,
                "seq_len": LOSS_LEN, "loss": value, "wall_s": wall,
                "tokens_per_s": ntok / wall, "peak_mem_bytes": peak,
-               "selective_scan_launches": launches, "card": card}
+               "mamba1_scan_fused_launches": launches, "card": card}
         print(f"loss {FM_ARCH} b={LOSS_BATCH} L={LOSS_LEN}: loss {value:.6g} (finite), "
               f"wall {wall:.6g} s, {ntok / wall:.6g} tokens/s, peak memory {peak} B, "
-              f"selective_scan launches {launches} [{card}]", flush=True)
+              f"mamba1_scan_fused launches {launches}, selective_scan 0 [{card}]",
+              flush=True)
+        before = dict(scan_counts)
         res["profile"] = trace(f"{FM_ARCH} loss forward (b={LOSS_BATCH}, L={LOSS_LEN})",
-                               lambda: api.loss(params, batch), card)
+                               lambda: api.loss(params, batch), card, top_n=12)
+        res["profile"]["launches"] = {k: scan_counts[k] - before[k] for k in scan_counts}
+        if res["profile"]["launches"] != {"selective_scan": 0,
+                                          "mamba1_scan_fused": cfg.n_layers}:
+            raise AssertionError(f"traced loss forward: {res['profile']['launches']}")
     return res
 
 
@@ -945,28 +1075,30 @@ def falcon_serving(dev, card, serve, api, scan_counts, zero_counts, others) -> d
         FM_ARCH, reduced=False, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
         gen_tokens=GEN_TOKENS, seed=0)
     wall = time.perf_counter() - t0
-    launches = scan_counts["selective_scan"]
+    launches = scan_counts["mamba1_scan_fused"]
     stray = {k: v for c in others for k, v in c.items() if v}
+    stray.update({k: v for k, v in scan_counts.items() if v and k != "mamba1_scan_fused"})
     peak = torch.cuda.max_memory_allocated(dev)
     if launches != cfg.n_layers or stray:
-        raise AssertionError(f"serving launched selective_scan {launches} times (and "
-                             f"{stray}), expected {cfg.n_layers}")
+        raise AssertionError(f"serving launched mamba1_scan_fused {launches} times (and "
+                             f"{stray}), expected {cfg.n_layers} and no other kernel")
     if tokens.shape != (SERVE_BATCH, GEN_TOKENS) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab:
         raise AssertionError(f"bad generated tokens {tokens.shape}")
     tps = SERVE_BATCH * (GEN_TOKENS - 1) / t_decode
     print(f"serve {FM_ARCH} b={SERVE_BATCH} prompt {PROMPT_LEN} gen {GEN_TOKENS}: "
           f"prefill {t_prefill:.6g} s, decode {t_decode:.6g} s ({tps:.6g} tok/s), "
-          f"peak memory {peak} B, selective_scan launches {launches} [{card}]",
+          f"peak memory {peak} B, mamba1_scan_fused launches {launches} [{card}]",
           flush=True)
-    prof = serving_profile(dev, card, serve, api, scan_counts)
-    if prof["prefill"]["launches"]["selective_scan"] != cfg.n_layers or \
-            prof["decode"]["launches"]["selective_scan"] != 0:
+    prof = serving_profile(dev, card, serve, api, scan_counts, top_n=12)
+    if prof["prefill"]["launches"] != {"selective_scan": 0,
+                                       "mamba1_scan_fused": cfg.n_layers} or \
+            any(prof["decode"]["launches"].values()):
         raise AssertionError(f"scan launches by window: {prof}")
     return {"arch": FM_ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
             "gen_tokens": GEN_TOKENS, "prefill_s": t_prefill, "decode_s": t_decode,
             "decode_tok_per_s": tps, "serve_batch_wall_s": wall, "peak_mem_bytes": peak,
-            "selective_scan_launches": launches,
+            "mamba1_scan_fused_launches": launches,
             "launches_by_window": {k: v["launches"] for k, v in prof.items()},
             "profile": prof, "card": card}
 
@@ -1070,15 +1202,16 @@ def main() -> int:
     store = seeded_store(eps, TaskProfileStore, BASE_PROFILES, SEBS_FUNCTIONS)
     tm = TransferModel(eps)
 
-    def window(n_tasks):
-        tasks = make_tasks(n_tasks, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS)
-        table = sched.PredictionTable(tasks, eps, store)
-        sf1, sf2 = sched._normalizers_fast(tasks, eps, table, tm)
+    def window(n_tasks, fleet=(eps, store, tm)):
+        f_eps, f_store, f_tm = fleet
+        tasks = make_tasks(n_tasks, f_eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS)
+        table = sched.PredictionTable(tasks, f_eps, f_store)
+        sf1, sf2 = sched._normalizers_fast(tasks, f_eps, table, f_tm)
         units = [[t] for t in tasks]
         idx = [[i] for i in range(n_tasks)]
         n_ep, consts, init, xs, _ = sched.window_inputs(
-            units, idx, eps, table, tm, 0.5, sched.HEURISTICS, sf1, sf2,
-            sched.SoAState(eps, tm), None, dev)
+            units, idx, f_eps, table, f_tm, 0.5, sched.HEURISTICS, sf1, sf2,
+            sched.SoAState(f_eps, f_tm), None, dev)
         p, n_units = ops.pack(consts, init, xs, dev)
         return p, n_ep, n_units
 
@@ -1119,6 +1252,47 @@ def main() -> int:
             raise AssertionError(f"mhra on the card differs from the CPU on {f}")
     print("mhra 1792x32: card == CPU plain path (assignments, objective, "
           "energy, makespan, transfer, heuristic, timeline)", flush=True)
+
+    # fleets past the old kernel's shared-memory cap: 400 endpoints (416
+    # lanes, C = 64) and 1,028 (1,056 lanes, two a thread), bitwise against
+    # the plain version on a window of a few hundred tasks, and timed
+    large = {}
+    for replicas in LARGE_REPLICAS:
+        l_eps = scaled_testbed(replicas)
+        fleet = (l_eps, seeded_store(l_eps, TaskProfileStore, BASE_PROFILES,
+                                     SEBS_FUNCTIONS), TransferModel(l_eps))
+        p, n_ep_l, n_units_l = window(LARGE_TASKS, fleet)
+        out_k = kernel.greedy_window(p, n_ep_l, n_units_l)
+        out_p = ops._greedy_scan_plain(p, n_ep_l, n_units_l)
+        torch.cuda.synchronize()
+        for k in ("ei", "start", "end", "base", "slots", "run", "staged", "hs"):
+            if not bits_equal(out_k[k], out_p[k]):
+                raise AssertionError(f"greedy_window disagrees with the plain version "
+                                     f"on '{k}' at {n_ep_l} endpoints")
+        E_l, C_l = p["base"].shape[2], p["slots"].shape[2]
+        ms_l = cuda_ms(lambda: kernel.greedy_window(p, n_ep_l, n_units_l), reps=3,
+                       warmup=1)
+        pl = kernel.plan(E_l, C_l, p["staged"].shape[1])
+        large[E_l] = {"endpoints": n_ep_l, "tasks": n_units_l, "C": C_l, "ms": ms_l,
+                      "us_per_step": ms_l * 1e3 / n_units_l, "plan": pl}
+        print(f"kernel greedy_window {n_units_l}x{n_ep_l}x{len(sched.HEURISTICS)} (E={E_l}, "
+              f"C={C_l}): bitwise equal to the plain version; {ms_l:.6g} ms, "
+              f"{ms_l * 1e3 / n_units_l:.4g} us a step; plan {pl} [{card}]", flush=True)
+        if replicas == LARGE_REPLICAS[0]:
+            l_tasks = make_tasks(LARGE_TASKS, l_eps[0].name, sched.TaskSpec,
+                                 SEBS_FUNCTIONS, "L")
+            s_gpu = sched.mhra(l_tasks, l_eps, fleet[1], fleet[2], 0.5)
+            s_cpu = sched.mhra(l_tasks, l_eps, fleet[1], fleet[2], 0.5, device="cpu")
+            for f in ("assignments", "objective", "energy_j", "makespan_s",
+                      "transfer_j", "heuristic", "timeline"):
+                if getattr(s_gpu, f) != getattr(s_cpu, f):
+                    raise AssertionError(f"mhra(device=None) at {len(l_eps)} endpoints "
+                                         f"differs from the CPU on {f}")
+            print(f"mhra(device=None) {LARGE_TASKS}x{len(l_eps)}: card == CPU plain path "
+                  f"(assignments, objective, energy, makespan, transfer, heuristic, "
+                  f"timeline)", flush=True)
+    # the later phases' peak memory counts none of these windows
+    del p, out_k, out_p
 
     # ---- 3. main path ---------------------------------------------------
     profiles, coefs = replica_profiles(eps, BASE_PROFILES, MACHINE_COEFS)
@@ -1182,7 +1356,7 @@ def main() -> int:
     in_bytes = sum(v.numel() * v.element_size() for v in p_full.values())
     out_k = kernel.greedy_window(p_full, n_ep, n_units_full)
     out_bytes = sum(v.numel() * v.element_size() for v in out_k.values())
-    n_new_run = int(p_full["xs_b"][:, 1].sum())
+    n_new_run = int(p_full["xs_i"][:, 4].sum())
     # FP64 operations this window needs: the score of every true lane per
     # step (13), the commit (about 35 plus two passes over the C slots),
     # and the full pass (about 30 per lane plus two pairwise sums) on
@@ -1192,7 +1366,8 @@ def main() -> int:
     gw_bound_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     gw_bound_ops = gw_ops / FP64_FLOPS * 1e3
     print(f"time greedy_window {N_TASKS}x{n_ep}x{H} (E={E}, C={C}): "
-          f"{gw_ms:.3f} ms, plain version on the card "
+          f"{gw_ms:.6g} ms ({gw_ms * 1e3 / n_units_full:.4g} us a step; plan "
+          f"{kernel.plan(E, C, p_full['staged'].shape[1])}), plain version on the card "
           f"{plain_ms[N_TASKS]:.1f} ms; at {CHECK_TASKS} tasks "
           f"{gw_chk_ms:.3f} ms, plain version {plain_ms[CHECK_TASKS]:.1f} ms; "
           f"bound {max(gw_bound_bytes, gw_bound_ops) * 1e3:.3f} us "
@@ -1237,7 +1412,7 @@ def main() -> int:
          "library_ms": None}
         for n, (k_ms, p_ms, bound, nbytes, ops_n) in sf_rows.items()
     ]
-    print(json.dumps({"batches": batches}), flush=True)
+    print(json.dumps({"batches": batches, "large_fleets": large}), flush=True)
     print(json.dumps({"standalone_kernels": standalone}), flush=True)
 
     # ---- 5. zamba2 kernels against their plain versions ----------------
@@ -1316,6 +1491,7 @@ def main() -> int:
     from repro_torch.models import common, lm
     fm_api = get_api(FM_ARCH)
     scan_row = falcon_scan(dev, card, scan_kernel, scan_ref, fm_api.cfg)
+    fused_row = falcon_fused_scan(dev, card, scan_kernel, scan_ref, fm_api.cfg)
     silu = silu_cost(dev, card, common, fm_api.cfg)
 
     # ---- 11. the reduced falcon-mamba slice, card against CPU --------------
@@ -1333,13 +1509,23 @@ def main() -> int:
     fm_serving = falcon_serving(dev, card, serve, fm_api, scan_kernel.LAUNCHES,
                                 zero_counts, others)
     print(json.dumps({"falcon_serving": fm_serving}), flush=True)
+    # the model's path runs the scan in its fused form; the reference's
+    # interface (the same CUDA design without its prologue and epilogue)
+    # is checked and timed in phase 10 and reported on its own line
     kernels.append({
+        "name": "mamba1_scan_fused", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:23",
+        "launches": fm_loss["mamba1_scan_fused_launches"],
+        "max_abs_err": fused_row["err"], "ms": fused_row["ms"],
+        "plain_ms": fused_row["plain_ms"], "bound_ms": fused_row["bound_ms"],
+        "bound_by": fused_row["bound_by"], "library_ms": None})
+    print(json.dumps({"standalone_kernels": [{
         "name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": "src/repro/kernels/selective_scan/kernel.py:23",
-        "launches": fm_loss["selective_scan_launches"], "max_abs_err": scan_row["err"],
+        "launches_on_main_path": 0, "max_abs_err": scan_row["err"],
         "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
-        "library_ms": None})
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ monitor -> attribute -> learn (the full paper pipeline, §III).
 The backend is the testbed simulator.  Placement is delegated to a
 registered :class:`PlacementPolicy` — pass ``strategy="mhra"`` or an
 already-constructed policy instance — and runs on ``device`` (the CUDA
-card unless the caller names another).
+card unless the caller names another).  The default strategy is the
+reference's, ``"cluster_mhra"``, which the port does not have yet: an
+executor built without a strategy or a policy raises
+``NotImplementedError`` rather than place with another algorithm.
 """
 from __future__ import annotations
 
@@ -119,7 +122,7 @@ class GreenFaaSExecutor:
         endpoints: list[EndpointSpec],
         backend: TestbedSim,
         alpha: float = 0.5,
-        strategy: str = "mhra",
+        strategy: str = "cluster_mhra",
         db: TaskDB | None = None,
         monitoring: bool = True,
         policy: PlacementPolicy | None = None,

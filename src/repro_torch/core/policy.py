@@ -93,11 +93,28 @@ def available_policies() -> list[str]:
     return sorted(_REGISTRY)
 
 
+#: Policies of the reference that the port does not have yet, with the
+#: ROADMAP item that ports each.
+NOT_YET_PORTED = {
+    "cluster_mhra": "ROADMAP.md queue 1 item 1 (the SoA engine and cluster_mhra)",
+    "round_robin": "ROADMAP.md queue 1 item 1 (the SoA engine and cluster_mhra)",
+    "single_site": "ROADMAP.md queue 1 item 1 (the SoA engine and cluster_mhra)",
+    "carbon_mhra": "ROADMAP.md queue 1 item 2 (the main path's four registers)",
+    "lookahead_mhra": "ROADMAP.md queue 1 item 2 (the main path's four registers)",
+}
+
+
 def get_policy(name: str, **kwargs) -> PlacementPolicy:
-    """Instantiate a registered policy by name (kwargs -> constructor)."""
+    """Instantiate a registered policy by name (kwargs -> constructor).
+    A policy of the reference that the port does not have yet raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
     try:
         cls = _REGISTRY[name]
     except KeyError:
+        if name in NOT_YET_PORTED:
+            raise NotImplementedError(
+                f"policy {name!r} is not ported yet ({NOT_YET_PORTED[name]}); "
+                f"available: {available_policies()}") from None
         raise ValueError(
             f"unknown policy {name!r}; available: {available_policies()}"
         ) from None

@@ -37,9 +37,9 @@ def build(verbose: bool = False) -> pathlib.Path:
 def _bind(handle: ctypes.CDLL) -> None:
     handle.gf_score_fleet.argtypes = [_P] * 7 + [_D] * 6 + [_I] + [_P] * 5 + [_P]
     handle.gf_score_fleet.restype = _I
-    handle.gf_greedy_window_smem.argtypes = [_I, _I]
-    handle.gf_greedy_window_smem.restype = ctypes.c_size_t
-    handle.gf_greedy_window.argtypes = [_I] * 7 + [_P] * 25 + [_P]
+    handle.gf_greedy_window_plan.argtypes = [_I] * 3 + [_P] * 4
+    handle.gf_greedy_window_plan.restype = None
+    handle.gf_greedy_window.argtypes = [_I] * 7 + [_P] * 26 + [_P]
     handle.gf_greedy_window.restype = _I
 
 

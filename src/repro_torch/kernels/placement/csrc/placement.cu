@@ -23,18 +23,38 @@
 // greedy_window_kernel
 //   Replaces the XLA `lax.scan` `_greedy_scan` (src/repro/kernels/
 //   placement/ops.py) with `score_fleet` fused into it: one persistent
-//   launch per arrival window.  One CTA per ordering heuristic, one
-//   thread per endpoint lane (E <= 1024, a multiple of 32).  The task
-//   loop runs inside the kernel; the (6,E) base registers, the (5,E) run
-//   registers and the (E,C) core slots stay in shared memory for the
-//   whole window; the profile tables and per-task streams are read from
-//   global memory once per step.
-//   Bound on this card: the bytes it must move (the tables and streams
-//   read once) take microseconds at 3.35 TB/s; what bounds it is the
-//   serial chain of T dependent steps, each a block-wide argmin, a
-//   commit by one warp and two barriers.  The design keeps the chain on
-//   one SM per heuristic with no host round trip and no global-memory
-//   carry; using only H of the 132 SMs is left for later work.
+//   launch per arrival window, one CTA per ordering heuristic, the task loop
+//   inside the kernel.  Threads own endpoint lanes (lane e: thread e % NT,
+//   several lanes a thread above 992 lanes); one more warp, the helper,
+//   keeps each lane's slot summary.  Any number of lanes and cores.
+//   Bound on this card: the bytes it must move take microseconds at 3.35
+//   TB/s; what bounds it is the serial chain of T dependent steps, each an
+//   argmin over the lanes whose winner's commit the next step's scores
+//   read (kernel_sweeps.py's chain probe runs that chain alone).  What the
+//   design keeps off that chain:
+//   - the task stream is staged in shared memory by cp.async a ring block
+//     (128 steps) ahead, and each lane's operands of a task (its profile
+//     entries, transfer add and lookahead term) two steps ahead by the
+//     lane's own thread, so no step reads the tables on its chain;
+//   - every thread computes the commit of its best lane before the argmin
+//     decides, beside the scores and the reduction; the owner of the
+//     winning lane only stores it;
+//   - the core-slot matrix stays out of the step: each lane keeps its
+//     first-min slot and the minimum of its other slots, which is all a
+//     commit reads; the helper warp rescans the winning row (without that
+//     slot) while the owner commits and merges the new end time after,
+//     handing its words to the lanes through release/acquire flags, not
+//     block barriers (one warp of lanes needs none);
+//   - the argmin is three 32-bit __reduce_min_sync on ordered 64-bit keys
+//     of the doubles (the lowest value, then the lowest lane at it), not
+//     a shuffle butterfly, then the same once across the warps.
+//   The lane state (6 base and 5 run registers, the slot summaries, the
+//   staged flags), the prefetched operands and the slot matrix sit in
+//   shared memory when they fit, in that order of need, and in global
+//   memory (the output buffers, a scratch) when they do not, so the kernel
+//   takes any fleet the reference places.
+//   GF_WINDOW_DROP (a bit mask, default 0) drops steps' phases for timing
+//   only: the results of such a build are wrong.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -51,7 +71,7 @@ __device__ __forceinline__ double score_lane(
     double e_base, double nl, double g_base, double lk, double fw, double wt,
     bool alive, double c_cur, double idle_on_sum, double a1, double b1,
     double g1, double w_idle_on) {
-  const double c2 = fmax(nl, c_cur);
+  const double c2 = nl > c_cur ? nl : c_cur;   // never NaN
   const double e_s = idle_on_sum * c2 + e_base;
   double obj = a1 * e_s + b1 * c2;
   obj = obj + g1 * (w_idle_on * c2 + g_base);
@@ -78,12 +98,6 @@ __device__ __forceinline__ void warp_argmin(double& v, int& i) {
   }
 }
 
-// Warp-wide minimum; every lane ends with the result.
-__device__ __forceinline__ double warp_min_all(double v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmin(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
 // Block-wide lexicographic argmin.  Every thread calls it; warp 0 returns
 // with the block's (value, index) in all its lanes.  `s_v`/`s_i` hold one
 // entry per warp.
@@ -104,29 +118,6 @@ __device__ __forceinline__ void block_argmin(double& v, int& i, double* s_v, int
     v = __shfl_sync(kFull, v, 0);
     i = __shfl_sync(kFull, i, 0);
   }
-}
-
-// np.sum's pairwise association over x[0:n] (numpy's pairwise_sum:
-// sequential under 8, 8-way unrolled blocks up to 128, halved above).
-__device__ double pairwise_sum(const double* x, int n) {
-  if (n < 8) {
-    double res = 0.0;
-    for (int i = 0; i < n; ++i) res = res + x[i];
-    return res;
-  }
-  if (n <= 128) {
-    double r[8];
-    for (int j = 0; j < 8; ++j) r[j] = x[j];
-    int i = 8;
-    for (; i < n - (n % 8); i += 8)
-      for (int j = 0; j < 8; ++j) r[j] = r[j] + x[i + j];
-    double res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
-    for (; i < n; ++i) res = res + x[i];
-    return res;
-  }
-  int n2 = n / 2;
-  n2 -= n2 % 8;
-  return pairwise_sum(x, n2) + pairwise_sum(x + n2, n - n2);
 }
 
 __global__ void __launch_bounds__(kScoreThreads) score_fleet_kernel(
@@ -177,209 +168,663 @@ enum {
   kA1, kB1, kG1, kIdleOnSum, kWIdleOn, kLamB1, kLamA1, kAlpha, kSf1, kSf2,
   kFBeta, kFMu, kNScal
 };
-// Per-heuristic scalar carry `hs`.
-enum { kCCur, kTj, kCSumB, kTjB, kCgSumB, kNHs };
+// Per-heuristic scalar carry `hs`; on chip also the run-basis sums of a
+// run boundary and the committed end time handed to the helper warp.
+enum { kCCur, kTj, kCSumB, kTjB, kCgSumB, kNHs, kCSumF = kNHs, kCgSumF, kEndV, kNHsChip };
+// Rows of the task stream: xs_i (H, 5, T) int32, xs_d (H, 5, T) float64.
+enum { kTi, kHv, kSig, kShared, kNewRun, kNXi };
+enum { kReady, kNb, kUTw, kUOj, kUFd, kNXd };
+// A lane's operands of a step, copied two steps ahead: pf[row][u % 3][E].
+enum { kPfRt, kPfEn, kPfAdd, kPfHv, kNPf };
+constexpr int kPfAhead = 2, kPfSlots = kPfAhead + 1;
+// What lives in shared memory (the rest in global memory).
+enum { kPfOnChip = 1, kStateOnChip = 2, kSlotsOnChip = 4 };
+// Words the lanes and the helper warp hand each other: the step whose
+// argmin is published, whose commit is written, whose slot summary is
+// refreshed; the winning lane, by step parity.
+enum { kFlagEi, kFlagCommit, kFlagSum, kPubEi, kNHand = kPubEi + 2 };
 
-__global__ void __launch_bounds__(1024) greedy_window_kernel(
-    int n_ep, int E, int C, int T, int n_units, int S,
-    const double* __restrict__ scal,     // (12,)
-    const double* __restrict__ lane_c,   // (5, E): idle_bt su_bt qd rates wt
-    const uint8_t* __restrict__ alive,   // (E,)
-    const double* __restrict__ rt_tab,   // (P, E)
-    const double* __restrict__ en_tab,   // (P, E)
-    const double* __restrict__ fen_tab,  // (P,)
-    const double* __restrict__ frt_tab,  // (P,)
-    const double* __restrict__ add_tab,  // (S, E)
-    const double* __restrict__ hv_tab,   // (V, E)
-    const int* __restrict__ xs_i,        // (H, 3, T): ti hv_id sig
-    const double* __restrict__ xs_d,     // (H, 5, T): ready_s nb u_tw u_oj u_fd
-    const uint8_t* __restrict__ xs_b,    // (H, 2, T): shared_s new_run
-    const double* __restrict__ base_in,  // (H, 6, E): mins first last dyn const const_g
-    const double* __restrict__ slots_in, // (H, E, C)
-    const double* __restrict__ run_in,   // (H, 5, E): e_base nl g_base lk fw
-    const uint8_t* __restrict__ staged_in,  // (H, S, E)
-    const double* __restrict__ hs_in,    // (H, 5): c_cur tj c_sum_b tj_b cg_sum_b
-    double* __restrict__ base_out, double* __restrict__ slots_out,
-    double* __restrict__ run_out, uint8_t* __restrict__ staged_out,
-    double* __restrict__ hs_out, int* __restrict__ ei_out,
-    double* __restrict__ start_out, double* __restrict__ end_out) {
-  extern __shared__ double smem[];
-  double* s_base = smem;              // (6, E)
-  double* s_run = s_base + 6 * E;     // (5, E)
-  double* s_slots = s_run + 5 * E;    // (E, C)
-  double* s_hs = s_slots + E * C;     // kNHs scalars + 2 run-basis sums
-  double* s_rv = s_hs + 8;            // one (value) per warp
-  int* s_ri = reinterpret_cast<int*>(s_rv + 32);  // one (index) per warp
+constexpr int kRing = 128;            // steps of the task stream a ring block
+constexpr int kMaxLaneThreads = 992;  // + the helper warp = 1024
+constexpr size_t kMaxSmem = 232448;   // a block's dynamic shared memory
 
-  const int h = blockIdx.x;
-  const int e = threadIdx.x;
-  const int lane = e & 31;
-  const int warp = e >> 5;
+#ifndef GF_WINDOW_DROP
+#define GF_WINDOW_DROP 0
+#endif
+constexpr int kDrop = GF_WINDOW_DROP;
+enum {
+  kDropStaging = 1,      // read the task stream from global memory each step
+  kDropRunPass = 2,      // skip the run-boundary pass
+  kDropArgmin = 4,       // take lane t % n_ep instead of the argmin
+  kDropCommit = 8,       // write no commit
+  kDropRescan = 16,      // refresh no slot summary
+  kDropSlotsOnChip = 32, // keep the slot matrix in global memory
+  kDropPfOnChip = 64,    // read the step operands from the tables
+};
 
-  for (int r = 0; r < 6; ++r) s_base[r * E + e] = base_in[((size_t)h * 6 + r) * E + e];
-  for (int r = 0; r < 5; ++r) s_run[r * E + e] = run_in[((size_t)h * 5 + r) * E + e];
-  for (int k = e; k < E * C; k += E) s_slots[k] = slots_in[(size_t)h * E * C + k];
-  uint8_t* st_h = staged_out + (size_t)h * S * E;
-  for (int s = 0; s < S; ++s) st_h[s * E + e] = staged_in[((size_t)h * S + s) * E + e];
-  if (e < kNHs) s_hs[e] = hs_in[h * kNHs + e];
+// Byte offsets of the window kernel's shared memory; -1 where the array
+// lives in global memory.
+struct WinLayout {
+  int ring_d, red_v, hs, pf, base, run, min2, slots, ring_i, red_i, hand, k1, staged,
+      total;
+};
 
-  const double idle_bt = lane_c[e], su_bt = lane_c[E + e], qd = lane_c[2 * E + e];
-  const double rates = lane_c[3 * E + e], wt = lane_c[4 * E + e];
-  const bool alv = alive[e] != 0;
-  const double a1 = scal[kA1], b1 = scal[kB1], g1 = scal[kG1];
-  const double idle_on_sum = scal[kIdleOnSum], w_idle_on = scal[kWIdleOn];
-  const double lam_b1 = scal[kLamB1], lam_a1 = scal[kLamA1];
-  const double alpha = scal[kAlpha], sf1 = scal[kSf1], sf2 = scal[kSf2];
-  const double f_beta = scal[kFBeta], f_mu = scal[kFMu];
+__host__ __device__ inline int take(int& at, long long bytes) {
+  const int here = at;
+  at += static_cast<int>((bytes + 15) / 16 * 16);
+  return here;
+}
 
-  const int* xi = xs_i + (size_t)h * 3 * T;
-  const double* xd = xs_d + (size_t)h * 5 * T;
-  const uint8_t* xb = xs_b + (size_t)h * 2 * T;
+__host__ __device__ inline WinLayout win_layout(int E, int C, int S, int mode) {
+  WinLayout l;
+  int o = 0;
+  const bool st = mode & kStateOnChip;
+  l.ring_d = take(o, 2LL * kNXd * kRing * 8);
+  l.red_v = take(o, 2 * 32 * 8);
+  l.hs = take(o, kNHsChip * 8);
+  l.pf = (mode & kPfOnChip) ? take(o, 1LL * kPfSlots * kNPf * E * 8) : -1;
+  l.base = st ? take(o, 6LL * E * 8) : -1;
+  l.run = st ? take(o, 5LL * E * 8) : -1;
+  l.min2 = st ? take(o, 1LL * E * 8) : -1;
+  l.slots = (mode & kSlotsOnChip) ? take(o, 1LL * E * C * 8) : -1;
+  l.ring_i = take(o, 2LL * kNXi * kRing * 4);
+  l.red_i = take(o, 2 * 32 * 4);
+  l.hand = take(o, kNHand * 4);
+  l.k1 = st ? take(o, 1LL * E * 4) : -1;
+  l.staged = st ? take(o, 1LL * S * E) : -1;
+  l.total = o;
+  return l;
+}
+
+struct WinArgs {
+  int n_ep, E, C, T, n_units, S, NT, lpt, mode;
+  const double* scal;     // (12,)
+  const double* lane_c;   // (5, E): idle_bt su_bt qd rates wt
+  const uint8_t* alive;   // (E,)
+  const double* rt_tab;   // (P, E)
+  const double* en_tab;   // (P, E)
+  const double* fen_tab;  // (P,)
+  const double* frt_tab;  // (P,)
+  const double* add_tab;  // (S, E)
+  const double* hv_tab;   // (V, E)
+  const int* xs_i;        // (H, 5, T): ti hv_id sig shared_s new_run
+  const double* xs_d;     // (H, 5, T): ready_s nb u_tw u_oj u_fd
+  const double* base_in;  // (H, 6, E): mins first last dyn const const_g
+  const double* slots_in; // (H, E, C)
+  const double* run_in;   // (H, 5, E): e_base nl g_base lk fw
+  const uint8_t* staged_in;  // (H, S, E)
+  const double* hs_in;    // (H, 5): c_cur tj c_sum_b tj_b cg_sum_b
+  double* base_out;
+  double* slots_out;      // the slot matrix, updated in place when off chip
+  double* run_out;
+  uint8_t* staged_out;
+  double* hs_out;
+  int* ei_out;            // (H, T)
+  double* start_out;      // (H, T)
+  double* end_out;        // (H, T)
+  int* k1_scr;            // (H, E): each lane's first-min slot, off chip
+  double* min2_scr;       // (H, E): the minimum of its other slots, off chip
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A hand-off word: released after the data it guards, acquired before it.
+__device__ __forceinline__ void publish(int* flag, int v) {
+  asm volatile("st.release.cta.b32 [%0], %1;" ::"l"(flag), "r"(v) : "memory");
+}
+__device__ __forceinline__ void await_flag(const int* flag, int v) {
+  int got;
+  long long spins = 0;
+  do {
+    asm volatile("ld.acquire.cta.b32 %0, [%1];" : "=r"(got) : "l"(flag) : "memory");
+    // a hand-off that never comes is a fault: end the launch with an error
+    // (seconds of spinning) rather than hang the card
+    if (++spins > (1LL << 28)) __trap();
+  } while (got < v);
+}
+// The lane threads' barrier (the helper warp runs on its own).
+__device__ __forceinline__ void lanes_sync(int NT) {
+  if (NT == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync 1, %0;" ::"r"(NT) : "memory");
+}
+
+// max and min of two doubles that are never NaN: one compare and a
+// select (fmax and fmin also handle NaN operands, in five instructions)
+__device__ __forceinline__ double dmax(double x, double y) { return x > y ? x : y; }
+__device__ __forceinline__ double dmin(double x, double y) { return x < y ? x : y; }
+
+// numpy's pairwise sum (np.add.reduce: sequential under 8 terms, 8
+// accumulators up to 128, halved above) of x[0:n] and of y[0:n] at once,
+// walking the split tree with a fixed stack instead of recursion.
+__device__ void pairwise_sum2(const double* x, const double* y, int n, double& sx,
+                              double& sy) {
+  int off[32], len[32], side[32];
+  double lx[32], ly[32];
+  int top = 0;
+  off[0] = 0;
+  len[0] = n;
+  side[0] = 0;
+  double rx = 0.0, ry = 0.0;
+  for (;;) {
+    const int o = off[top], m = len[top];
+    if (m > 128) {          // descend into the left half
+      int m2 = m / 2;
+      m2 -= m2 % 8;
+      ++top;
+      off[top] = o;
+      len[top] = m2;
+      side[top] = 0;
+      continue;
+    }
+    if (m < 8) {
+      rx = 0.0;
+      ry = 0.0;
+      for (int i = 0; i < m; ++i) {
+        rx = rx + x[o + i];
+        ry = ry + y[o + i];
+      }
+    } else {
+      double r[8], q[8];
+      for (int j = 0; j < 8; ++j) {
+        r[j] = x[o + j];
+        q[j] = y[o + j];
+      }
+      int i = 8;
+      for (; i < m - (m % 8); i += 8)
+        for (int j = 0; j < 8; ++j) {
+          r[j] = r[j] + x[o + i + j];
+          q[j] = q[j] + y[o + i + j];
+        }
+      rx = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
+      ry = ((q[0] + q[1]) + (q[2] + q[3])) + ((q[4] + q[5]) + (q[6] + q[7]));
+      for (; i < m; ++i) {
+        rx = rx + x[o + i];
+        ry = ry + y[o + i];
+      }
+    }
+    // climb: a left half waits for its right half, a right half completes
+    // its parent (left + right)
+    for (;;) {
+      if (top == 0) {
+        sx = rx;
+        sy = ry;
+        return;
+      }
+      if (side[top] == 0) {
+        lx[top] = rx;
+        ly[top] = ry;
+        side[top] = 1;
+        const int p = top - 1;
+        off[top] = off[p] + len[top];
+        len[top] = len[p] - len[top];
+        break;
+      }
+      rx = lx[top] + rx;
+      ry = ly[top] + ry;
+      --top;
+    }
+  }
+}
+
+// Doubles as unsigned keys in the same order (no NaN; -0 taken as +0, so
+// that equal values have equal keys), for the warp's integer reductions.
+__device__ __forceinline__ unsigned long long order_key(double x) {
+  const long long b = __double_as_longlong(x + 0.0);
+  return b < 0 ? ~static_cast<unsigned long long>(b)
+               : static_cast<unsigned long long>(b) | 0x8000000000000000ull;
+}
+__device__ __forceinline__ double from_key(unsigned long long k) {
+  return __longlong_as_double(k >> 63 ? static_cast<long long>(k & 0x7fffffffffffffffull)
+                                      : static_cast<long long>(~k));
+}
+// The warp's lowest key (every lane gets it).
+__device__ __forceinline__ unsigned long long warp_min_key(unsigned long long key) {
+  const unsigned hi = static_cast<unsigned>(key >> 32), lo = static_cast<unsigned>(key);
+  const unsigned mh = __reduce_min_sync(kFull, hi);
+  const unsigned ml = __reduce_min_sync(kFull, hi == mh ? lo : 0xffffffffu);
+  return (static_cast<unsigned long long>(mh) << 32) | ml;
+}
+// The lowest index among the lanes that hold the warp's lowest key: a
+// first-min argmin in three integer reductions.
+__device__ __forceinline__ int warp_first_min(unsigned long long key, unsigned idx) {
+  const unsigned long long m = warp_min_key(key);
+  return static_cast<int>(__reduce_min_sync(kFull, key == m ? idx : 0xffffffffu));
+}
+
+// What a commit of a lane writes, computed before the argmin decides
+// whether the lane wins.
+struct Commit {
+  double start_v, end_v, nf_v, nl_v, nd_v, c_e, cg_e, m2, nl2, e_b, g_b, lk_e, tj2;
+  int sk;
+  bool staged2;
+};
+
+// MAXT 256 takes windows of up to 224 lanes, one a thread; 1024 any.
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int E = a.E, C = a.C, T = a.T, S = a.S, NT = a.NT, n_ep = a.n_ep;
+  const WinLayout lay = win_layout(E, C, S, a.mode);
+  const int h = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const bool helper = tid >= NT;
+  const int lane = tid & 31, warp = tid >> 5, NW = NT >> 5;
+  const int lpt = MAXT <= 256 ? 1 : a.lpt;
+  constexpr bool staging = !(kDrop & kDropStaging);
+
+  double* ring_d = reinterpret_cast<double*>(smem + lay.ring_d);
+  int* ring_i = reinterpret_cast<int*>(smem + lay.ring_i);
+  double* red_v = reinterpret_cast<double*>(smem + lay.red_v);
+  int* red_i = reinterpret_cast<int*>(smem + lay.red_i);
+  double* hs = reinterpret_cast<double*>(smem + lay.hs);
+  int* hand = reinterpret_cast<int*>(smem + lay.hand);
+  // a block of up to 256 threads (224 lanes) always has its lane state and
+  // operands on chip (win_plan), which the compiler then knows
+  constexpr bool small = MAXT <= 256;
+  double* pf = (small || lay.pf >= 0) ? reinterpret_cast<double*>(smem + lay.pf) : nullptr;
+  const bool on_chip = small || (a.mode & kStateOnChip);
+  double* base = on_chip ? reinterpret_cast<double*>(smem + lay.base)
+                         : a.base_out + (size_t)h * 6 * E;
+  double* run = on_chip ? reinterpret_cast<double*>(smem + lay.run)
+                        : a.run_out + (size_t)h * 5 * E;
+  double* min2 = on_chip ? reinterpret_cast<double*>(smem + lay.min2)
+                         : a.min2_scr + (size_t)h * E;
+  int* k1 = on_chip ? reinterpret_cast<int*>(smem + lay.k1) : a.k1_scr + (size_t)h * E;
+  uint8_t* staged = on_chip ? smem + lay.staged : a.staged_out + (size_t)h * S * E;
+  double* slots = lay.slots >= 0 ? reinterpret_cast<double*>(smem + lay.slots)
+                                 : a.slots_out + (size_t)h * E * C;
+  const int* xi = a.xs_i + (size_t)h * kNXi * T;
+  const double* xd = a.xs_d + (size_t)h * kNXd * T;
+  const double* lane_c = a.lane_c;
+  // a small block's thread has one lane: its constants stay in registers
+  double my_c[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  bool my_alive = false;
+  if (small && tid < E) {
+    for (int r = 0; r < 5; ++r) my_c[r] = lane_c[r * E + tid];
+    my_alive = a.alive[tid] != 0;
+  }
+  auto lc = [&](int r, int e) { return small ? my_c[r] : lane_c[r * E + e]; };
+
+  // ---- the carry in; each lane's slot summary from its row ------------
+  for (int k = tid; k < 6 * E; k += nthr) base[k] = a.base_in[(size_t)h * 6 * E + k];
+  for (int k = tid; k < 5 * E; k += nthr) run[k] = a.run_in[(size_t)h * 5 * E + k];
+  for (int k = tid; k < S * E; k += nthr) staged[k] = a.staged_in[(size_t)h * S * E + k];
+  for (size_t k = tid; k < (size_t)E * C; k += nthr)
+    slots[k] = a.slots_in[(size_t)h * E * C + k];
+  for (int e = tid; e < E; e += nthr) {
+    const double* row = a.slots_in + ((size_t)h * E + e) * C;
+    double m1 = row[0], m2 = inf_d();
+    int i1 = 0;
+    for (int c = 1; c < C; ++c) {
+      const double x = row[c];
+      if (x < m1) {
+        m2 = m1;
+        m1 = x;
+        i1 = c;
+      } else {
+        m2 = dmin(m2, x);
+      }
+    }
+    k1[e] = i1;
+    min2[e] = m2;
+  }
+  if (tid < kNHs) hs[tid] = a.hs_in[h * kNHs + tid];
+  if (tid < 3) hand[tid] = -1;   // kFlagEi, kFlagCommit, kFlagSum
+
+  const double a1 = a.scal[kA1], b1 = a.scal[kB1], g1 = a.scal[kG1];
+  const double idle_on_sum = a.scal[kIdleOnSum], w_idle_on = a.scal[kWIdleOn];
+  const double lam_b1 = a.scal[kLamB1], lam_a1 = a.scal[kLamA1];
+  const double alpha = a.scal[kAlpha], sf1 = a.scal[kSf1], sf2 = a.scal[kSf2];
+  const double f_beta = a.scal[kFBeta], f_mu = a.scal[kFMu];
+
+  // ring block b of the task stream (steps b*kRing ...) into slot b & 1
+  auto issue_ring = [&](int b) {
+    const int t0 = b * kRing, slot = b & 1;
+    for (int k = tid; k < (kNXi + kNXd) * kRing; k += NT) {
+      const int r = k / kRing, j = k % kRing;
+      if (t0 + j >= a.n_units) continue;
+      if (r < kNXi)
+        cp_async4(ring_i + (slot * kNXi + r) * kRing + j, xi + (size_t)r * T + t0 + j);
+      else
+        cp_async8(ring_d + (slot * kNXd + r - kNXi) * kRing + j,
+                  xd + (size_t)(r - kNXi) * T + t0 + j);
+    }
+    cp_async_commit();
+  };
+  auto xsi = [&](int r, int t) {
+    return staging ? ring_i[(((t / kRing) & 1) * kNXi + r) * kRing + t % kRing]
+                   : xi[(size_t)r * T + t];
+  };
+  auto xsd = [&](int r, int t) {
+    return staging ? ring_d[(((t / kRing) & 1) * kNXd + r) * kRing + t % kRing]
+                   : xd[(size_t)r * T + t];
+  };
+  // this thread's lanes' operands of step u, into slot u % 3
+  auto prefetch = [&](int u) {
+    if (pf == nullptr) return;
+    const int par = u % kPfSlots;
+    const size_t ti = xsi(kTi, u), sig = xsi(kSig, u), hv = xsi(kHv, u);
+    for (int i = 0, e = tid; i < lpt && e < E; ++i, e += NT) {
+      cp_async8(pf + (kPfRt * kPfSlots + par) * E + e, a.rt_tab + ti * E + e);
+      cp_async8(pf + (kPfEn * kPfSlots + par) * E + e, a.en_tab + ti * E + e);
+      cp_async8(pf + (kPfAdd * kPfSlots + par) * E + e, a.add_tab + sig * E + e);
+      cp_async8(pf + (kPfHv * kPfSlots + par) * E + e, a.hv_tab + hv * E + e);
+    }
+    cp_async_commit();
+  };
+  // a lane's operand of step t (a row of pf, or the table at idx)
+  auto opnd = [&](int row, int par, int e, const double* tab, size_t idx) {
+    return pf != nullptr ? pf[(row * kPfSlots + par) * E + e] : tab[idx * E + e];
+  };
+
+  if (!helper && staging && a.n_units > 0) issue_ring(0);
+  cp_async_wait_all();
   __syncthreads();
+  for (int u = 0; !helper && u < kPfAhead && u < a.n_units; ++u) prefetch(u);
+  // the run basis, the same in every lane thread
+  double c_sum_b = hs[kCSumB], tj_b = hs[kTjB], cg_sum_b = hs[kCgSumB];
 
-  // Pad steps (t >= n_units) only write old values back in the scan, so
-  // the loop stops at n_units.
-  for (int t = 0; t < n_units; ++t) {
-    const int ti = xi[t], hv = xi[T + t], sig = xi[2 * T + t];
-    const double ready_s = xd[t], nb = xd[T + t];
-    const double u_tw = xd[2 * T + t], u_oj = xd[3 * T + t], u_fd = xd[4 * T + t];
-    const bool shared_s = xb[t] != 0, new_run = xb[T + t] != 0;
+  for (int t = 0; t < a.n_units && !helper; ++t) {
+    // this thread's copies of step t's operands (and of any older ring
+    // block); step t+1's may still be in flight
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPfAhead - 1) : "memory");
+    if (staging && t % kRing == 0 && t + kRing < a.n_units) issue_ring(t / kRing + 1);
+    const int par = t % kPfSlots;
+    const int ti = xsi(kTi, t), hv = xsi(kHv, t), sig = xsi(kSig, t);
+    const bool shared_s = xsi(kShared, t) != 0, new_run = xsi(kNewRun, t) != 0;
+    const double ready_s = xsd(kReady, t), nb = xsd(kNb, t);
+    const double u_tw = xsd(kUTw, t), u_oj = xsd(kUOj, t), u_fd = xsd(kUFd, t);
     const double lk_c1 = lam_b1 * u_tw;
     const double lk_c2 = lam_a1 * u_oj;
+    if (t + kPfAhead < a.n_units) prefetch(t + kPfAhead);
+    const double c_cur = hs[kCCur], tj = hs[kTj];
 
-    // 1-2. On a run boundary: the full pass, against run-basis sums in
+    // 1. On a run boundary: the full pass, against run-basis sums in
     // numpy's pairwise order (one thread, over the n_ep true lanes).
-    if (new_run) {
-      if (e == 0) {
-        s_hs[5] = pairwise_sum(s_base + 4 * E, n_ep);
-        s_hs[6] = pairwise_sum(s_base + 5 * E, n_ep);
-      }
-      __syncthreads();
-      const bool st = st_h[sig * E + e] != 0;
-      const double rt = rt_tab[(size_t)ti * E + e], en = en_tab[(size_t)ti * E + e];
-      const double eff_add = st ? 0.0 : add_tab[sig * E + e];
-      const double eff_ready = (st ? 0.0 : ready_s) + qd;
-      const double c_sum_f = s_hs[5], cg_sum_f = s_hs[6], tj = s_hs[kTj];
-      const double stat = c_sum_f - s_base[4 * E + e];
-      const double stat_g = cg_sum_f - s_base[5 * E + e];
-      double start = fmax(s_base[e], eff_ready);
-      start = fmax(start, nb);
-      const double end = start + rt;
-      const double nf = fmin(s_base[E + e], start);
-      const double nl = fmax(s_base[2 * E + e], end);
-      const double nd = s_base[3 * E + e] + en;
-      const double span = (nl - nf) * idle_bt + su_bt;
-      double eb = stat + nd;
-      eb = eb + span;
-      eb = eb + eff_add;
-      eb = eb + tj;
-      const double gb = (span + nd) * rates + stat_g;
-      const double lkf = end * lk_c1 + hv_tab[hv * E + e] * lk_c2;
-      const double dj = fen_tab[ti] - en;
-      double fjv = dj <= 0.0 ? 0.0 : dj * u_fd;
-      const double ds = frt_tab[ti] - rt;
-      double fsv = ds <= 0.0 ? 0.0 : ds * u_fd;
-      fjv = fjv * alpha / sf1;
-      fsv = fsv * f_beta / sf2;
-      s_run[e] = eb;
-      s_run[E + e] = nl;
-      s_run[2 * E + e] = gb;
-      s_run[3 * E + e] = lkf;
-      s_run[4 * E + e] = (fjv + fsv) * f_mu;
-      if (e == 0) {
-        s_hs[kCSumB] = c_sum_f;
-        s_hs[kTjB] = tj;
-        s_hs[kCgSumB] = cg_sum_f;
+    if (new_run && !(kDrop & kDropRunPass)) {
+      if (tid == 0) pairwise_sum2(base + 4 * E, base + 5 * E, n_ep, hs[kCSumF], hs[kCgSumF]);
+      lanes_sync(NT);
+      c_sum_b = hs[kCSumF];
+      cg_sum_b = hs[kCgSumF];
+      tj_b = tj;
+      const double fen = a.fen_tab[ti], frt = a.frt_tab[ti];
+      for (int i = 0, e = tid; i < lpt && e < E; ++i, e += NT) {
+        const bool st = staged[sig * E + e] != 0;
+        const double rt = opnd(kPfRt, par, e, a.rt_tab, ti);
+        const double en = opnd(kPfEn, par, e, a.en_tab, ti);
+        const double eff_add = st ? 0.0 : opnd(kPfAdd, par, e, a.add_tab, sig);
+        const double eff_ready = (st ? 0.0 : ready_s) + lc(2, e);
+        const double stat = c_sum_b - base[4 * E + e];
+        const double stat_g = cg_sum_b - base[5 * E + e];
+        double start = dmax(base[e], eff_ready);
+        start = dmax(start, nb);
+        const double end = start + rt;
+        const double nf = dmin(base[E + e], start);
+        const double nl = dmax(base[2 * E + e], end);
+        const double nd = base[3 * E + e] + en;
+        const double span = (nl - nf) * lc(0, e) + lc(1, e);
+        double eb = stat + nd;
+        eb = eb + span;
+        eb = eb + eff_add;
+        eb = eb + tj;
+        const double gb = (span + nd) * lc(3, e) + stat_g;
+        const double lkf = end * lk_c1 + opnd(kPfHv, par, e, a.hv_tab, hv) * lk_c2;
+        const double dj = fen - en;
+        double fjv = dj <= 0.0 ? 0.0 : dj * u_fd;
+        const double ds = frt - rt;
+        double fsv = ds <= 0.0 ? 0.0 : ds * u_fd;
+        fjv = fjv * alpha / sf1;
+        fsv = fsv * f_beta / sf2;
+        run[e] = eb;
+        run[E + e] = nl;
+        run[2 * E + e] = gb;
+        run[3 * E + e] = lkf;
+        run[4 * E + e] = (fjv + fsv) * f_mu;
       }
     }
 
-    // 3. Every lane scores and joins the block argmin.
-    double v = score_lane(s_run[e], s_run[E + e], s_run[2 * E + e],
-                          s_run[3 * E + e], s_run[4 * E + e], wt, alv,
-                          s_hs[kCCur], idle_on_sum, a1, b1, g1, w_idle_on);
-    int ei = e;
-    block_argmin(v, ei, s_rv, s_ri);
-
-    // 4. Warp 0 commits: every lane computes the same scalars, the lanes
-    // split the slot scan, lane 0 writes.
-    if (warp == 0) {
-      const bool st_e = st_h[sig * E + ei] != 0;
-      const double add_e = add_tab[sig * E + ei];
-      const double idle_e = lane_c[ei], su_e = lane_c[E + ei];
-      const double qd_e = lane_c[2 * E + ei], rate_e = lane_c[3 * E + ei];
-      const double rt_e = rt_tab[(size_t)ti * E + ei], en_e = en_tab[(size_t)ti * E + ei];
-      const double hv_e = hv_tab[hv * E + ei];
-      const double c_cur = s_hs[kCCur], tj = s_hs[kTj];
-      const double c_sum_b = s_hs[kCSumB], tj_b = s_hs[kTjB], cg_sum_b = s_hs[kCgSumB];
-      const double ready_e = (st_e ? 0.0 : ready_s) + qd_e;
-      const double tj2 = tj + (st_e ? 0.0 : add_e);
-      const bool staged_e2 = st_e || shared_s;
-      double start_v = fmax(s_base[ei], ready_e);
-      start_v = fmax(start_v, nb);
-      const double end_v = start_v + rt_e;
-      const double nf_v = fmin(start_v, s_base[E + ei]);
-      const double nl_v = fmax(end_v, s_base[2 * E + ei]);
-      const double nd_v = s_base[3 * E + ei] + en_e;
-      // first-min core slot (like list.index(min)), then the new slot min
-      double* row = s_slots + (size_t)ei * C;
-      double sv = inf_d();
-      int sk = INT_MAX;
-      for (int c = lane; c < C; c += 32) lex_min(sv, sk, row[c], c);
-      warp_argmin(sv, sk);
-      sk = __shfl_sync(kFull, sk, 0);
-      double mv = inf_d();
-      for (int c = lane; c < C; c += 32) mv = fmin(mv, c == sk ? end_v : row[c]);
-      const double m2 = warp_min_all(mv);
-      const double c_e = (nl_v - nf_v) * idle_e + su_e + nd_v;
-      const double cg_e = rate_e * c_e;
-      // refresh of the committed lane against the frozen run basis
-      const double ready2 = (staged_e2 ? 0.0 : ready_s) + qd_e;
-      double s2 = fmax(m2, ready2);
-      s2 = fmax(s2, nb);
-      const double e2 = s2 + rt_e;
-      const double nf2 = fmin(s2, nf_v);
-      const double nl2 = fmax(e2, nl_v);
-      double e_b = (c_sum_b - c_e) + (nd_v + en_e);
-      e_b = e_b + ((nl2 - nf2) * idle_e + su_e);
-      e_b = e_b + (staged_e2 ? 0.0 : add_e);
-      e_b = e_b + tj_b;
-      const double g_b = (cg_sum_b - cg_e)
-          + rate_e * (((nl2 - nf2) * idle_e + su_e) + (nd_v + en_e));
-      const double lk_e = e2 * lk_c1 + hv_e * lk_c2;
-      __syncwarp();
-      if (lane == 0) {
-        row[sk] = end_v;
-        st_h[sig * E + ei] = staged_e2 ? 1 : 0;
-        s_base[ei] = m2;
-        s_base[E + ei] = nf_v;
-        s_base[2 * E + ei] = nl_v;
-        s_base[3 * E + ei] = nd_v;
-        s_base[4 * E + ei] = c_e;
-        s_base[5 * E + ei] = cg_e;
-        s_run[ei] = e_b;             // fw (row 4) is per-run, never refreshed
-        s_run[E + ei] = nl2;
-        s_run[2 * E + ei] = g_b;
-        s_run[3 * E + ei] = lk_e;
-        s_hs[kCCur] = fmax(c_cur, end_v);
-        s_hs[kTj] = tj2;
-        ei_out[(size_t)h * T + t] = ei;
-        start_out[(size_t)h * T + t] = start_v;
-        end_out[(size_t)h * T + t] = end_v;
+    // 2. Every lane scores; each thread keeps its first-min lane.
+    double v = inf_d();
+    int vi = tid;
+    for (int i = 0, e = tid; i < lpt && e < E; ++i, e += NT) {
+      const double obj = score_lane(run[e], run[E + e], run[2 * E + e], run[3 * E + e],
+                                    run[4 * E + e], lc(4, e), (small ? my_alive : a.alive[e] != 0),
+                                    c_cur, idle_on_sum, a1, b1, g1, w_idle_on);
+      if (i == 0 || obj < v) {
+        v = obj;
+        vi = e;
       }
     }
-    // 5.
-    __syncthreads();
+
+    // 3. The commit of that lane, as if it wins, beside the scores and the
+    // argmin (with one lane a thread the lane is known before its score).
+    // Its second half waits for the helper's refresh of the slot summary
+    // of the last step's lane.
+    Commit cm;
+    const int e = vi;
+    const bool st_e = staged[sig * E + e] != 0;
+    const double add_e = opnd(kPfAdd, par, e, a.add_tab, sig);
+    const double idle_e = lc(0, e), su_e = lc(1, e);
+    const double qd_e = lc(2, e), rate_e = lc(3, e);
+    const double rt_e = opnd(kPfRt, par, e, a.rt_tab, ti);
+    const double en_e = opnd(kPfEn, par, e, a.en_tab, ti);
+    const double hv_e = opnd(kPfHv, par, e, a.hv_tab, hv);
+    const double ready_e = (st_e ? 0.0 : ready_s) + qd_e;
+    cm.tj2 = tj + (st_e ? 0.0 : add_e);
+    cm.staged2 = st_e || shared_s;
+    cm.start_v = dmax(base[e], ready_e);
+    cm.start_v = dmax(cm.start_v, nb);
+    cm.end_v = cm.start_v + rt_e;
+    cm.nf_v = dmin(cm.start_v, base[E + e]);
+    cm.nl_v = dmax(cm.end_v, base[2 * E + e]);
+    cm.nd_v = base[3 * E + e] + en_e;
+    cm.c_e = (cm.nl_v - cm.nf_v) * idle_e + su_e + cm.nd_v;
+    cm.cg_e = rate_e * cm.c_e;
+    const double ready2 = (cm.staged2 ? 0.0 : ready_s) + qd_e;
+    // 4. First-min argmin: three integer reductions on ordered keys in the
+    // warp, then the same across the warps; beside the helper's refresh.
+    int ei;
+    if (kDrop & kDropArgmin) {
+      ei = t % n_ep;
+    } else {
+      const unsigned long long key = order_key(v);
+      const unsigned long long wkey = warp_min_key(key);
+      ei = static_cast<int>(__reduce_min_sync(
+          kFull, key == wkey ? static_cast<unsigned>(vi) : 0xffffffffu));
+      if (NW > 1) {
+        unsigned long long* red_k = reinterpret_cast<unsigned long long*>(red_v);
+        const int rb = (t & 1) * 32;
+        if (lane == 0) {
+          red_k[rb + warp] = wkey;
+          red_i[rb + warp] = ei;
+        }
+        lanes_sync(NT);
+        ei = warp_first_min(lane < NW ? red_k[rb + lane] : ~0ull,
+                            lane < NW ? static_cast<unsigned>(red_i[rb + lane])
+                                      : 0xffffffffu);
+      }
+    }
+    // the winner to the helper, which scans its row while the lanes
+    // finish the commit
+    if (tid == 0) {
+      hand[kPubEi + (t & 1)] = ei;
+      publish(hand + kFlagEi, t);
+    }
+    await_flag(hand + kFlagSum, t - 1);
+    // the first-min slot takes end_v: the new minimum is the lower of end_v
+    // and the others' minimum; then the committed lane's refresh against
+    // the frozen run basis
+    cm.sk = k1[e];
+    cm.m2 = dmin(cm.end_v, min2[e]);
+    double s2 = dmax(cm.m2, ready2);
+    s2 = dmax(s2, nb);
+    const double e2 = s2 + rt_e;
+    const double nf2 = dmin(s2, cm.nf_v);
+    cm.nl2 = dmax(e2, cm.nl_v);
+    cm.e_b = (c_sum_b - cm.c_e) + (cm.nd_v + en_e);
+    cm.e_b = cm.e_b + ((cm.nl2 - nf2) * idle_e + su_e);
+    cm.e_b = cm.e_b + (cm.staged2 ? 0.0 : add_e);
+    cm.e_b = cm.e_b + tj_b;
+    cm.g_b = (cg_sum_b - cm.cg_e)
+        + rate_e * (((cm.nl2 - nf2) * idle_e + su_e) + (cm.nd_v + en_e));
+    cm.lk_e = e2 * lk_c1 + hv_e * lk_c2;
+
+
+    // 5. The thread that owns the winning lane writes its commit.
+    if (ei % NT == tid) {
+      if (!(kDrop & kDropCommit)) {
+        slots[(size_t)ei * C + cm.sk] = cm.end_v;
+        staged[sig * E + ei] = cm.staged2 ? 1 : 0;
+        base[ei] = cm.m2;
+        base[E + ei] = cm.nf_v;
+        base[2 * E + ei] = cm.nl_v;
+        base[3 * E + ei] = cm.nd_v;
+        base[4 * E + ei] = cm.c_e;
+        base[5 * E + ei] = cm.cg_e;
+        run[ei] = cm.e_b;          // fw (row 4) is per-run, never refreshed
+        run[E + ei] = cm.nl2;
+        run[2 * E + ei] = cm.g_b;
+        run[3 * E + ei] = cm.lk_e;
+        hs[kCCur] = dmax(c_cur, cm.end_v);
+        hs[kTj] = cm.tj2;
+      }
+      hs[kEndV] = cm.end_v;
+      publish(hand + kFlagCommit, t);
+      // the outputs after the release, which would otherwise wait for them
+      if (!(kDrop & kDropCommit)) {
+        a.ei_out[(size_t)h * T + t] = ei;
+        a.start_out[(size_t)h * T + t] = cm.start_v;
+        a.end_out[(size_t)h * T + t] = cm.end_v;
+      }
+    }
+    lanes_sync(NT);
   }
 
-  for (int t = n_units + e; t < T; t += E) {
-    ei_out[(size_t)h * T + t] = 0;
-    start_out[(size_t)h * T + t] = 0.0;
-    end_out[(size_t)h * T + t] = 0.0;
+  // The helper warp: after each step's argmin, the winning lane's row
+  // without its first-min slot; after the commit, that slot's new value
+  // merged in: the lane's new first-min slot and the minimum of the rest.
+  for (int t = 0; t < a.n_units && helper; ++t) {
+    await_flag(hand + kFlagEi, t);
+    const int e = hand[kPubEi + (t & 1)];
+    const unsigned k = static_cast<unsigned>(k1[e]);
+    // first-min key and slot of the row without slot k, and the least key
+    // of the rest, in ordered keys (~0: none)
+    unsigned long long m1 = ~0ull, m2 = ~0ull;
+    unsigned i1 = 0xffffffffu;
+    if (!(kDrop & kDropRescan)) {
+      const double* row = slots + (size_t)e * C;
+      unsigned long long mine = ~0ull, rest = ~0ull;
+      unsigned at = 0xffffffffu;
+      for (int c = lane; c < C; c += 32) {
+        if (static_cast<unsigned>(c) == k) continue;
+        const unsigned long long x = order_key(row[c]);
+        if (x < mine) {
+          rest = mine < rest ? mine : rest;
+          mine = x;
+          at = c;
+        } else {
+          rest = x < rest ? x : rest;
+        }
+      }
+      m1 = warp_min_key(mine);
+      i1 = __reduce_min_sync(kFull, mine == m1 ? at : 0xffffffffu);
+      m2 = warp_min_key(at == i1 ? rest : mine);
+    }
+    await_flag(hand + kFlagCommit, t);
+    // slot k's new value merged in
+    const unsigned long long ke = order_key(hs[kEndV]);
+    if (ke < m1 || (ke == m1 && k < i1)) {
+      m2 = m1;
+      m1 = ke;
+      i1 = k;
+    } else {
+      m2 = ke < m2 ? ke : m2;
+    }
+    if (lane == 0) {
+      if (!(kDrop & kDropRescan)) {
+        k1[e] = static_cast<int>(i1);
+        min2[e] = m2 == ~0ull ? inf_d() : from_key(m2);
+      }
+      publish(hand + kFlagSum, t);
+    }
+    __syncwarp();
   }
-  for (int r = 0; r < 6; ++r) base_out[((size_t)h * 6 + r) * E + e] = s_base[r * E + e];
-  for (int r = 0; r < 5; ++r) run_out[((size_t)h * 5 + r) * E + e] = s_run[r * E + e];
-  for (int k = e; k < E * C; k += E) slots_out[(size_t)h * E * C + k] = s_slots[k];
-  if (e < kNHs) hs_out[h * kNHs + e] = s_hs[e];
+
+  cp_async_wait_all();
+  if (tid == 0) {
+    hs[kCSumB] = c_sum_b;
+    hs[kTjB] = tj_b;
+    hs[kCgSumB] = cg_sum_b;
+  }
+  __syncthreads();
+  for (int t = a.n_units + tid; t < T; t += nthr) {
+    a.ei_out[(size_t)h * T + t] = 0;
+    a.start_out[(size_t)h * T + t] = 0.0;
+    a.end_out[(size_t)h * T + t] = 0.0;
+  }
+  if (on_chip) {
+    for (int k = tid; k < 6 * E; k += nthr) a.base_out[(size_t)h * 6 * E + k] = base[k];
+    for (int k = tid; k < 5 * E; k += nthr) a.run_out[(size_t)h * 5 * E + k] = run[k];
+    for (int k = tid; k < S * E; k += nthr) a.staged_out[(size_t)h * S * E + k] = staged[k];
+  }
+  if (lay.slots >= 0)
+    for (size_t k = tid; k < (size_t)E * C; k += nthr)
+      a.slots_out[(size_t)h * E * C + k] = slots[k];
+  if (tid < kNHs) a.hs_out[h * kNHs + tid] = hs[tid];
+}
+
+// Launch plan of a window of E lanes, C core slots and S input
+// signatures: lanes per thread, lane threads (the helper warp comes on
+// top), what lives in shared memory and its bytes.
+struct WinPlan {
+  int lpt, nt, mode;
+  size_t smem;
+};
+
+WinPlan win_plan(int E, int C, int S) {
+  WinPlan p;
+  p.lpt = (E + kMaxLaneThreads - 1) / kMaxLaneThreads;
+  p.nt = ((E + p.lpt - 1) / p.lpt + 31) / 32 * 32;
+  // the lane state first (every step reads it), then the step operands,
+  // then the slot matrix (the helper's, off the step's chain)
+  int dropped = 0;
+  if (kDrop & kDropSlotsOnChip) dropped |= kSlotsOnChip;
+  if (kDrop & kDropPfOnChip) dropped |= kPfOnChip;
+  const int modes[] = {7, 3, 2, 1, 0};
+  p.mode = 0;
+  for (int mode : modes) {
+    mode &= ~dropped;
+    if ((size_t)win_layout(E, C, S, mode).total <= kMaxSmem) {
+      p.mode = mode;
+      break;
+    }
+  }
+  p.smem = win_layout(E, C, S, p.mode).total;
+  return p;
+}
+
+template <int MAXT>
+int launch_window(const WinArgs& a, const WinPlan& p, int H, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      greedy_window_kernel<MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  greedy_window_kernel<MAXT><<<H, p.nt + 32, p.smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -409,43 +854,57 @@ int gf_score_fleet(const void* e_base, const void* nl, const void* g_base,
   return static_cast<int>(cudaGetLastError());
 }
 
-size_t gf_greedy_window_smem(int E, int C) {
-  return (static_cast<size_t>(11 * E + E * C + 8 + 32)) * sizeof(double)
-      + 32 * sizeof(int);
+// The window's launch plan: lanes per thread, lane threads, the shared-
+// memory mode (bit 0: the step operands, bit 1: the lane state, bit 2:
+// the slot matrix) and its bytes.
+void gf_greedy_window_plan(int E, int C, int S, int* lpt, int* nt, int* mode,
+                           size_t* smem) {
+  const WinPlan p = win_plan(E, C, S);
+  *lpt = p.lpt;
+  *nt = p.nt;
+  *mode = p.mode;
+  *smem = p.smem;
 }
 
+// E lanes (a multiple of 32), C core slots, T steps (n_units real), S
+// input signatures, H heuristics (one CTA each).  k1_scr (H, E) int32 and
+// min2_scr (H, E) float64 are scratch.  Returns a CUDA error code.
 int gf_greedy_window(int n_ep, int E, int C, int T, int n_units, int S, int H,
                      const void* scal, const void* lane_c, const void* alive,
                      const void* rt_tab, const void* en_tab,
                      const void* fen_tab, const void* frt_tab,
                      const void* add_tab, const void* hv_tab,
-                     const void* xs_i, const void* xs_d, const void* xs_b,
+                     const void* xs_i, const void* xs_d,
                      const void* base_in, const void* slots_in,
                      const void* run_in, const void* staged_in,
                      const void* hs_in, void* base_out, void* slots_out,
                      void* run_out, void* staged_out, void* hs_out,
                      void* ei_out, void* start_out, void* end_out,
-                     void* stream) {
-  const size_t smem = gf_greedy_window_smem(E, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      greedy_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  greedy_window_kernel<<<H, E, smem, static_cast<cudaStream_t>(stream)>>>(
-      n_ep, E, C, T, n_units, S, static_cast<const double*>(scal),
-      static_cast<const double*>(lane_c), static_cast<const uint8_t*>(alive),
-      static_cast<const double*>(rt_tab), static_cast<const double*>(en_tab),
-      static_cast<const double*>(fen_tab), static_cast<const double*>(frt_tab),
-      static_cast<const double*>(add_tab), static_cast<const double*>(hv_tab),
-      static_cast<const int*>(xs_i), static_cast<const double*>(xs_d),
-      static_cast<const uint8_t*>(xs_b), static_cast<const double*>(base_in),
-      static_cast<const double*>(slots_in), static_cast<const double*>(run_in),
-      static_cast<const uint8_t*>(staged_in), static_cast<const double*>(hs_in),
-      static_cast<double*>(base_out), static_cast<double*>(slots_out),
-      static_cast<double*>(run_out), static_cast<uint8_t*>(staged_out),
-      static_cast<double*>(hs_out), static_cast<int*>(ei_out),
-      static_cast<double*>(start_out), static_cast<double*>(end_out));
-  return static_cast<int>(cudaGetLastError());
+                     void* k1_scr, void* min2_scr, void* stream) {
+  if (E < 32 || E % 32 || C < 1 || H < 1 || n_ep < 1 || n_ep > E || n_units < 0 ||
+      n_units > T || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WinPlan p = win_plan(E, C, S);
+  WinArgs a{n_ep, E, C, T, n_units, S, p.nt, p.lpt, p.mode,
+            static_cast<const double*>(scal), static_cast<const double*>(lane_c),
+            static_cast<const uint8_t*>(alive), static_cast<const double*>(rt_tab),
+            static_cast<const double*>(en_tab), static_cast<const double*>(fen_tab),
+            static_cast<const double*>(frt_tab), static_cast<const double*>(add_tab),
+            static_cast<const double*>(hv_tab), static_cast<const int*>(xs_i),
+            static_cast<const double*>(xs_d), static_cast<const double*>(base_in),
+            static_cast<const double*>(slots_in), static_cast<const double*>(run_in),
+            static_cast<const uint8_t*>(staged_in), static_cast<const double*>(hs_in),
+            static_cast<double*>(base_out), static_cast<double*>(slots_out),
+            static_cast<double*>(run_out), static_cast<uint8_t*>(staged_out),
+            static_cast<double*>(hs_out), static_cast<int*>(ei_out),
+            static_cast<double*>(start_out), static_cast<double*>(end_out),
+            static_cast<int*>(k1_scr), static_cast<double*>(min2_scr)};
+  auto st = static_cast<cudaStream_t>(stream);
+  // fewer threads a block leave each more registers; the small instance
+  // takes its lane state and operands on chip for granted
+  const bool small = p.nt + 32 <= 256 && (p.mode & (kStateOnChip | kPfOnChip)) ==
+                                              (kStateOnChip | kPfOnChip);
+  return small ? launch_window<256>(a, p, H, st) : launch_window<1024>(a, p, H, st);
 }
 
 }  // extern "C"

@@ -9,6 +9,8 @@ kernel's plain version instead (``ref.score_fleet_plain``,
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels.placement import build as _build
@@ -18,7 +20,6 @@ from repro_torch.kernels.placement import ref as _ref
 LAUNCHES = {"score_fleet": 0, "greedy_window": 0}
 
 SCORE_THREADS = 256
-MAX_SMEM_BYTES = 232448   # an H100 block's dynamic shared memory limit
 
 
 def reset_launches() -> None:
@@ -93,7 +94,9 @@ def greedy_window(p: dict, n_ep: int, n_units: int) -> dict:
     Returns the final carry (``base``, ``slots``, ``run``, ``staged``,
     ``hs``) and the per-step ``ei``/``start``/``end`` ``(H, T)`` streams
     (zeros past ``n_units``).  A window on the CPU runs the plain version,
-    ``ops._greedy_scan_plain``, which returns the same layout.
+    ``ops._greedy_scan_plain``, which returns the same layout.  Any number
+    of lanes (a multiple of 32) and cores: what does not fit in shared
+    memory stays in global memory (``plan``).
     """
     dev = p["base"].device
     if dev.type == "cpu":
@@ -101,14 +104,38 @@ def greedy_window(p: dict, n_ep: int, n_units: int) -> dict:
         return _greedy_scan_plain(p, n_ep, n_units)
     if dev.type != "cuda":
         raise ValueError(f"greedy_window: unsupported device {dev}")
+    out = run_window(_build.lib(), p, n_ep, n_units)
+    LAUNCHES["greedy_window"] += 1
+    return out
+
+
+def plan(E: int, C: int, S: int) -> dict:
+    """The window kernel's launch plan for E lanes, C core slots and S
+    input signatures: lanes a thread, lane threads (one helper warp more),
+    whether the step operands, the lane state and the slot matrix sit in
+    shared memory (else in global memory), and its bytes."""
+    vals = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()]
+    _build.lib().gf_greedy_window_plan(E, C, S, *(ctypes.byref(v) for v in vals))
+    lpt, nt, mode, smem = (v.value for v in vals)
+    return {"lanes_per_thread": lpt, "lane_threads": nt, "operands_on_chip": bool(mode & 1),
+            "state_on_chip": bool(mode & 2), "slots_on_chip": bool(mode & 4),
+            "smem_bytes": smem}
+
+
+def run_window(handle, p: dict, n_ep: int, n_units: int) -> dict:
+    """Check a packed window on the card and launch ``handle``'s window
+    kernel on it (``greedy_window``'s launch; a sweep passes the library
+    of another build)."""
+    dev = p["base"].device
     H, _, E = p["base"].shape
     C = p["slots"].shape[2]
     T = p["xs_i"].shape[2]
     S = p["staged"].shape[1]
     P = p["rt_tab"].shape[0]
     V = p["hv_tab"].shape[0]
-    if E % 32 or not 32 <= E <= 1024:
-        raise ValueError(f"greedy_window needs 32..1024 lanes in warps, got {E}")
+    if E % 32 or E < 32:
+        raise ValueError(f"greedy_window needs lanes in whole warps (a multiple of 32), "
+                         f"got {E}")
     if not 0 < n_ep <= E or not 0 <= n_units <= T:
         raise ValueError(f"bad n_ep={n_ep} / n_units={n_units} for E={E}, T={T}")
     f64, i32, b8 = torch.float64, torch.int32, torch.bool
@@ -117,36 +144,29 @@ def greedy_window(p: dict, n_ep: int, n_units: int) -> dict:
         "rt_tab": ((P, E), f64), "en_tab": ((P, E), f64),
         "fen_tab": ((P,), f64), "frt_tab": ((P,), f64),
         "add_tab": ((S, E), f64), "hv_tab": ((V, E), f64),
-        "xs_i": ((H, 3, T), i32), "xs_d": ((H, 5, T), f64),
-        "xs_b": ((H, 2, T), b8), "base": ((H, 6, E), f64),
-        "slots": ((H, E, C), f64), "run": ((H, 5, E), f64),
-        "staged": ((H, S, E), b8), "hs": ((H, 5), f64),
+        "xs_i": ((H, 5, T), i32), "xs_d": ((H, 5, T), f64),
+        "base": ((H, 6, E), f64), "slots": ((H, E, C), f64),
+        "run": ((H, 5, E), f64), "staged": ((H, S, E), b8), "hs": ((H, 5), f64),
     }
     for name, (shape, dtype) in shapes.items():
         _check(p[name], name, dtype, shape, dev)
-    lib = _build.lib()
-    smem = lib.gf_greedy_window_smem(E, C)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"greedy_window needs {smem} B of shared memory for {E} lanes x "
-            f"{C} cores; a block has {MAX_SMEM_BYTES}"
-        )
     out = {k: torch.empty_like(p[k]) for k in ("base", "slots", "run",
                                               "staged", "hs")}
     out["ei"] = torch.empty((H, T), dtype=i32, device=dev)
     out["start"] = torch.empty((H, T), dtype=f64, device=dev)
     out["end"] = torch.empty((H, T), dtype=f64, device=dev)
+    k1 = torch.empty((H, E), dtype=i32, device=dev)
+    min2 = torch.empty((H, E), dtype=f64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gf_greedy_window(
+    rc = handle.gf_greedy_window(
         n_ep, E, C, T, n_units, S, H,
         *(p[k].data_ptr() for k in (
             "scal", "lane_c", "alive", "rt_tab", "en_tab", "fen_tab",
-            "frt_tab", "add_tab", "hv_tab", "xs_i", "xs_d", "xs_b",
+            "frt_tab", "add_tab", "hv_tab", "xs_i", "xs_d",
             "base", "slots", "run", "staged", "hs")),
         *(out[k].data_ptr() for k in (
             "base", "slots", "run", "staged", "hs", "ei", "start", "end")),
-        stream,
+        k1.data_ptr(), min2.data_ptr(), stream,
     )
     _raise_on(rc, "greedy_window")
-    LAUNCHES["greedy_window"] += 1
     return out

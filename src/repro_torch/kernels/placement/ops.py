@@ -19,8 +19,8 @@ reproduce the SoA engine's float sequences double for double:
 - Disabled term registers (carbon/lookahead/fairness/warm) enter as zeros
   with zero weights; ``+0.0`` is bitwise-inert here.
 
-Shapes are padded: endpoint lanes to a multiple of 32 on the card (one
-thread per lane, whole warps) and to a power of two on the CPU, cores,
+Shapes are padded: endpoint lanes to a multiple of 32 on the card (whole
+warps) and to a power of two on the CPU, cores,
 tasks and input signatures to powers of two.  Pad endpoint lanes carry
 all-zero slots with ``first=inf`` and ``alive=False`` (finite scores,
 masked to ``+inf`` before the argmin), so no ``inf - inf`` NaN can poison
@@ -46,9 +46,8 @@ LANE_CONSTS = ("idle_bt", "su_bt", "qd", "rates", "wt")
 BASE_REGS = ("mins", "first", "last", "dyn", "const", "const_g")
 RUN_REGS = ("e_base", "nl_r", "g_base_r", "lk_r", "fw_r")
 H_SCALARS = ("c_cur", "tj", "c_sum_b", "tj_b", "cg_sum_b")
-XS_INT = ("ti", "hv_id", "sig")
+XS_INT = ("ti", "hv_id", "sig", "shared_s", "new_run")   # flags as 0/1
 XS_F64 = ("ready_s", "nb", "u_tw", "u_oj", "u_fd")
-XS_BOOL = ("shared_s", "new_run")
 
 #: Wall seconds of the last ``greedy_window`` call's device run (the
 #: kernel or the plain loop, synchronised), for callers that report it.
@@ -65,8 +64,8 @@ def bucket_pow2(n: int, minimum: int = 1) -> int:
 
 
 def lane_bucket(n_ep: int, device) -> int:
-    """Padded endpoint-lane count: a multiple of 32 on a CUDA device (one
-    thread per lane in whole warps), a power of two on the CPU."""
+    """Padded endpoint-lane count: a multiple of 32 on a CUDA device (in
+    whole warps of lanes), a power of two on the CPU."""
     if torch.device(device).type == "cuda":
         return ((max(n_ep, 1) + 31) // 32) * 32
     return bucket_pow2(n_ep)
@@ -79,8 +78,9 @@ def pack(consts: dict, init: dict, xs: dict, device) -> tuple[dict, int]:
     ``scal (12,)`` in :data:`SCALARS` order; ``lane_c (5, E)`` rows
     :data:`LANE_CONSTS`; ``alive (E,)``; the tables ``rt_tab``/``en_tab``
     ``(P, E)``, ``fen_tab``/``frt_tab`` ``(P,)``, ``add_tab (S, E)``,
-    ``hv_tab (V, E)``; streams ``xs_i (H, 3, T)`` int32, ``xs_d (H, 5,
-    T)`` float64, ``xs_b (H, 2, T)`` bool; carry ``base (H, 6, E)``,
+    ``hv_tab (V, E)``; streams ``xs_i (H, 5, T)`` int32 (the two flags as
+    0/1, so that the kernel stages the stream in 4- and 8-byte words),
+    ``xs_d (H, 5, T)`` float64; carry ``base (H, 6, E)``,
     ``slots (H, E, C)``, ``run (H, 5, E)``, ``staged (H, S, E)``, ``hs
     (H, 5)``.
     """
@@ -95,7 +95,6 @@ def pack(consts: dict, init: dict, xs: dict, device) -> tuple[dict, int]:
         "alive": np.asarray(consts["alive"], dtype=bool),
         "xs_i": np.stack([xs[k] for k in XS_INT], axis=1).astype(np.int32),
         "xs_d": np.stack([xs[k] for k in XS_F64], axis=1),
-        "xs_b": np.stack([xs[k] for k in XS_BOOL], axis=1).astype(bool),
         "base": np.stack([init[k] for k in BASE_REGS], axis=1),
         "slots": init["slots"],
         "run": np.stack([init[k] for k in RUN_REGS], axis=1),
@@ -174,8 +173,8 @@ def _greedy_scan_plain(p: dict, n_ep: int, n_units: int) -> dict:
     rt_tab, en_tab = p["rt_tab"], p["en_tab"]
     fen_tab, frt_tab = p["fen_tab"], p["frt_tab"]
     add_tab, hv_tab = p["add_tab"], p["hv_tab"]
-    xs_i, xs_d, xs_b = p["xs_i"].long(), p["xs_d"], p["xs_b"]
-    any_new_run = p["xs_b"][:, 1].any(dim=0).tolist()
+    xs_i, xs_d = p["xs_i"].long(), p["xs_d"]
+    any_new_run = (p["xs_i"][:, 4] != 0).any(dim=0).tolist()
     c_cur, tj, c_sum_b, tj_b, cg_sum_b = (v.clone() for v in hs.unbind(1))
     ei_y = torch.zeros((H, T), dtype=torch.int32, device=dev)
     s_y = torch.zeros((H, T), dtype=torch.float64, device=dev)
@@ -186,7 +185,7 @@ def _greedy_scan_plain(p: dict, n_ep: int, n_units: int) -> dict:
         ti, hv_id, sig = xs_i[:, 0, t], xs_i[:, 1, t], xs_i[:, 2, t]
         ready_s, nb = xs_d[:, 0, t], xs_d[:, 1, t]
         u_tw, u_oj, u_fd = xs_d[:, 2, t], xs_d[:, 3, t], xs_d[:, 4, t]
-        shared_s, new_run = xs_b[:, 0, t], xs_b[:, 1, t]
+        shared_s, new_run = xs_i[:, 3, t] != 0, xs_i[:, 4, t] != 0
         st_row = staged[ar, sig]
         add_row = add_tab[sig]
         hv_row = hv_tab[hv_id]

@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the Mamba1 selective scan: the sequential
+"""Plain PyTorch versions of the Mamba1 selective scan: the sequential
 recurrence of the reference's oracle
-(``kernels/selective_scan/ref.py::selective_scan_ref``), in float32.  The
-CPU runs it, and the kernel is held against it on the card.
+(``kernels/selective_scan/ref.py::selective_scan_ref``), in float32, and
+the Mamba1 block's work around it that the fused kernel takes in.  The
+CPU runs them, and the kernel is held against them on the card.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def selective_scan_plain(x, dt, A, B, C, D, *, return_state: bool = False):
@@ -26,4 +28,17 @@ def selective_scan_plain(x, dt, A, B, C, D, *, return_state: bool = False):
         h = a * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     y = (torch.stack(ys, dim=1) + xf * D.float()).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def mamba1_scan_fused_plain(xc, dt_raw, dt_b, A, B, C, D, z, *,
+                            return_state: bool = False):
+    """The Mamba1 block from the ``dt_w`` product to ``out_proj``, in the
+    block's op order: y (b, L, d) in xc's dtype, and with
+    ``return_state`` also the final state (b, d, n) in float32."""
+    dt = F.softplus(dt_raw.float() + dt_b)
+    res = selective_scan_plain(xc.float(), dt, A, B.float(), C.float(), D,
+                               return_state=return_state)
+    y, h = res if return_state else (res, None)
+    y = (y * F.silu(z.float())).to(xc.dtype)
     return (y, h) if return_state else y

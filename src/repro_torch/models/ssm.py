@@ -4,7 +4,8 @@
 Each full-sequence path takes the op order of the reference's kernel
 branch (``ssm.py`` of the reference: ``mamba1_apply``'s and
 ``mamba2_apply``'s) and runs its scan op: the hand-written kernel on the
-card, the sequential recurrence on the CPU.  One route serves every
+card, the sequential recurrence on the CPU.  Mamba1's op also takes in the
+softplus before the scan and the gate after it.  One route serves every
 length; with ``return_cache`` the same op also returns the final state
 (the reference's XLA path, an associative or chunked scan, computes the
 same function).  Decode is plain ops, as in the reference.
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.selective_scan.ops import selective_scan_op
+from repro_torch.kernels.selective_scan.ops import mamba1_scan_fused_op
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.models.common import ParamSpec, rms_norm, silu
 from repro_torch.models.config import ArchConfig
@@ -56,28 +57,29 @@ def mamba1_specs(cfg: ArchConfig):
     }
 
 
-def _mamba1_dt_bc(p, xc, cfg: ArchConfig):
-    """x_proj and dt_w in the compute dtype, softplus in float32 ->
-    (dt (b, L, din) f32, B, C (b, L, st) in the compute dtype)."""
+def _mamba1_x_proj(p, xc, cfg: ArchConfig):
+    """x_proj and dt_w in the compute dtype -> (dt_raw (b, L, din), B, C
+    (b, L, st)); B and C are views of the x_proj product."""
     r, st = cfg.dtrank, cfg.ssm_state
     dtv, B, C = torch.split(xc @ p["x_proj"].to(xc.dtype), [r, st, st], dim=-1)
-    dtv = dtv @ p["dt_w"].to(xc.dtype)
-    return F.softplus(dtv.float() + p["dt_b"]), B, C
+    return dtv @ p["dt_w"].to(xc.dtype), B, C
 
 
 def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
     """Full-sequence Mamba1 block. x: (b, s, d) -> ((b, s, d), cache|None).
-    The cache keeps the pre-conv tail of xin and the scan's final state."""
+    The cache keeps the pre-conv tail of xin and the scan's final state.
+    Between the dt_w product and out_proj one op runs: the fused scan (the
+    softplus, the scan, D*x, the SiLU gate and the cast), on the card one
+    kernel launch."""
     dt_ = x.dtype
+    A = -torch.exp(p["A_log"].float())
     xin, z = (x @ p["in_proj"].to(dt_)).chunk(2, dim=-1)
     xc, _ = _causal_conv(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     xc = silu(xc)
-    dtv, B, C = _mamba1_dt_bc(p, xc, cfg)
-    A = -torch.exp(p["A_log"].float())
-    res = selective_scan_op(xc.float(), dtv, A, B.float(), C.float(), p["D"],
-                            return_state=return_cache)
+    dt_raw, B, C = _mamba1_x_proj(p, xc, cfg)
+    res = mamba1_scan_fused_op(xc, dt_raw, p["dt_b"], A, B, C, p["D"], z,
+                               return_state=return_cache)
     y, h = res if return_cache else (res, None)
-    y = (y * F.silu(z.float())).to(dt_)
     out = y @ p["out_proj"].to(dt_)
     if not return_cache:
         return out, None
@@ -101,7 +103,8 @@ def mamba1_decode_step(p, x, cache, cfg: ArchConfig):
     xc, conv_state = _causal_conv(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_),
                                   cache["conv"])
     xc = silu(xc)
-    dtv, B, C = _mamba1_dt_bc(p, xc, cfg)
+    dt_raw, B, C = _mamba1_x_proj(p, xc, cfg)
+    dtv = F.softplus(dt_raw.float() + p["dt_b"])
     A = -torch.exp(p["A_log"].float())
     a = torch.exp(dtv[..., None] * A)                                 # (b, 1, din, st)
     bu = (dtv * xc.float())[..., None] * B.float()[:, :, None, :]

@@ -10,6 +10,7 @@ compile, and every failed source named.
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 
 from repro_torch.kernels import build
@@ -166,6 +167,34 @@ def test_scan_bound_counts_the_function(b, L, d, n, by):
                                 r["flops"] / cs.FP32_FLOPS) * 1e3
     if (b, L, d, n) == (4, 4096, 8192, 16):
         assert r["exps"] == 2_147_483_648 and r["nbytes"] == 1_613_266_944
+
+
+@pytest.mark.parametrize("b,L,d,n,state", [
+    (4, 4096, 8192, 16, False),   # falcon-mamba-7b's loss forward
+    (8, 2048, 8192, 16, True),    # its prefill, which keeps the state
+    (2, 1000, 520, 8, True),
+])
+def test_fused_scan_bound_counts_the_call(b, L, d, n, state):
+    """The fused scan's bound: xc, dt_raw, z and y in bf16, B and C in
+    bf16, A, dt_b and D (and the state) in f32, each moved once, counted
+    from the tensors such a call takes (numpy shapes and item sizes);
+    n + 4 special-function operations a (token, channel); the larger
+    time, set by the operations at falcon-mamba's widths."""
+    cs = _chip_smoke()
+    r = cs.fused_scan_bound(b, L, d, n, state)
+    shapes = {"xc": ((b, L, d), 2), "dt_raw": ((b, L, d), 2), "z": ((b, L, d), 2),
+              "B": ((b, L, n), 2), "C": ((b, L, n), 2), "A": ((d, n), 4),
+              "dt_b": ((d,), 4), "D": ((d,), 4), "y": ((b, L, d), 2)}
+    if state:
+        shapes["h"] = ((b, d, n), 4)
+    assert r["nbytes"] == sum(int(np.prod(s)) * size for s, size in shapes.values())
+    assert r["sfu"] == b * L * d * (n + 4)
+    assert r["bound_ms"] == max(r["t_bytes"], r["t_ops"])
+    if d == 8192:
+        assert r["bound_by"] == "operations"
+    if (b, L, d, n, state) == (4, 4096, 8192, 16, False):
+        assert r["nbytes"] == 1_075_380_224
+        assert round(r["bound_ms"], 3) == 0.641
 
 
 def _mangled(name: str, targs: str, ns: str = "_GLOBAL__N__8c2aef73_18_flash_attention_cu_bb5a16b1"):

@@ -416,7 +416,7 @@ def test_reduced_falcon_mamba_on_card_matches_cpu(cuda_device):
     gpu_params = api.init(0, "cpu").to(cuda_device)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, api.cfg.vocab, (2, 133)))
-    before = scan_kernel.LAUNCHES["selective_scan"]
+    before = dict(scan_kernel.LAUNCHES)
     outs = []
     for params, dev in ((cpu_params, torch.device("cpu")), (gpu_params, cuda_device)):
         t = toks.to(dev)
@@ -430,10 +430,137 @@ def test_reduced_falcon_mamba_on_card_matches_cpu(cuda_device):
             lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
             got.append(lg[:, 0].float().cpu())
         outs.append(got)
-    # a loss, a forward and a prefill, one launch a layer each
-    assert scan_kernel.LAUNCHES["selective_scan"] == before + 3 * api.cfg.n_layers
+    # a loss, a forward and a prefill, one fused launch a layer each
+    assert scan_kernel.LAUNCHES["mamba1_scan_fused"] == \
+        before["mamba1_scan_fused"] + 3 * api.cfg.n_layers
+    assert scan_kernel.LAUNCHES["selective_scan"] == before["selective_scan"]
     assert abs(float(outs[0][0] - outs[1][0])) < 4e-4
     assert float((outs[0][1] - outs[1][1]).abs().mean()) < 2e-3
     for a, b_ in zip(outs[0][1:], outs[1][1:]):
         assert torch.isfinite(b_).all()
         assert float((a - b_).abs().max()) < 0.125
+
+
+# ---------------------------------------------------------------------------
+# the fused Mamba1 scan (the block from the dt_w product to out_proj)
+# ---------------------------------------------------------------------------
+
+#: y in bf16: the scan's 1e-4 before the cast, one bf16 ulp (at most 2^-7 of
+#: the value) after it, where the kernel and the plain version round apart
+FUSED_TOL = dict(atol=1e-4, rtol=1e-4 + 2.0 ** -7)
+
+
+def _fused_inputs(gen, b, L, d, n, r, device):
+    """Laid out as the block leaves them: z the second half of an in_proj
+    product, B and C views of an x_proj product."""
+    bf = torch.bfloat16
+    xc = torch.randn((b, L, d), generator=gen, device=device).to(bf)
+    dt_raw = (torch.randn((b, L, d), generator=gen, device=device) * 0.5 - 1).to(bf)
+    dt_b = torch.randn((d,), generator=gen, device=device) * 0.1
+    A = -torch.exp(torch.randn((d, n), generator=gen, device=device) * 0.3)
+    D = torch.randn((d,), generator=gen, device=device)
+    xz = torch.randn((b, L, 2 * d), generator=gen, device=device).to(bf)
+    dbc = torch.randn((b, L, r + 2 * n), generator=gen, device=device).to(bf)
+    return xc, dt_raw, dt_b, A, dbc[..., r:r + n], dbc[..., r + n:], D, xz[..., d:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,L,d,n,r", [
+    (2, 64, 128, 16, 256),     # chip_smoke.py SCAN_CASES, falcon-mamba's dt_rank
+    (1, 128, 64, 8, 8),        # the reduced config's state and dt_rank
+    (1, 64, 256, 16, 256),
+    (2, 1000, 520, 16, 256),   # ragged L and d
+    (3, 33, 200, 5, 3),        # a state that is not a multiple of the lanes
+    (1, 77, 96, 64, 4),        # the largest state
+    (2, 1, 16, 16, 8),         # one token
+])
+def test_fused_scan_kernel_matches_plain(cuda_device, b, L, d, n, r):
+    gen = torch.Generator(device=cuda_device).manual_seed(b + L + d + n)
+    args = _fused_inputs(gen, b, L, d, n, r, cuda_device)
+    before = dict(scan_kernel.LAUNCHES)
+    y, h = scan_kernel.mamba1_scan_fused(*args, return_state=True)
+    y_only = scan_kernel.mamba1_scan_fused(*args)
+    yp, hp = scan_ref.mamba1_scan_fused_plain(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES["mamba1_scan_fused"] == before["mamba1_scan_fused"] + 2
+    assert scan_kernel.LAUNCHES["selective_scan"] == before["selective_scan"]
+    assert y.dtype == torch.bfloat16 and y.shape == (b, L, d) and h.shape == (b, d, n)
+    torch.testing.assert_close(y.float(), yp.float(), **FUSED_TOL)
+    torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.gpu
+def test_fused_scan_refuses_what_it_cannot_read(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    args = list(_fused_inputs(gen, 1, 16, 64, 16, 8, cuda_device))
+    before = dict(scan_kernel.LAUNCHES)
+    bad = args.copy()
+    wide = torch.zeros((1, 16, 129), dtype=torch.bfloat16, device=cuda_device)
+    bad[7] = wide[..., 1:65]                             # rows off 16 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        scan_kernel.mamba1_scan_fused(*bad)
+    with pytest.raises(ValueError, match="d a multiple of 8"):
+        scan_kernel.mamba1_scan_fused(*(t[..., :60] if t.dim() == 3 and i != 4 and i != 5
+                                        else t for i, t in enumerate(args)))
+    bad = args.copy()
+    bad[1] = args[1].float()
+    with pytest.raises(ValueError, match="dt_raw has dtype"):
+        scan_kernel.mamba1_scan_fused(*bad)
+    bad = args.copy()
+    bad[7] = args[7].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="unit stride"):
+        scan_kernel.mamba1_scan_fused(*bad)
+    assert scan_kernel.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_mamba1_apply_launches_the_fused_scan_once_a_layer(cuda_device):
+    """The reduced falcon-mamba's prefill on the card: one fused launch a
+    layer, no unfused launch."""
+    api = get_api("falcon-mamba-7b", reduced=True)
+    params = api.init(0, "cpu").to(cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, api.cfg.vocab, (2, 40))).to(cuda_device)
+    before = dict(scan_kernel.LAUNCHES)
+    logits, cache = api.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES["mamba1_scan_fused"] == \
+        before["mamba1_scan_fused"] + api.cfg.n_layers
+    assert scan_kernel.LAUNCHES["selective_scan"] == before["selective_scan"]
+    assert torch.isfinite(logits.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# the placement window at fleets above 384 endpoints and 1,024 lanes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tasks,replicas", [(300, 100), (200, 257)])
+def test_greedy_window_kernel_matches_plain_on_large_fleets(cuda_device, n_tasks,
+                                                           replicas):
+    """416 lanes (scaled_testbed(100), C = 64: the slot matrix no longer fits
+    in a block's shared memory) and 1,056 lanes (two lanes a thread)."""
+    p, n_ep, n_units = _window(n_tasks, replicas, cuda_device)
+    assert p["base"].shape[2] in (416, 1056)
+    before = kernel.LAUNCHES["greedy_window"]
+    out_k = kernel.greedy_window(p, n_ep, n_units)
+    out_p = ops._greedy_scan_plain(p, n_ep, n_units)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["greedy_window"] == before + 1
+    for k in out_k:
+        assert torch.equal(_bits(out_k[k]), _bits(out_p[k])), k
+
+
+@pytest.mark.gpu
+def test_mhra_on_card_matches_soa_at_400_endpoints(cuda_device):
+    tasks, eps, store, tm = reference_case(256, 100, True, nb_max=15.0)
+    a = ref_sched.mhra(tasks, eps, store, tm, alpha=0.5, engine="soa")
+    ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
+    before = kernel.LAUNCHES["greedy_window"]
+    b = port_sched.mhra(ptasks, peps, pstore, ptm, alpha=0.5)
+    c = port_sched.mhra(ptasks, peps, pstore, ptm, alpha=0.5, device="cpu")
+    assert kernel.LAUNCHES["greedy_window"] == before + 1
+    for f in SCHEDULE_FIELDS:
+        assert getattr(a, f) == getattr(b, f) == getattr(c, f), f

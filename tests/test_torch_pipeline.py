@@ -76,3 +76,17 @@ def test_unmonitored_batch_matches_reference():
     assert r.measured_energy_j == p.measured_energy_j
     assert r.schedule.assignments == p.schedule.assignments
     assert ref.store.stats() == port.store.stats()
+
+
+def test_default_strategy_is_the_reference_s_and_raises_until_ported():
+    """Built with no strategy, the reference's executor places with
+    ``cluster_mhra``; the port has the same default and, until that policy
+    is ported, refuses loudly instead of placing with another algorithm."""
+    eps = scaled_testbed(1)
+    ref = GreenFaaSExecutor(eps, RefSim(eps, seed=0))
+    assert ref.strategy == "cluster_mhra" and ref.policy.name == "cluster_mhra"
+    peps = convert.endpoints(eps)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 1"):
+        PortExecutor(peps, PortSim(peps, seed=0), device="cpu")
+    assert PortExecutor(peps, PortSim(peps, seed=0), strategy="mhra",
+                        device="cpu").policy.name == "mhra"

@@ -67,6 +67,16 @@ def test_matches_soa_with_not_before_floors(seed, replicas):
     assert_schedules_equal(a, b)
 
 
+@pytest.mark.parametrize("n_tasks,shared", [(40, True), (24, False)])
+def test_matches_soa_at_400_endpoints(n_tasks, shared):
+    """scaled_testbed(100): 400 endpoints, the fleet the window kernel's
+    shared-memory slot matrix once refused on the card."""
+    tasks, eps, store, tm = reference_case(n_tasks, 100, shared, nb_max=10.0)
+    assert len(eps) == 400
+    a, b = _both(tasks, eps, store, tm, 0.5)
+    assert_schedules_equal(a, b)
+
+
 def test_matches_soa_on_live_state_across_windows():
     """Window 2 placed against the state window 1 left: the reference's
     SoA state is carried into the port with ``convert.soa_state``."""

@@ -7,12 +7,18 @@ the wrapper's refusals.  The tolerance is the reference's own: atol and
 rtol 1e-4.  The reference's XLA path returns its final state only from the
 Mamba1 block, so the state is held against it in
 ``test_torch_falcon_mamba.py``; here it is held against the recurrence run
-in two pieces.  The CUDA kernel against its plain version on the card is
-in ``test_torch_gpu.py``."""
+in two pieces.  The fused op (``mamba1_scan_fused``: the Mamba1 block from
+the dt_w product to out_proj) is held bitwise to the composition the block
+ran before it existed, and to the reference's composition (softplus,
+``selective_scan_ref``, silu) within the scan's 1e-4 before the bf16 cast
+and one bf16 ulp after it.  The CUDA kernel against its plain versions on
+the card is in ``test_torch_gpu.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.selective_scan.kernel import selective_scan as pallas_scan
 from repro.kernels.selective_scan.ref import selective_scan_ref
@@ -113,3 +119,107 @@ def test_refuses_gradients_and_bad_devices():
         kernel.selective_scan(x, *args[1:])
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.selective_scan(*(a.to("meta") for a in args))
+
+
+# ---------------------------------------------------------------------------
+# the fused op: the Mamba1 block from the dt_w product to out_proj
+# ---------------------------------------------------------------------------
+
+#: (b, L, d, n, r): the reduced falcon-mamba widths, a ragged length, a
+#: wider state, a one-token sequence
+FUSED_CASES = [(2, 40, 128, 8, 8), (1, 37, 64, 16, 4), (2, 16, 32, 4, 8),
+               (1, 1, 16, 8, 2)]
+
+
+def _fused_inputs(seed, b, L, d, n, r):
+    """Seeded numpy inputs laid out as the block leaves them: xc and
+    dt_raw contiguous, z the second half of the in_proj product (rows of
+    2d), B and C views of the x_proj product (rows of r + 2n); bf16
+    tensors from float32 draws, A = -exp(A_log), dt_b and D float32."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    xz = bf(rng.standard_normal((b, L, 2 * d)))
+    xc = bf(rng.standard_normal((b, L, d)))
+    dbc = bf(rng.standard_normal((b, L, r + 2 * n)))
+    dt_raw = bf(rng.standard_normal((b, L, d)) * 0.7 - 1.0)
+    dt_b = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32))
+    A = -torch.exp(torch.from_numpy((rng.standard_normal((d, n)) * 0.3)
+                                    .astype(np.float32)))
+    D = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    _, z = xz.chunk(2, dim=-1)
+    _, B, C = torch.split(dbc, [r, n, n], dim=-1)
+    return xc, dt_raw, dt_b, A, B, C, D, z
+
+
+def _unfused_before(xc, dt_raw, dt_b, A, B, C, D, z, return_state=False):
+    """What ``models.ssm.mamba1_apply`` ran between the dt_w product and
+    out_proj before the fused op: softplus, the scan op, the gate, the
+    cast, each its own op."""
+    dtv = F.softplus(dt_raw.float() + dt_b)
+    res = ops.selective_scan_op(xc.float(), dtv, A, B.float(), C.float(), D,
+                                return_state=return_state)
+    y, h = res if return_state else (res, None)
+    y = (y * F.silu(z.float())).to(xc.dtype)
+    return (y, h) if return_state else y
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_plain_is_bitwise_the_unfused_composition(case):
+    args = _fused_inputs(sum(case), *case)
+    b, L, d, n, r = case
+    assert args[7].stride(1) == 2 * d and args[4].stride(1) == r + 2 * n
+    y, h = ref.mamba1_scan_fused_plain(*args, return_state=True)
+    y0, h0 = _unfused_before(*args, return_state=True)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, L, d)
+    assert h.dtype == torch.float32 and h.shape == (b, d, n)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert torch.equal(ref.mamba1_scan_fused_plain(*args), y0)
+
+
+def _bf16_ulp(v):
+    """Spacing of bf16 at |v| (8 significant bits)."""
+    v = np.abs(v.astype(np.float64))
+    e = np.floor(np.log2(np.where(v > 0, v, 1.0)))
+    return np.where(v > 0, 2.0 ** (e - 7), 2.0 ** -133)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_plain_matches_reference_composition(case):
+    """Against the reference block's kernel-branch ops on the same inputs:
+    ``jax.nn.softplus``, ``selective_scan_ref`` and ``jax.nn.silu`` in
+    float32 (the reference's ``mamba1_apply``, ``models/ssm.py:89-97``):
+    within the scan's 1e-4 before the bf16 cast, within one bf16 ulp
+    after it."""
+    xc, dt_raw, dt_b, A, B, C, D, z = _fused_inputs(sum(case) + 1, *case)
+    j = lambda t: jnp.asarray(t.float().numpy())
+    dtv = jax.nn.softplus(j(dt_raw) + j(dt_b))
+    yr = selective_scan_ref(j(xc), dtv, j(A), j(B), j(C), j(D))
+    want = np.array(yr * jax.nn.silu(j(z)))
+    # the port's plain op before its cast: the same op on float32 xc (its
+    # values are xc's), whose dtype the result takes
+    pre = ref.mamba1_scan_fused_plain(xc.float(), dt_raw, dt_b, A, B, C, D, z)
+    assert pre.dtype == torch.float32
+    np.testing.assert_allclose(pre.numpy(), want, **TOL)
+    got = ref.mamba1_scan_fused_plain(xc, dt_raw, dt_b, A, B, C, D, z).float().numpy()
+    want16 = torch.from_numpy(want).to(torch.bfloat16).float().numpy()
+    assert np.all(np.abs(got - want16) <= _bf16_ulp(np.maximum(np.abs(got),
+                                                              np.abs(want16))))
+
+
+def test_fused_wrapper_on_cpu_runs_plain_and_launches_nothing():
+    args = _fused_inputs(11, 2, 24, 64, 8, 8)
+    before = dict(kernel.LAUNCHES)
+    y, h = kernel.mamba1_scan_fused(*args, return_state=True)
+    assert kernel.LAUNCHES == before
+    y0, h0 = ref.mamba1_scan_fused_plain(*args, return_state=True)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert ops.mamba1_scan_fused_op is kernel.mamba1_scan_fused
+
+
+def test_fused_refuses_gradients_and_bad_devices():
+    args = _fused_inputs(12, 1, 8, 16, 4, 2)
+    dt_b = args[2].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        kernel.mamba1_scan_fused(*args[:2], dt_b, *args[3:])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernel.mamba1_scan_fused(*(a.to("meta") for a in args))
