@@ -22,9 +22,11 @@ The batch placement path (the first slice):
    ``score_fleet`` at 32 and 1000 lanes with dead lanes and forced ties,
    ``greedy_window`` on a 4096-task and on a 32,768-task x 32-endpoint
    window, 4 heuristics, and on 384-task windows of 400 endpoints (416
-   lanes, C = 64) and 1,028 endpoints (1,056 lanes), each timed with its
-   launch plan; ``mhra(device=None)`` on the 400-endpoint fleet against
-   the CPU's plain path.
+   lanes, C = 64), 1,028 (1,056 lanes, two a thread), 1,600 (the step
+   operands in global memory) and 2,400 (the lane state too), each timed
+   with its launch plan, which is checked;
+   ``mhra(device=None)`` on the 400-endpoint fleet against the CPU's
+   plain path.
 3. Main path: ``GreenFaaSExecutor`` with ``MHRAPolicy`` on the card,
    ``TestbedSim(seed=0)``, monitoring on, three ``run_batch`` calls of
    32,768 tasks on the 32-endpoint ``scaled_testbed(8)`` federation;
@@ -69,7 +71,8 @@ The falcon-mamba-7b loss forward and serving paths (the third slice):
 10. The selective-scan kernel in both forms against its plain versions
     on the card.  The reference's interface (f32): y and the final state
     within the reference's 1e-4 (atol and rtol) on the reference's
-    ``SCAN_CASES``, a ragged length (L=1000, d=520), one full-width layer
+    ``SCAN_CASES``, a ragged length (L=1000, d=520), d of 13 and 518 with
+    x not 16-byte aligned (``SCAN_ANY_D``), one full-width layer
     at the loss shape (b=4, L=4096, d=8192, n=16), where it is also timed
     beside the plain version and its bound, and one at the serving
     prefill's shape (b=8, L=2048).  The fused form the model runs
@@ -121,9 +124,17 @@ N_TASKS = 32768          # the main path's batch (largest gated cell)
 REPLICAS = 8             # scaled_testbed(8): 32 endpoints
 N_BATCHES = 3
 CHECK_TASKS = 4096       # window of the kernel-vs-plain check
-# fleets past the old kernel's cap (scaled_testbed(100): 400 endpoints, 416
-# lanes; (257): 1,028 endpoints, 1,056 lanes), on a window of LARGE_TASKS
-LARGE_REPLICAS = (100, 257)
+# fleets past the old kernel's cap, on a window of LARGE_TASKS, each with
+# what its launch plan must hold: scaled_testbed(100), 400 endpoints in 416
+# lanes (the slot matrix in global memory); (257), 1,028 in 1,056 (two lanes
+# a thread); (400), 1,600 (the step operands in global memory); (600), 2,400
+# (the lane state too)
+LARGE_PLANS = {
+    100: {"lanes_per_thread": 1, "state_on_chip": True, "slots_on_chip": False},
+    257: {"lanes_per_thread": 2, "state_on_chip": True, "operands_on_chip": True},
+    400: {"lanes_per_thread": 2, "state_on_chip": True, "operands_on_chip": False},
+    600: {"lanes_per_thread": 3, "state_on_chip": False, "operands_on_chip": False},
+}
 LARGE_TASKS = 384
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12   # device memory rate
@@ -149,6 +160,9 @@ LOSS_BATCH, LOSS_LEN = 4, 4096
 # (b, L, d, n): tests/test_kernels.py SCAN_CASES, a ragged length, then one
 # full-width layer at the loss shape (checked, and timed, in falcon_scan)
 SCAN_CASES = [(2, 64, 128, 16), (1, 128, 64, 8), (1, 64, 256, 16), (2, 1000, 520, 16)]
+# the f32 form takes any d, as the reference's interface does: d not a
+# multiple of the kernel's 4-float vector, x one float into its storage
+SCAN_ANY_D = [(2, 100, 13, 16), (1, 257, 518, 8)]
 SCAN_TOL = (1e-4, 1e-4)     # the reference's (tests/test_kernels.py)
 # the fused scan's bf16 y: the scan's 1e-4 before the cast, and one bf16 ulp
 # (at most 2^-7 of the value) after it, where the two sides round apart
@@ -780,17 +794,18 @@ def fused_scan_bound(b, L, d, n, state=False) -> dict:
     """The least time the fused Mamba1 scan's function takes on the card at
     (b, L, d, n): xc, dt_raw and z read once and y written once, in bf16;
     B and C (bf16), A, dt_b and D (f32) read once; the final state (f32)
-    written once when asked for.  On the special-function units: one exp
-    per (token, channel, state) and, per (token, channel), the softplus's
-    exp and log and the gate's exp and reciprocal, as the kernel's
-    formulas take them; beside them 6 f32 operations per (token, channel,
-    state) and 8 per (token, channel) (the dt_b add, the softplus's series
-    or scale, dt*x, D*x, the sum, the gate's add and two products).  The
-    FMA lanes and the special-function units run side by side."""
+    written once when asked for.  On the special-function units, what the
+    function needs: one exp per (token, channel, state) and, per (token,
+    channel), the softplus's exp and log and one operation for the gate
+    (silu(z) = z/2 (1 + tanh(z/2)) takes a single tanh; the kernel takes
+    two); beside them 6 f32 operations per (token, channel, state) and 8
+    per (token, channel) (the dt_b add, the softplus's series or scale,
+    dt*x, D*x, the sum, the gate's add and two products).  The FMA lanes
+    and the special-function units run side by side."""
     nbytes = 2 * (4 * b * L * d + 2 * b * L * n) + 4 * (d * n + 2 * d)
     if state:
         nbytes += 4 * b * d * n
-    sfu = b * L * d * (n + 4)
+    sfu = b * L * d * (n + 3)
     flops = b * L * d * (6 * n + 8)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / FP32_FLOPS, sfu / SFU_PER_S) * 1e3
@@ -894,6 +909,15 @@ def falcon_scan(dev, card, sk, sr, cfg) -> dict:
         yp, hp = sr.selective_scan_plain(*args, return_state=True)
         err = max(err, check_close(f"selective_scan y b={b} L={L} d={d} n={n}", y, yp,
                                    SCAN_TOL, card),
+                  check_close(f"selective_scan state b={b} L={L} d={d} n={n}", h, hp,
+                              SCAN_TOL, card))
+    for b, L, d, n in SCAN_ANY_D:
+        x, *rest = scan_inputs(gen, b, L, d, n, dev)
+        x = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
+        y, h = sk.selective_scan(x, *rest, return_state=True)
+        yp, hp = sr.selective_scan_plain(x, *rest, return_state=True)
+        err = max(err, check_close(f"selective_scan y b={b} L={L} d={d} n={n} (x 4 B "
+                                   f"past 16-byte alignment)", y, yp, SCAN_TOL, card),
                   check_close(f"selective_scan state b={b} L={L} d={d} n={n}", h, hp,
                               SCAN_TOL, card))
     b, L, d, n = LOSS_BATCH, LOSS_LEN, cfg.inner, cfg.ssm_state
@@ -1253,11 +1277,10 @@ def main() -> int:
     print("mhra 1792x32: card == CPU plain path (assignments, objective, "
           "energy, makespan, transfer, heuristic, timeline)", flush=True)
 
-    # fleets past the old kernel's shared-memory cap: 400 endpoints (416
-    # lanes, C = 64) and 1,028 (1,056 lanes, two a thread), bitwise against
-    # the plain version on a window of a few hundred tasks, and timed
+    # fleets past the old kernel's shared-memory cap (LARGE_PLANS), bitwise
+    # against the plain version on a window of a few hundred tasks, and timed
     large = {}
-    for replicas in LARGE_REPLICAS:
+    for replicas, want_plan in LARGE_PLANS.items():
         l_eps = scaled_testbed(replicas)
         fleet = (l_eps, seeded_store(l_eps, TaskProfileStore, BASE_PROFILES,
                                      SEBS_FUNCTIONS), TransferModel(l_eps))
@@ -1273,12 +1296,15 @@ def main() -> int:
         ms_l = cuda_ms(lambda: kernel.greedy_window(p, n_ep_l, n_units_l), reps=3,
                        warmup=1)
         pl = kernel.plan(E_l, C_l, p["staged"].shape[1])
+        if any(pl[k] != v for k, v in want_plan.items()):
+            raise AssertionError(f"greedy_window at {n_ep_l} endpoints planned {pl}, "
+                                 f"expected {want_plan}")
         large[E_l] = {"endpoints": n_ep_l, "tasks": n_units_l, "C": C_l, "ms": ms_l,
                       "us_per_step": ms_l * 1e3 / n_units_l, "plan": pl}
         print(f"kernel greedy_window {n_units_l}x{n_ep_l}x{len(sched.HEURISTICS)} (E={E_l}, "
               f"C={C_l}): bitwise equal to the plain version; {ms_l:.6g} ms, "
               f"{ms_l * 1e3 / n_units_l:.4g} us a step; plan {pl} [{card}]", flush=True)
-        if replicas == LARGE_REPLICAS[0]:
+        if replicas == 100:
             l_tasks = make_tasks(LARGE_TASKS, l_eps[0].name, sched.TaskSpec,
                                  SEBS_FUNCTIONS, "L")
             s_gpu = sched.mhra(l_tasks, l_eps, fleet[1], fleet[2], 0.5)

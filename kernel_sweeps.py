@@ -2,34 +2,39 @@
 """Timing sweeps of the port's redesigned scan and placement-window
 kernels on one GPU.
 
-    python3 kernel_sweeps.py scan   [--parent DIR]
-    python3 kernel_sweeps.py window [--parent DIR]
+    python3 kernel_sweeps.py scan   [--parent DIR] [--other FILE ...]
+    python3 kernel_sweeps.py window [--parent DIR] [--other FILE ...] [--unchecked]
 
-``scan`` builds ``kernels/selective_scan/csrc/selective_scan.cu`` once for
-each launch shape of ``SCAN_GRID`` (lanes per channel, channels a CTA,
-tokens a chunk, set with ``-D`` flags), one nvcc process per build, all
-started together.  It checks each build's fused form against the plain
-version on a small case, then times the fused form (with and without the
-final state) and the f32 form at falcon-mamba-7b's loss shape (b=4,
-L=4096, d=8192, n=16).
+``scan`` times the shipped ``kernels/selective_scan/csrc/selective_scan.cu``
+at falcon-mamba-7b's loss shape (b=4, L=4096, d=8192, n=16): the fused form
+with and without the final state, and the f32 form.  Each ``--other FILE``
+is another version of that source with the same C interface (a launch
+shape changed, say): it is checked against the plain version on a small
+case, then timed the same way.
 
-``window`` builds ``kernels/placement/csrc/placement.cu`` as shipped and
-with one phase of the window's step dropped at a time (``-D
-GF_WINDOW_DROP=<bit>``: timing only, the results of such a build are
-wrong), times each on the main path's window (32,768 tasks x 32 endpoints
-x 4 heuristics), and times the shipped build at 416 and 1,056 lanes.  It
-also builds ``csrc/chain_probe.cu``, which runs a step's unavoidable
-dependent chain alone (the argmin's shuffle rounds over the lanes, the
-commit's dependent FP64 operations, one shared-memory round trip) for the
-same number of steps: the window's chain bound.
+``window`` times the shipped ``kernels/placement/csrc/placement.cu`` on the
+main path's window (32,768 tasks x 32 endpoints x 4 heuristics) and at
+416, 1,056, 1,600, 2,176 and 2,400 lanes (4,096 tasks), with each launch
+plan.  Each ``--other FILE`` (another ``placement.cu`` with this one's C
+interface) is held bitwise to the shipped build's outputs on each of
+these windows, unless ``--unchecked`` says its results are known to be
+wrong (a version with one phase of the step taken out, for timing), and
+timed in turns with the shipped build (this, other, other, this).  It
+also builds ``chain_probe.cu`` (beside this script), which runs a step's
+unavoidable dependent chain alone for the same number of steps: the
+window's chain bound.
 
 With ``--parent DIR`` (a checkout of another commit), each sweep also
 times that checkout's kernel on the same inputs, in turns with this one
-(parent, this, this, parent).  ``window --other FILE`` does the same for
-another version of ``placement.cu`` with this one's C interface, after
-holding its outputs bitwise to this build's.  Every line names the card and its power
-limit.  The smoke run (``chip_smoke.py``) holds the shipped builds against
-their plain versions; this script only times.
+(parent, this, this, parent).
+
+Sources other than the shipped ones are copied under
+``_chipcheck/sweeps/csrc/`` (listed in ``.gitignore``) and built beside
+it, one nvcc process per source, all started together.  The port's
+wrappers are pointed at another build by replacing the loaded library of
+their source in ``repro_torch.kernels.build``'s cache.  Every line names
+the card and its power limit.  The smoke run (``chip_smoke.py``) holds the
+shipped builds against their plain versions; this script only times.
 """
 from __future__ import annotations
 
@@ -37,27 +42,50 @@ import argparse
 import ctypes
 import json
 import pathlib
+import shutil
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-# (lanes per channel, channels a CTA, tokens a chunk); the first is the
-# shipped build (csrc defaults)
-SCAN_GRID = [(2, 128, 32), (4, 64, 32), (2, 64, 32), (1, 128, 32), (1, 64, 32),
-             (8, 32, 32), (4, 64, 16), (4, 64, 64), (2, 64, 64)]
-# the window's phases and placements, dropped one at a time (csrc
-# GF_WINDOW_DROP bits)
-WINDOW_DROPS = {"stream staging": 1, "run-boundary pass": 2, "argmin": 4,
-                "commit": 8, "slot rescan": 16, "slots on chip": 32,
-                "operands on chip": 64}
-# scaled_testbed(100) and (257): 400 and 1,028 endpoints, 416 and 1,056 lanes
-WINDOW_REPLICAS = (100, 257)
-WINDOW_LANES = (416, 1056)
+SWEEP_CSRC = ROOT / "_chipcheck" / "sweeps" / "csrc"
+PROBE = ROOT / "chain_probe.cu"
+# scaled_testbed replicas past the first window kernel's cap: 400, 1,028,
+# 1,600, 2,160 and 2,400 endpoints in 416, 1,056, 1,600, 2,176 and 2,400
+# lanes (launch plans: the slot matrix, then the step operands, then the
+# lane state in global memory)
+WINDOW_REPLICAS = (100, 257, 400, 540, 600)
+WINDOW_LANES = (416, 1056)      # the chain probe's widths beside the main path's
 
 
-def scan_sweep(card, parent):
+def staged(path) -> pathlib.Path:
+    """A copy of ``path`` under SWEEP_CSRC, so that its build lands there."""
+    SWEEP_CSRC.mkdir(parents=True, exist_ok=True)
+    dst = SWEEP_CSRC / pathlib.Path(path).name
+    shutil.copyfile(path, dst)
+    return dst
+
+
+def build(jobs):
+    """Build ``(source, flags)`` jobs together; their libraries' paths."""
+    from repro_torch.kernels import build as kbuild
+    return kbuild.build_all(jobs, verbose=True)
+
+
+def route(source, handle) -> None:
+    """Point the port's wrappers of ``source`` at ``handle``."""
+    from repro_torch.kernels import build as kbuild
+    kbuild._LIBS[source] = handle
+
+
+def loaded(path, bind) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(path))
+    bind(handle)
+    return handle
+
+
+def scan_sweep(card, parent, others):
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build as kbuild
@@ -67,19 +95,17 @@ def scan_sweep(card, parent):
 
     cfg = get_api("falcon-mamba-7b").cfg
     dev = torch.device("cuda")
-    flags = {g: (*kbuild.NVCC_FLAGS, f"-DGF_SCAN_PARTS={g[0]}", f"-DGF_SCAN_CH={g[1]}",
-                 f"-DGF_SCAN_T={g[2]}") for g in SCAN_GRID}
-    jobs = [(sk.SOURCE, f) for f in flags.values()]
+    jobs = [(sk.SOURCE, kbuild.NVCC_FLAGS)]
+    jobs += [(staged(f), kbuild.NVCC_FLAGS) for f in others]
     psrc = None
     if parent:
         psrc = pathlib.Path(parent) / "src/repro_torch/kernels/selective_scan/csrc" \
             / "selective_scan.cu"
         jobs.append((psrc, kbuild.NVCC_FLAGS))
-    paths = kbuild.build_all(jobs, verbose=True)
-    handles = {}
-    for g, path in zip(SCAN_GRID, paths):
-        handles[g] = ctypes.CDLL(str(path))
-        sk._bind(handles[g])
+    paths = build(jobs)
+    handles = {"shipped": loaded(paths[0], sk._bind)}
+    for f, path in zip(others, paths[1:]):
+        handles[f] = loaded(path, sk._bind)
 
     gen = torch.Generator(device=dev).manual_seed(5)
     small = cs.fused_scan_inputs(gen, 2, 1000, 520, 16, cfg.dtrank, dev)
@@ -87,45 +113,32 @@ def scan_sweep(card, parent):
     big = cs.fused_scan_inputs(gen, b, L, d, n, cfg.dtrank, dev)
     f32 = cs.scan_inputs(gen, b, L, d, n, dev)
 
-    def fused(h, args, state=False):
-        xc = args[0]
-        y = torch.empty(xc.shape, dtype=torch.bfloat16, device=dev)
-        hs = (torch.empty((xc.shape[0], xc.shape[2], args[3].shape[1]), device=dev)
-              if state else None)
-        sk.launch(h, True, args[0], args[1], args[7], args[4], args[5], args[3],
-                  args[6], args[2], y, hs, *xc.shape, args[3].shape[1])
-        return (y, hs) if state else y
-
-    def plain32(h, args):
-        x, dt, A, B, C, D = args
-        y = torch.empty_like(x)
-        sk.launch(h, False, x, dt, None, B, C, A, D, None, y, None, *x.shape, A.shape[1])
-        return y
-
     rows = []
     want = sr.mamba1_scan_fused_plain(*small, return_state=True)
-    for g, h in handles.items():
-        y, hs = fused(h, small, True)
-        cs.check_close(f"sweep {g} y", y, want[0], cs.FUSED_TOL, card)
-        cs.check_close(f"sweep {g} state", hs, want[1], cs.SCAN_TOL, card)
-        row = {"parts": g[0], "channels": g[1], "tokens": g[2],
-               "fused_ms": cs.cuda_ms(lambda: fused(h, big), reps=10),
-               "fused_state_ms": cs.cuda_ms(lambda: fused(h, big, True), reps=10),
-               "f32_ms": cs.cuda_ms(lambda: plain32(h, f32), reps=10)}
+    for name, h in list(handles.items()) + [("shipped, again", handles["shipped"])]:
+        route(sk.SOURCE, h)
+        y, hs = sk.mamba1_scan_fused(*small, return_state=True)
+        cs.check_close(f"sweep {name} y", y, want[0], cs.FUSED_TOL, card)
+        cs.check_close(f"sweep {name} state", hs, want[1], cs.SCAN_TOL, card)
+        row = {"build": name,
+               "fused_ms": cs.cuda_ms(lambda: sk.mamba1_scan_fused(*big), reps=10),
+               "fused_state_ms": cs.cuda_ms(
+                   lambda: sk.mamba1_scan_fused(*big, return_state=True), reps=10),
+               "f32_ms": cs.cuda_ms(lambda: sk.selective_scan(*f32), reps=10)}
         rows.append(row)
-        print(f"scan sweep parts={g[0]} ch={g[1]} T={g[2]}: fused {row['fused_ms']:.6g} ms "
-              f"(with state {row['fused_state_ms']:.6g}), f32 form {row['f32_ms']:.6g} ms "
-              f"at b={b} L={L} d={d} n={n} [{card}]", flush=True)
+        print(f"scan {name}: fused {row['fused_ms']:.6g} ms (with state "
+              f"{row['fused_state_ms']:.6g}), f32 form {row['f32_ms']:.6g} ms at b={b} "
+              f"L={L} d={d} n={n} [{card}]", flush=True)
+    route(sk.SOURCE, handles["shipped"])
     bound = cs.fused_scan_bound(b, L, d, n)
     print(f"scan bound {bound['bound_ms']:.6g} ms by {bound['bound_by']}; f32 form "
           f"{cs.scan_bound(b, L, d, n)['bound_ms']:.6g} ms [{card}]", flush=True)
-    out = {"scan_sweep": rows, "fused_bound_ms": bound["bound_ms"]}
+    out = {"scan": rows, "fused_bound_ms": bound["bound_ms"]}
     if psrc is not None:
         ph = ctypes.CDLL(str(paths[-1]))
         P, I = ctypes.c_void_p, ctypes.c_int
         ph.gf_selective_scan.argtypes = [P] * 8 + [I] * 4 + [P]
         ph.gf_selective_scan.restype = I
-        shipped = handles[SCAN_GRID[0]]
 
         def parent_call():
             x, dt, A, B, C, D = f32
@@ -137,7 +150,7 @@ def scan_sweep(card, parent):
 
         turns = []
         for who in ("parent", "this", "this", "parent"):
-            fn = parent_call if who == "parent" else (lambda: plain32(shipped, f32))
+            fn = parent_call if who == "parent" else (lambda: sk.selective_scan(*f32))
             turns.append((who, cs.cuda_ms(fn, reps=10)))
         print("scan f32 form, parent against this build in turns: " + ", ".join(
             f"{w} {t:.6g} ms" for w, t in turns) + f" [{card}]", flush=True)
@@ -179,7 +192,7 @@ def parent_window(handle, p):
     return run
 
 
-def window_sweep(card, parent, other=None):
+def window_sweep(card, parent, others, unchecked):
     import torch
     import chip_smoke as cs
     from repro_torch.core import scheduler as sched
@@ -193,22 +206,15 @@ def window_sweep(card, parent, other=None):
     from repro_torch.kernels.placement import ops
 
     dev = torch.device("cuda")
-    probe = pbuild.SOURCE.parent / "chain_probe.cu"
-    variants = {"shipped": pbuild.NVCC_FLAGS}
-    variants.update({f"drop {k}": (*pbuild.NVCC_FLAGS, f"-DGF_WINDOW_DROP={v}")
-                     for k, v in WINDOW_DROPS.items()})
-    jobs = [(pbuild.SOURCE, f) for f in variants.values()] + [(probe, pbuild.NVCC_FLAGS)]
-    if other:
-        jobs.append((pathlib.Path(other).resolve(), pbuild.NVCC_FLAGS))
+    jobs = [(pbuild.SOURCE, pbuild.NVCC_FLAGS), (staged(PROBE), pbuild.NVCC_FLAGS)]
+    jobs += [(staged(f), pbuild.NVCC_FLAGS) for f in others]
     psrc = None
     if parent:
         psrc = pathlib.Path(parent) / "src/repro_torch/kernels/placement/csrc/placement.cu"
         jobs.append((psrc, pbuild.NVCC_FLAGS))
-    paths = kbuild.build_all(jobs, verbose=True)
-    handles = {}
-    for name, path in zip(variants, paths):
-        handles[name] = ctypes.CDLL(str(path))
-        pbuild._bind(handles[name])
+    paths = build(jobs)
+    shipped = loaded(paths[0], pbuild._bind)
+    route(pbuild.SOURCE, shipped)
 
     def window(replicas, n_tasks):
         eps = scaled_testbed(replicas)
@@ -223,51 +229,62 @@ def window_sweep(card, parent, other=None):
         p, n_units = ops.pack(consts, init, xs, dev)
         return p, n_ep, n_units
 
-    out = {"drops": {}, "lanes": {}}
+    def timed(handle, p, n_ep, n_units, reps=5):
+        route(pbuild.SOURCE, handle)
+        return cs.cuda_ms(lambda: pk.greedy_window(p, n_ep, n_units), reps=reps, warmup=1)
+
+    handles = {f: loaded(path, pbuild._bind) for f, path in zip(others, paths[2:])}
+
+    def against_others(p, n_ep, n_units, label, reps=5):
+        """Each other build on this window: held bitwise to the shipped
+        build (unless unchecked), then timed in turns with it."""
+        res = {}
+        for f, oh in handles.items():
+            if not unchecked:
+                route(pbuild.SOURCE, shipped)
+                want = pk.greedy_window(p, n_ep, n_units)
+                route(pbuild.SOURCE, oh)
+                got = pk.greedy_window(p, n_ep, n_units)
+                for k in want:
+                    if not torch.equal(want[k].view(torch.uint8), got[k].view(torch.uint8)):
+                        raise AssertionError(f"{f} differs from this build on '{k}' at "
+                                             f"{label}")
+            turns = [(who, timed(shipped if who == "this" else oh, p, n_ep, n_units, reps))
+                     for who in ("this", "other", "other", "this")]
+            res[f] = turns
+            print(f"window at {label}, {f} against this build in turns ("
+                  f"{'unchecked' if unchecked else 'bitwise equal'}): " + ", ".join(
+                      f"{w} {t:.6g} ms" for w, t in turns) + f" [{card}]", flush=True)
+        route(pbuild.SOURCE, shipped)
+        return res
+
+    out = {"lanes": {}}
     p, n_ep, n_units = window(cs.REPLICAS, cs.N_TASKS)
     H, E = p["base"].shape[0], p["base"].shape[2]
-    for name, h in handles.items():
-        ms = cs.cuda_ms(lambda: pk.run_window(h, p, n_ep, n_units), reps=5, warmup=1)
-        out["drops"][name] = ms
-        print(f"window {name}: {ms:.6g} ms at {n_units}x{n_ep}x{H} (E={E}), "
-              f"{ms * 1e3 / n_units:.4g} us a step [{card}]", flush=True)
-    if other:
-        oh = ctypes.CDLL(str(paths[len(variants) + 1]))
-        pbuild._bind(oh)
-        want = pk.run_window(handles["shipped"], p, n_ep, n_units)
-        got = pk.run_window(oh, p, n_ep, n_units)
-        for k in want:
-            if not torch.equal(want[k].view(torch.uint8), got[k].view(torch.uint8)):
-                raise AssertionError(f"{other} differs from this build on '{k}'")
-        turns = []
-        for who in ("this", "other", "other", "this"):
-            h_ = handles["shipped"] if who == "this" else oh
-            turns.append((who, cs.cuda_ms(lambda: pk.run_window(h_, p, n_ep, n_units),
-                                          reps=5, warmup=1)))
-        print(f"window, {other} against this build in turns (bitwise equal): " + ", ".join(
-            f"{w} {t:.6g} ms" for w, t in turns) + f" [{card}]", flush=True)
-        out["other_turns"] = turns
+    out["shipped_ms"] = ms = timed(shipped, p, n_ep, n_units)
+    print(f"window shipped: {ms:.6g} ms at {n_units}x{n_ep}x{H} (E={E}), "
+          f"{ms * 1e3 / n_units:.4g} us a step [{card}]", flush=True)
+    out["others"] = against_others(p, n_ep, n_units, f"E={E}")
     if psrc is not None:
-        ph = ctypes.CDLL(str(paths[-1]))
-        parent = parent_window(ph, p)
+        parent_run = parent_window(ctypes.CDLL(str(paths[-1])), p)
         turns = []
         for who in ("parent", "this", "this", "parent"):
-            fn = ((lambda: parent(n_ep, n_units)) if who == "parent"
-                  else (lambda: pk.run_window(handles["shipped"], p, n_ep, n_units)))
+            fn = ((lambda: parent_run(n_ep, n_units)) if who == "parent"
+                  else (lambda: pk.greedy_window(p, n_ep, n_units)))
             turns.append((who, cs.cuda_ms(fn, reps=5, warmup=1)))
         print("window, parent against this build in turns: " + ", ".join(
             f"{w} {t:.6g} ms" for w, t in turns) + f" [{card}]", flush=True)
         out["parent_turns"] = turns
 
-    ph = ctypes.CDLL(str(paths[len(variants)]))
-    ph.gf_chain_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    ph.gf_chain_probe.restype = ctypes.c_int
+    probe = ctypes.CDLL(str(paths[1]))
+    probe.gf_chain_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    probe.gf_chain_probe.restype = ctypes.c_int
     for lanes in (E,) + WINDOW_LANES:
         sink = torch.zeros(H, dtype=torch.float64, device=dev)
 
         def chain():
-            kbuild.check(ph.gf_chain_probe(lanes, n_units, H, sink.data_ptr(),
-                                           torch.cuda.current_stream().cuda_stream),
+            kbuild.check(probe.gf_chain_probe(lanes, n_units, H, sink.data_ptr(),
+                                              torch.cuda.current_stream().cuda_stream),
                          "chain probe")
         ms = cs.cuda_ms(chain, reps=5, warmup=1)
         out.setdefault("chain_ms", {})[lanes] = ms
@@ -276,12 +293,14 @@ def window_sweep(card, parent, other=None):
 
     for replicas in WINDOW_REPLICAS:
         q, m_ep, m_units = window(replicas, 4096)
-        ms = cs.cuda_ms(lambda: pk.run_window(handles["shipped"], q, m_ep, m_units),
-                        reps=3, warmup=1)
-        out["lanes"][q["base"].shape[2]] = ms
-        print(f"window shipped at {m_units}x{m_ep}x{H} (E={q['base'].shape[2]}, C="
-              f"{q['slots'].shape[2]}): {ms:.6g} ms, {ms * 1e3 / m_units:.4g} us a step "
-              f"[{card}]", flush=True)
+        E_q, C_q = q["base"].shape[2], q["slots"].shape[2]
+        ms = timed(shipped, q, m_ep, m_units, reps=3)
+        plan = pk.plan(E_q, C_q, q["staged"].shape[1])
+        out["lanes"][E_q] = {"ms": ms, "plan": plan}
+        print(f"window shipped at {m_units}x{m_ep}x{H} (E={E_q}, C={C_q}): {ms:.6g} ms, "
+              f"{ms * 1e3 / m_units:.4g} us a step; plan {plan} [{card}]", flush=True)
+        out["lanes"][E_q]["others"] = against_others(q, m_ep, m_units, f"E={E_q}", reps=3)
+        del q
     return out
 
 
@@ -290,7 +309,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("which", choices=("scan", "window"))
     ap.add_argument("--parent", help="a checkout of another commit to time in turns")
-    ap.add_argument("--other", help="window: another placement.cu with this C interface")
+    ap.add_argument("--other", action="append", default=[],
+                    help="another version of the kernel's source with its C interface")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="window: time the --other builds without holding their "
+                         "outputs to the shipped build's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_sweeps: no CUDA device", file=sys.stderr)
@@ -298,8 +321,8 @@ def main() -> int:
     import chip_smoke as cs
     card = cs.card_line()
     print(f"card: {card}", flush=True)
-    res = (scan_sweep(card, args.parent) if args.which == "scan"
-           else window_sweep(card, args.parent, args.other))
+    res = (scan_sweep(card, args.parent, args.other) if args.which == "scan"
+           else window_sweep(card, args.parent, args.other, args.unchecked))
     res["card"] = card
     print(json.dumps(res), flush=True)
     return 0

@@ -53,8 +53,6 @@
 //   shared memory when they fit, in that order of need, and in global
 //   memory (the output buffers, a scratch) when they do not, so the kernel
 //   takes any fleet the reference places.
-//   GF_WINDOW_DROP (a bit mask, default 0) drops steps' phases for timing
-//   only: the results of such a build are wrong.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -187,20 +185,6 @@ enum { kFlagEi, kFlagCommit, kFlagSum, kPubEi, kNHand = kPubEi + 2 };
 constexpr int kRing = 128;            // steps of the task stream a ring block
 constexpr int kMaxLaneThreads = 992;  // + the helper warp = 1024
 constexpr size_t kMaxSmem = 232448;   // a block's dynamic shared memory
-
-#ifndef GF_WINDOW_DROP
-#define GF_WINDOW_DROP 0
-#endif
-constexpr int kDrop = GF_WINDOW_DROP;
-enum {
-  kDropStaging = 1,      // read the task stream from global memory each step
-  kDropRunPass = 2,      // skip the run-boundary pass
-  kDropArgmin = 4,       // take lane t % n_ep instead of the argmin
-  kDropCommit = 8,       // write no commit
-  kDropRescan = 16,      // refresh no slot summary
-  kDropSlotsOnChip = 32, // keep the slot matrix in global memory
-  kDropPfOnChip = 64,    // read the step operands from the tables
-};
 
 // Byte offsets of the window kernel's shared memory; -1 where the array
 // lives in global memory.
@@ -424,7 +408,6 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
   const bool helper = tid >= NT;
   const int lane = tid & 31, warp = tid >> 5, NW = NT >> 5;
   const int lpt = MAXT <= 256 ? 1 : a.lpt;
-  constexpr bool staging = !(kDrop & kDropStaging);
 
   double* ring_d = reinterpret_cast<double*>(smem + lay.ring_d);
   int* ring_i = reinterpret_cast<int*>(smem + lay.ring_i);
@@ -506,12 +489,10 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
     cp_async_commit();
   };
   auto xsi = [&](int r, int t) {
-    return staging ? ring_i[(((t / kRing) & 1) * kNXi + r) * kRing + t % kRing]
-                   : xi[(size_t)r * T + t];
+    return ring_i[(((t / kRing) & 1) * kNXi + r) * kRing + t % kRing];
   };
   auto xsd = [&](int r, int t) {
-    return staging ? ring_d[(((t / kRing) & 1) * kNXd + r) * kRing + t % kRing]
-                   : xd[(size_t)r * T + t];
+    return ring_d[(((t / kRing) & 1) * kNXd + r) * kRing + t % kRing];
   };
   // this thread's lanes' operands of step u, into slot u % 3
   auto prefetch = [&](int u) {
@@ -531,7 +512,7 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
     return pf != nullptr ? pf[(row * kPfSlots + par) * E + e] : tab[idx * E + e];
   };
 
-  if (!helper && staging && a.n_units > 0) issue_ring(0);
+  if (!helper && a.n_units > 0) issue_ring(0);
   cp_async_wait_all();
   __syncthreads();
   for (int u = 0; !helper && u < kPfAhead && u < a.n_units; ++u) prefetch(u);
@@ -542,7 +523,7 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
     // this thread's copies of step t's operands (and of any older ring
     // block); step t+1's may still be in flight
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kPfAhead - 1) : "memory");
-    if (staging && t % kRing == 0 && t + kRing < a.n_units) issue_ring(t / kRing + 1);
+    if (t % kRing == 0 && t + kRing < a.n_units) issue_ring(t / kRing + 1);
     const int par = t % kPfSlots;
     const int ti = xsi(kTi, t), hv = xsi(kHv, t), sig = xsi(kSig, t);
     const bool shared_s = xsi(kShared, t) != 0, new_run = xsi(kNewRun, t) != 0;
@@ -555,7 +536,7 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
 
     // 1. On a run boundary: the full pass, against run-basis sums in
     // numpy's pairwise order (one thread, over the n_ep true lanes).
-    if (new_run && !(kDrop & kDropRunPass)) {
+    if (new_run) {
       if (tid == 0) pairwise_sum2(base + 4 * E, base + 5 * E, n_ep, hs[kCSumF], hs[kCgSumF]);
       lanes_sync(NT);
       c_sum_b = hs[kCSumF];
@@ -637,26 +618,21 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
     const double ready2 = (cm.staged2 ? 0.0 : ready_s) + qd_e;
     // 4. First-min argmin: three integer reductions on ordered keys in the
     // warp, then the same across the warps; beside the helper's refresh.
-    int ei;
-    if (kDrop & kDropArgmin) {
-      ei = t % n_ep;
-    } else {
-      const unsigned long long key = order_key(v);
-      const unsigned long long wkey = warp_min_key(key);
-      ei = static_cast<int>(__reduce_min_sync(
-          kFull, key == wkey ? static_cast<unsigned>(vi) : 0xffffffffu));
-      if (NW > 1) {
-        unsigned long long* red_k = reinterpret_cast<unsigned long long*>(red_v);
-        const int rb = (t & 1) * 32;
-        if (lane == 0) {
-          red_k[rb + warp] = wkey;
-          red_i[rb + warp] = ei;
-        }
-        lanes_sync(NT);
-        ei = warp_first_min(lane < NW ? red_k[rb + lane] : ~0ull,
-                            lane < NW ? static_cast<unsigned>(red_i[rb + lane])
-                                      : 0xffffffffu);
+    const unsigned long long key = order_key(v);
+    const unsigned long long wkey = warp_min_key(key);
+    int ei = static_cast<int>(__reduce_min_sync(
+        kFull, key == wkey ? static_cast<unsigned>(vi) : 0xffffffffu));
+    if (NW > 1) {
+      unsigned long long* red_k = reinterpret_cast<unsigned long long*>(red_v);
+      const int rb = (t & 1) * 32;
+      if (lane == 0) {
+        red_k[rb + warp] = wkey;
+        red_i[rb + warp] = ei;
       }
+      lanes_sync(NT);
+      ei = warp_first_min(lane < NW ? red_k[rb + lane] : ~0ull,
+                          lane < NW ? static_cast<unsigned>(red_i[rb + lane])
+                                    : 0xffffffffu);
     }
     // the winner to the helper, which scans its row while the lanes
     // finish the commit
@@ -686,30 +662,26 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
 
     // 5. The thread that owns the winning lane writes its commit.
     if (ei % NT == tid) {
-      if (!(kDrop & kDropCommit)) {
-        slots[(size_t)ei * C + cm.sk] = cm.end_v;
-        staged[sig * E + ei] = cm.staged2 ? 1 : 0;
-        base[ei] = cm.m2;
-        base[E + ei] = cm.nf_v;
-        base[2 * E + ei] = cm.nl_v;
-        base[3 * E + ei] = cm.nd_v;
-        base[4 * E + ei] = cm.c_e;
-        base[5 * E + ei] = cm.cg_e;
-        run[ei] = cm.e_b;          // fw (row 4) is per-run, never refreshed
-        run[E + ei] = cm.nl2;
-        run[2 * E + ei] = cm.g_b;
-        run[3 * E + ei] = cm.lk_e;
-        hs[kCCur] = dmax(c_cur, cm.end_v);
-        hs[kTj] = cm.tj2;
-      }
+      slots[(size_t)ei * C + cm.sk] = cm.end_v;
+      staged[sig * E + ei] = cm.staged2 ? 1 : 0;
+      base[ei] = cm.m2;
+      base[E + ei] = cm.nf_v;
+      base[2 * E + ei] = cm.nl_v;
+      base[3 * E + ei] = cm.nd_v;
+      base[4 * E + ei] = cm.c_e;
+      base[5 * E + ei] = cm.cg_e;
+      run[ei] = cm.e_b;          // fw (row 4) is per-run, never refreshed
+      run[E + ei] = cm.nl2;
+      run[2 * E + ei] = cm.g_b;
+      run[3 * E + ei] = cm.lk_e;
+      hs[kCCur] = dmax(c_cur, cm.end_v);
+      hs[kTj] = cm.tj2;
       hs[kEndV] = cm.end_v;
       publish(hand + kFlagCommit, t);
       // the outputs after the release, which would otherwise wait for them
-      if (!(kDrop & kDropCommit)) {
-        a.ei_out[(size_t)h * T + t] = ei;
-        a.start_out[(size_t)h * T + t] = cm.start_v;
-        a.end_out[(size_t)h * T + t] = cm.end_v;
-      }
+      a.ei_out[(size_t)h * T + t] = ei;
+      a.start_out[(size_t)h * T + t] = cm.start_v;
+      a.end_out[(size_t)h * T + t] = cm.end_v;
     }
     lanes_sync(NT);
   }
@@ -723,27 +695,23 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
     const unsigned k = static_cast<unsigned>(k1[e]);
     // first-min key and slot of the row without slot k, and the least key
     // of the rest, in ordered keys (~0: none)
-    unsigned long long m1 = ~0ull, m2 = ~0ull;
-    unsigned i1 = 0xffffffffu;
-    if (!(kDrop & kDropRescan)) {
-      const double* row = slots + (size_t)e * C;
-      unsigned long long mine = ~0ull, rest = ~0ull;
-      unsigned at = 0xffffffffu;
-      for (int c = lane; c < C; c += 32) {
-        if (static_cast<unsigned>(c) == k) continue;
-        const unsigned long long x = order_key(row[c]);
-        if (x < mine) {
-          rest = mine < rest ? mine : rest;
-          mine = x;
-          at = c;
-        } else {
-          rest = x < rest ? x : rest;
-        }
+    const double* row = slots + (size_t)e * C;
+    unsigned long long mine = ~0ull, rest = ~0ull;
+    unsigned at = 0xffffffffu;
+    for (int c = lane; c < C; c += 32) {
+      if (static_cast<unsigned>(c) == k) continue;
+      const unsigned long long x = order_key(row[c]);
+      if (x < mine) {
+        rest = mine < rest ? mine : rest;
+        mine = x;
+        at = c;
+      } else {
+        rest = x < rest ? x : rest;
       }
-      m1 = warp_min_key(mine);
-      i1 = __reduce_min_sync(kFull, mine == m1 ? at : 0xffffffffu);
-      m2 = warp_min_key(at == i1 ? rest : mine);
     }
+    unsigned long long m1 = warp_min_key(mine);
+    unsigned i1 = __reduce_min_sync(kFull, mine == m1 ? at : 0xffffffffu);
+    unsigned long long m2 = warp_min_key(at == i1 ? rest : mine);
     await_flag(hand + kFlagCommit, t);
     // slot k's new value merged in
     const unsigned long long ke = order_key(hs[kEndV]);
@@ -755,10 +723,8 @@ __global__ void __launch_bounds__(MAXT) greedy_window_kernel(const WinArgs a) {
       m2 = ke < m2 ? ke : m2;
     }
     if (lane == 0) {
-      if (!(kDrop & kDropRescan)) {
-        k1[e] = static_cast<int>(i1);
-        min2[e] = m2 == ~0ull ? inf_d() : from_key(m2);
-      }
+      k1[e] = static_cast<int>(i1);
+      min2[e] = m2 == ~0ull ? inf_d() : from_key(m2);
       publish(hand + kFlagSum, t);
     }
     __syncwarp();
@@ -800,14 +766,12 @@ WinPlan win_plan(int E, int C, int S) {
   p.lpt = (E + kMaxLaneThreads - 1) / kMaxLaneThreads;
   p.nt = ((E + p.lpt - 1) / p.lpt + 31) / 32 * 32;
   // the lane state first (every step reads it), then the step operands,
-  // then the slot matrix (the helper's, off the step's chain)
-  int dropped = 0;
-  if (kDrop & kDropSlotsOnChip) dropped |= kSlotsOnChip;
-  if (kDrop & kDropPfOnChip) dropped |= kPfOnChip;
-  const int modes[] = {7, 3, 2, 1, 0};
+  // then the slot matrix (the helper's, off the step's chain).  The
+  // operands go on chip only beside the lane state: with the state in
+  // global memory, their copies cost more than they save (PERF.md).
+  const int modes[] = {7, 3, 2, 0};
   p.mode = 0;
   for (int mode : modes) {
-    mode &= ~dropped;
     if ((size_t)win_layout(E, C, S, mode).total <= kMaxSmem) {
       p.mode = mode;
       break;

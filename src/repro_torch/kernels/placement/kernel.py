@@ -104,29 +104,6 @@ def greedy_window(p: dict, n_ep: int, n_units: int) -> dict:
         return _greedy_scan_plain(p, n_ep, n_units)
     if dev.type != "cuda":
         raise ValueError(f"greedy_window: unsupported device {dev}")
-    out = run_window(_build.lib(), p, n_ep, n_units)
-    LAUNCHES["greedy_window"] += 1
-    return out
-
-
-def plan(E: int, C: int, S: int) -> dict:
-    """The window kernel's launch plan for E lanes, C core slots and S
-    input signatures: lanes a thread, lane threads (one helper warp more),
-    whether the step operands, the lane state and the slot matrix sit in
-    shared memory (else in global memory), and its bytes."""
-    vals = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()]
-    _build.lib().gf_greedy_window_plan(E, C, S, *(ctypes.byref(v) for v in vals))
-    lpt, nt, mode, smem = (v.value for v in vals)
-    return {"lanes_per_thread": lpt, "lane_threads": nt, "operands_on_chip": bool(mode & 1),
-            "state_on_chip": bool(mode & 2), "slots_on_chip": bool(mode & 4),
-            "smem_bytes": smem}
-
-
-def run_window(handle, p: dict, n_ep: int, n_units: int) -> dict:
-    """Check a packed window on the card and launch ``handle``'s window
-    kernel on it (``greedy_window``'s launch; a sweep passes the library
-    of another build)."""
-    dev = p["base"].device
     H, _, E = p["base"].shape
     C = p["slots"].shape[2]
     T = p["xs_i"].shape[2]
@@ -158,7 +135,7 @@ def run_window(handle, p: dict, n_ep: int, n_units: int) -> dict:
     k1 = torch.empty((H, E), dtype=i32, device=dev)
     min2 = torch.empty((H, E), dtype=f64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = handle.gf_greedy_window(
+    rc = _build.lib().gf_greedy_window(
         n_ep, E, C, T, n_units, S, H,
         *(p[k].data_ptr() for k in (
             "scal", "lane_c", "alive", "rt_tab", "en_tab", "fen_tab",
@@ -169,4 +146,18 @@ def run_window(handle, p: dict, n_ep: int, n_units: int) -> dict:
         k1.data_ptr(), min2.data_ptr(), stream,
     )
     _raise_on(rc, "greedy_window")
+    LAUNCHES["greedy_window"] += 1
     return out
+
+
+def plan(E: int, C: int, S: int) -> dict:
+    """The window kernel's launch plan for E lanes, C core slots and S
+    input signatures: lanes a thread, lane threads (one helper warp more),
+    whether the step operands, the lane state and the slot matrix sit in
+    shared memory (else in global memory), and its bytes."""
+    vals = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()]
+    _build.lib().gf_greedy_window_plan(E, C, S, *(ctypes.byref(v) for v in vals))
+    lpt, nt, mode, smem = (v.value for v in vals)
+    return {"lanes_per_thread": lpt, "lane_threads": nt, "operands_on_chip": bool(mode & 1),
+            "state_on_chip": bool(mode & 2), "slots_on_chip": bool(mode & 4),
+            "smem_bytes": smem}

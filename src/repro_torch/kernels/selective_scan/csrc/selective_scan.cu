@@ -24,12 +24,14 @@
 // Bound on an H100: at b=4, L=4096, d=8192, n=16 (falcon-mamba-7b's layer at
 //   the loss shape) the fused form moves 1.08 GB (xc, dt_raw and z read and y
 //   written once, in bf16; B, C, A, dt_b and D are small), 0.32 ms at 3.35
-//   TB/s.  It takes b L d n = 2.15e9 exp for the state and 4 more special-
-//   function operations a (token, channel) (softplus: ex2, lg2; the gate:
-//   ex2, rcp), 2.68e9 on the special-function units at 16 a clock on each SM
-//   (4.19e12/s), 0.64 ms: the operations bound it (chip_smoke.py's
-//   fused_scan_bound).  The f32 form moves 1.61 GB (0.48 ms) against 0.51 ms
-//   of exp.
+//   TB/s.  The function needs b L d n = 2.15e9 exp for the state and 3 more
+//   special-function operations a (token, channel) (the softplus's exp and
+//   log; the gate's one, as silu(z) = z/2 (1 + tanh(z/2)) takes a single
+//   tanh), 2.55e9 on the special-function units at 16 a clock on each SM
+//   (4.19e12/s), 0.61 ms: the operations bound it (chip_smoke.py's
+//   fused_scan_bound).  This kernel's gate takes two (ex2, rcp), one more
+//   than the bound counts.  The f32 form moves 1.61 GB (0.48 ms) against
+//   0.51 ms of exp.
 // Design, against what held the first version (2.10 ms, 24% of its bound):
 //   - each exp of the state is one FMUL and one ex2.approx: A is scaled by
 //     log2(e) once, in registers;
@@ -43,29 +45,19 @@
 //     bf16 cast after it; y is written once, as 16-byte vectors;
 //   - a channel is split over PARTS neighbouring lanes that hold n/PARTS
 //     states each and add their parts with log2(PARTS) shuffles a token.
-//     PARTS, the channels a CTA (CH) and the chunk (T) are compile-time
-//     (GF_SCAN_PARTS, GF_SCAN_CH, GF_SCAN_T; kernel_sweeps.py sweeps them).
+//     PARTS, the channels a CTA (CH) and the chunk (T) were chosen by a sweep
+//     on the card (PERF.md, the scan's launch-shape sweep).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
-#ifndef GF_SCAN_PARTS
-#define GF_SCAN_PARTS 2
-#endif
-#ifndef GF_SCAN_CH
-#define GF_SCAN_CH 128
-#endif
-#ifndef GF_SCAN_T
-#define GF_SCAN_T 32
-#endif
-
 namespace {
 
-constexpr int PARTS = GF_SCAN_PARTS;  // lanes per channel
-constexpr int CH = GF_SCAN_CH;        // channels per CTA
-constexpr int T = GF_SCAN_T;          // tokens per chunk
+constexpr int PARTS = 2;   // lanes per channel
+constexpr int CH = 128;    // channels per CTA
+constexpr int T = 32;      // tokens per chunk
 constexpr int THREADS = CH * PARTS;
 constexpr int MAX_N = 64;
 constexpr unsigned kFull = 0xffffffffu;

@@ -12,6 +12,10 @@ backward; training is a later slice of the port), check device, dtype,
 shape, strides and alignment (the kernel reads rows as 16-byte vectors),
 allocate y and, on request, the final state with ``torch.empty``, launch
 on the current CUDA stream and raise if the launch was refused.
+``selective_scan`` takes any d, as the reference's interface does: where
+d is not a multiple of the kernel's 4-float vector, or a row does not
+start on 16 bytes, it runs on zero-padded copies (a zero channel stays
+zero) and returns the first d channels.
 ``LAUNCHES`` counts the launches of each form.  On CPU tensors they run
 the plain versions (``ref.selective_scan_plain``,
 ``ref.mamba1_scan_fused_plain``) instead and count nothing.
@@ -22,6 +26,7 @@ import ctypes
 import pathlib
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.selective_scan import ref as _ref
@@ -70,7 +75,7 @@ def _check_rows(t, name: str, dev, dtype, shape, vec: int = 1) -> None:
                          f"16-byte vectors)")
 
 
-def _check_sizes(name, b, L, d, n, vec) -> None:
+def _check_sizes(name, b, L, d, n, vec=1) -> None:
     if L < 1 or not 1 <= n <= MAX_STATE:
         raise ValueError(f"{name}: needs L >= 1 and a state of 1 to {MAX_STATE}; "
                          f"got L={L}, n={n}")
@@ -81,12 +86,11 @@ def _check_sizes(name, b, L, d, n, vec) -> None:
                          f"kernel's vectors); got d={d}")
 
 
-def launch(handle, fused, x, dt, z, B, C, A, D, dt_b, y, state, b, L, d, n):
-    """One launch of ``handle``'s kernel on checked tensors (the wrappers'
-    last step; a sweep passes the library of another build)."""
+def _launch(fused, x, dt, z, B, C, A, D, dt_b, y, state, b, L, d, n):
+    """One launch of the kernel on checked tensors."""
     stream = torch.cuda.current_stream(x.device).cuda_stream
     zz = z if z is not None else x
-    rc = handle.gf_mamba1_scan(
+    rc = lib().gf_mamba1_scan(
         int(fused),
         x.data_ptr(), x.stride(0), x.stride(1),
         dt.data_ptr(), dt.stride(0), dt.stride(1),
@@ -111,19 +115,28 @@ def selective_scan(x, dt, A, B, C, D, *, return_state: bool = False):
         raise ValueError(f"selective_scan: unsupported device {dev}")
     b, L, d = x.shape
     n = A.shape[-1]
-    _check_sizes("selective_scan", b, L, d, n, 4)
+    _check_sizes("selective_scan", b, L, d, n)
     f32 = (torch.float32,)
-    _build.check_tensor(x, "x", dev, f32, align=16)
-    _build.check_tensor(dt, "dt", dev, f32, (b, L, d), align=16)
+    _build.check_tensor(x, "x", dev, f32)
+    _build.check_tensor(dt, "dt", dev, f32, (b, L, d))
     _build.check_tensor(A, "A", dev, f32, (d, n))
     _build.check_tensor(B, "B", dev, f32, (b, L, n))
     _build.check_tensor(C, "C", dev, f32, (b, L, n))
     _build.check_tensor(D, "D", dev, f32, (d,))
+    pad = -d % 4
+    if pad or x.data_ptr() % 16 or dt.data_ptr() % 16:
+        # fresh copies start on 16 bytes; a padded channel (dt = A = D = 0)
+        # keeps a zero state and a zero y
+        x, dt, D = (F.pad(t, (0, pad)) for t in (x, dt, D))
+        A = F.pad(A, (0, 0, 0, pad))
     y = torch.empty_like(x)
-    state = (torch.empty((b, d, n), dtype=torch.float32, device=dev)
+    state = (torch.empty((b, d + pad, n), dtype=torch.float32, device=dev)
              if return_state else None)
-    launch(lib(), False, x, dt, None, B, C, A, D, None, y, state, b, L, d, n)
+    _launch(False, x, dt, None, B, C, A, D, None, y, state, b, L, d + pad, n)
     LAUNCHES["selective_scan"] += 1
+    if pad:
+        y = y[..., :d].contiguous()
+        state = state[:, :d].contiguous() if return_state else None
     return (y, state) if return_state else y
 
 
@@ -160,6 +173,6 @@ def mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = F
     y = torch.empty((b, L, d), dtype=bf16, device=dev)
     state = (torch.empty((b, d, n), dtype=torch.float32, device=dev)
              if return_state else None)
-    launch(lib(), True, xc, dt_raw, z, B, C, A, D, dt_b, y, state, b, L, d, n)
+    _launch(True, xc, dt_raw, z, B, C, A, D, dt_b, y, state, b, L, d, n)
     LAUNCHES["mamba1_scan_fused"] += 1
     return (y, state) if return_state else y

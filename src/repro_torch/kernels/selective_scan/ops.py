@@ -1,14 +1,11 @@
-"""Public ops: the Mamba1 selective scan, and the Mamba1 block's fused
-scan.  ``selective_scan_op`` brings its arguments to the kernel's layout
-(float32, contiguous); ``mamba1_scan_fused_op`` takes the block's tensors
-as they are (the kernel reads the projections' strided views).  The
-wrappers launch the CUDA kernel for CUDA tensors and run the plain
-versions for CPU tensors."""
+"""Public op of the Mamba1 selective scan: ``selective_scan_op`` brings
+its arguments to the kernel's layout (float32, contiguous), then launches
+the CUDA kernel for CUDA tensors or runs the plain version for CPU
+tensors.  The Mamba1 block calls ``kernel.mamba1_scan_fused`` directly:
+it takes the block's tensors as they are."""
 from __future__ import annotations
 
 from repro_torch.kernels.selective_scan import kernel
-
-mamba1_scan_fused_op = kernel.mamba1_scan_fused
 
 
 def selective_scan_op(x, dt, A, B, C, D, *, return_state: bool = False):

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.selective_scan.ops import mamba1_scan_fused_op
+from repro_torch.kernels.selective_scan.kernel import mamba1_scan_fused
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.models.common import ParamSpec, rms_norm, silu
 from repro_torch.models.config import ArchConfig
@@ -77,8 +77,8 @@ def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
     xc, _ = _causal_conv(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     xc = silu(xc)
     dt_raw, B, C = _mamba1_x_proj(p, xc, cfg)
-    res = mamba1_scan_fused_op(xc, dt_raw, p["dt_b"], A, B, C, p["D"], z,
-                               return_state=return_cache)
+    res = mamba1_scan_fused(xc, dt_raw, p["dt_b"], A, B, C, p["D"], z,
+                            return_state=return_cache)
     y, h = res if return_cache else (res, None)
     out = y @ p["out_proj"].to(dt_)
     if not return_cache:

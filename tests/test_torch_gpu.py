@@ -388,6 +388,27 @@ def test_selective_scan_kernel_matches_plain(cuda_device, b, L, d, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,L,d,n", [(2, 100, 13, 16), (1, 257, 518, 8), (1, 9, 1, 3)])
+def test_selective_scan_kernel_takes_any_d(cuda_device, b, L, d, n):
+    """The reference's interface takes any d: d not a multiple of the
+    kernel's 4-float vector, and x one float into its storage (rows not on
+    16 bytes), run on padded copies; y and the state come back at d."""
+    gen = torch.Generator(device=cuda_device).manual_seed(L + d + n)
+    x, *rest = _scan_inputs(gen, b, L, d, n, cuda_device)
+    x = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x).copy_(x)
+    assert x.data_ptr() % 16
+    before = scan_kernel.LAUNCHES["selective_scan"]
+    y, h = scan_kernel.selective_scan(x, *rest, return_state=True)
+    yp, hp = scan_ref.selective_scan_plain(x, *rest, return_state=True)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES["selective_scan"] == before + 1
+    assert y.shape == (b, L, d) and h.shape == (b, d, n)
+    assert y.is_contiguous() and h.is_contiguous()
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
 def test_selective_scan_rejects_cpu_tensors_and_gradients(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x, dt, A, B, C, D = _scan_inputs(gen, 1, 16, 64, 16, cuda_device)
@@ -536,14 +557,33 @@ def test_mamba1_apply_launches_the_fused_scan_once_a_layer(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+# per fleet (scaled_testbed replicas): its lanes and what its launch plan
+# must hold
+_LARGE_PLANS = {
+    100: (416, {"lanes_per_thread": 1, "state_on_chip": True, "slots_on_chip": False}),
+    257: (1056, {"lanes_per_thread": 2, "state_on_chip": True, "operands_on_chip": True}),
+    400: (1600, {"lanes_per_thread": 2, "state_on_chip": True, "operands_on_chip": False}),
+    540: (2176, {"lanes_per_thread": 3, "state_on_chip": False,
+                 "operands_on_chip": False}),
+    600: (2400, {"lanes_per_thread": 3, "state_on_chip": False,
+                 "operands_on_chip": False}),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tasks,replicas", [(300, 100), (200, 257)])
+@pytest.mark.parametrize("n_tasks,replicas", [(300, 100), (200, 257), (48, 400),
+                                              (48, 540), (48, 600)])
 def test_greedy_window_kernel_matches_plain_on_large_fleets(cuda_device, n_tasks,
                                                            replicas):
     """416 lanes (scaled_testbed(100), C = 64: the slot matrix no longer fits
-    in a block's shared memory) and 1,056 lanes (two lanes a thread)."""
+    in a block's shared memory), 1,056 lanes (two lanes a thread), 1,600
+    (the step operands in global memory), and 2,176 and 2,400 (three a
+    thread, the lane state in global memory too)."""
     p, n_ep, n_units = _window(n_tasks, replicas, cuda_device)
-    assert p["base"].shape[2] in (416, 1056)
+    lanes, want_plan = _LARGE_PLANS[replicas]
+    assert p["base"].shape[2] == lanes
+    got_plan = kernel.plan(lanes, p["slots"].shape[2], p["staged"].shape[1])
+    assert {k: got_plan[k] for k in want_plan} == want_plan
     before = kernel.LAUNCHES["greedy_window"]
     out_k = kernel.greedy_window(p, n_ep, n_units)
     out_p = ops._greedy_scan_plain(p, n_ep, n_units)

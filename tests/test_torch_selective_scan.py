@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro.kernels.selective_scan.kernel import selective_scan as pallas_scan
 from repro.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.selective_scan import kernel, ops, ref
+from repro_torch.models import ssm
 
 CASES = [
     # (b, L, d, n, block_d, chunk) — test_kernels.py SCAN_CASES
@@ -213,7 +214,7 @@ def test_fused_wrapper_on_cpu_runs_plain_and_launches_nothing():
     assert kernel.LAUNCHES == before
     y0, h0 = ref.mamba1_scan_fused_plain(*args, return_state=True)
     assert torch.equal(y, y0) and torch.equal(h, h0)
-    assert ops.mamba1_scan_fused_op is kernel.mamba1_scan_fused
+    assert ssm.mamba1_scan_fused is kernel.mamba1_scan_fused   # the block's op
 
 
 def test_fused_refuses_gradients_and_bad_devices():
