@@ -32,6 +32,14 @@ The batch placement path (the first slice):
    32,768 tasks on the 32-endpoint ``scaled_testbed(8)`` federation;
    launch counts are zeroed just before and read just after.  A small
    window placed on the card is held against the CPU's plain path.
+3b. The default executor (no strategy: Cluster MHRA) on the same three
+   batches' shape: every window clustered, placed by the host's SoA
+   engine, no kernel launched (counts zeroed just before, read just
+   after); each batch's placement, clustering and SoA-engine seconds,
+   cluster count, makespan, measured energy and EDP.  Then Cluster MHRA
+   with single-task clusters on 384 tasks (one window launch, equal to the
+   CPU), and one 32,768-task window placed by the host SoA engine and by
+   the window kernel, equal on every field, both timed.
 4. Timing with CUDA events after warm-up, at the main path's shapes.
 
 The zamba2-2.7b serving path (the second slice):
@@ -1127,6 +1135,138 @@ def falcon_serving(dev, card, serve, api, scan_counts, zero_counts, others) -> d
             "profile": prof, "card": card}
 
 
+def default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
+                     TaskProfileStore, BASE_PROFILES, MACHINE_COEFS,
+                     SEBS_FUNCTIONS, kernel, counters, zero_counts) -> dict:
+    """Phase 3b: the executor as users build it (no strategy: Cluster
+    MHRA) on the card for three batches of the main path's shape, which
+    must place on the host's SoA engine and launch no kernel; then Cluster
+    MHRA with single-task clusters (one window launch, equal to the CPU),
+    and the SoA engine against the window kernel on one 32,768-task
+    window (the reference's soa <=> jax contract)."""
+    import numpy as np
+    import torch
+    fields = ("assignments", "objective", "energy_j", "makespan_s",
+              "transfer_j", "heuristic", "timeline")
+    # host-clock spans of the two layers Cluster MHRA adds, read per batch
+    spans = {"compute_clusters": [], "_mhra_soa": []}
+    clusters = []
+    originals = {k: getattr(sched, k) for k in spans}
+
+    def timed(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kw)
+            spans[name].append(time.perf_counter() - t0)
+            if name == "compute_clusters":
+                clusters.append(out)
+            return out
+        return call
+
+    profiles, coefs = replica_profiles(eps, BASE_PROFILES, MACHINE_COEFS)
+    sim = TestbedSim(eps, profiles=profiles, coefs=coefs, seed=0)
+    ex = GreenFaaSExecutor(eps, sim, alpha=0.5, monitoring=True)
+    if ex.policy.name != "cluster_mhra" or ex.device != dev:
+        raise AssertionError(f"default executor: {ex.policy.name} on {ex.device}")
+    ex.store = seeded_store(eps, TaskProfileStore, BASE_PROFILES, SEBS_FUNCTIONS)
+    batches = []
+    for k in spans:
+        setattr(sched, k, timed(k))
+    try:
+        zero_counts()
+        for b in range(N_BATCHES):
+            tasks = make_tasks(N_TASKS, eps[0].name, sched.TaskSpec,
+                               SEBS_FUNCTIONS, f"d{b}t")
+            t0 = time.perf_counter()
+            res = ex.run_batch(tasks)
+            wall = time.perf_counter() - t0
+            s = res.schedule
+            cl = clusters[-1]
+            vals = (s.objective, s.energy_j, s.makespan_s, res.measured_energy_j,
+                    res.attributed_energy_j, res.makespan_s, res.edp())
+            if len(s.assignments) != N_TASKS or len(s.timeline) != N_TASKS \
+                    or not np.all(np.isfinite(vals)):
+                raise AssertionError(f"default executor batch {b}: incomplete "
+                                     f"schedule or non-finite result")
+            if sorted(i for c in cl for i in c) != list(range(N_TASKS)):
+                raise AssertionError(f"batch {b}: clusters are not a partition")
+            if set(s.assignments.values()) - {e.name for e in eps}:
+                raise AssertionError(f"batch {b}: assignment to an unknown endpoint")
+            batches.append({
+                "batch": b, "placement_s": res.scheduling_s, "run_batch_s": wall,
+                "compute_clusters_s": spans["compute_clusters"][-1],
+                "mhra_soa_s": spans["_mhra_soa"][-1], "clusters": len(cl),
+                "largest_cluster": max(map(len, cl)), "makespan_s": res.makespan_s,
+                "measured_energy_j": res.measured_energy_j, "edp": res.edp(),
+                "heuristic": s.heuristic,
+                "endpoints_used": len(set(s.assignments.values())),
+            })
+            print(f"default executor batch {b}: placement {res.scheduling_s:.3f} s "
+                  f"(compute_clusters {spans['compute_clusters'][-1]:.3f} s, "
+                  f"{len(cl)} clusters of up to {max(map(len, cl))} tasks; "
+                  f"_mhra_soa {spans['_mhra_soa'][-1]:.3f} s), run_batch "
+                  f"{wall:.3f} s, makespan {res.makespan_s:.3f} s, measured "
+                  f"energy {res.measured_energy_j:.1f} J, EDP {res.edp():.6g} J*s "
+                  f"[{card}]", flush=True)
+        counts = {k: v for c in counters for k, v in c.items()}
+    finally:
+        for k, fn in originals.items():
+            setattr(sched, k, fn)
+    if any(counts.values()):
+        raise AssertionError(f"the default executor launched kernels: {counts}")
+    print(f"default executor launches: {counts} (greedy_window 0: every "
+          f"window clustered, placed on the host)", flush=True)
+
+    store = seeded_store(eps, TaskProfileStore, BASE_PROFILES, SEBS_FUNCTIONS)
+    tm = ex.transfer
+    # single-task clusters: the fused route, one launch, equal to the CPU
+    small = make_tasks(LARGE_TASKS, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS, "c")
+    before = kernel.LAUNCHES["greedy_window"]
+    s_card = sched.cluster_mhra(small, eps, store, tm, 0.5, max_cluster_size=1)
+    n_launch = kernel.LAUNCHES["greedy_window"] - before
+    s_cpu = sched.cluster_mhra(small, eps, store, tm, 0.5, max_cluster_size=1,
+                               device="cpu")
+    if n_launch != 1:
+        raise AssertionError(f"single-task Cluster MHRA launched greedy_window "
+                             f"{n_launch} times")
+    for f in fields:
+        if getattr(s_card, f) != getattr(s_cpu, f):
+            raise AssertionError(f"single-task Cluster MHRA on the card differs "
+                                 f"from the CPU on {f}")
+    print(f"cluster_mhra max_cluster_size=1 {LARGE_TASKS}x{len(eps)}: one "
+          f"greedy_window launch, card == CPU (assignments, objective, energy, "
+          f"makespan, transfer, heuristic, timeline)", flush=True)
+
+    # the SoA engine against the window kernel at the main path's shape
+    tasks = make_tasks(N_TASKS, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS, "x")
+    t0 = time.perf_counter()
+    table = sched.PredictionTable(tasks, eps, store)
+    sf1, sf2 = sched._normalizers_fast(tasks, eps, table, tm)
+    s_host = sched._mhra_soa([[t] for t in tasks], [[i] for i in range(N_TASKS)],
+                             eps, table, tm, 0.5, sched.HEURISTICS, sf1, sf2, None)
+    host_s = time.perf_counter() - t0
+    before = kernel.LAUNCHES["greedy_window"]
+    t0 = time.perf_counter()
+    s_kernel = sched.mhra(tasks, eps, store, tm, 0.5)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    if kernel.LAUNCHES["greedy_window"] != before + 1:
+        raise AssertionError("mhra(device=None) did not launch greedy_window once")
+    for f in fields:
+        if getattr(s_host, f) != getattr(s_kernel, f):
+            raise AssertionError(f"the SoA engine and the window kernel differ on "
+                                 f"{f} at {N_TASKS}x{len(eps)}")
+    print(f"cross-check {N_TASKS}x{len(eps)}x{len(sched.HEURISTICS)}: host SoA "
+          f"engine == window kernel (assignments, objective, energy, makespan, "
+          f"transfer, heuristic, timeline); placement on the host {host_s:.3f} s, "
+          f"mhra(device=None) {kernel_s:.3f} s [{card}]", flush=True)
+    return {"batches": batches, "launches": counts,
+            "singleton_clusters": {"tasks": LARGE_TASKS, "launches": n_launch},
+            "cross_check": {"tasks": N_TASKS, "endpoints": len(eps),
+                            "soa_s": host_s, "mhra_device_s": kernel_s},
+            "card": card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1368,6 +1508,12 @@ def main() -> int:
         raise AssertionError(f"main path launched greedy_window "
                              f"{launches['greedy_window']} times")
     print(f"main path launches: {launches}", flush=True)
+
+    # ---- 3b. the default executor: Cluster MHRA --------------------------
+    default = default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
+                               TaskProfileStore, BASE_PROFILES, MACHINE_COEFS,
+                               SEBS_FUNCTIONS, kernel, counters, zero_counts)
+    print(json.dumps({"default_executor": default}), flush=True)
 
     # ---- 4. timing ------------------------------------------------------
     p_full, n_ep, n_units_full = windows[N_TASKS]

@@ -1,7 +1,10 @@
 """The batch pipeline (predict -> place -> run -> attribute -> learn):
 
-- scheduler: MHRA on the fused window greedy, ``SoAState``
-- policy:    placement policies registrable by name
-- executor:  batch executor over the testbed simulator
-- testbed:   discrete-event simulator of the paper's Table-I testbed
+- scheduler:  MHRA and Cluster MHRA (the fused window greedy, or the
+              SoA engine for clustered and multi-input windows), the
+              Round-Robin / single-site baselines, ``SoAState``
+- clustering: agglomerative task clustering for Cluster MHRA
+- policy:     placement policies registrable by name
+- executor:   batch executor over the testbed simulator
+- testbed:    discrete-event simulator of the paper's Table-I testbed
 """

@@ -2,12 +2,12 @@
 monitor -> attribute -> learn (the full paper pipeline, §III).
 
 The backend is the testbed simulator.  Placement is delegated to a
-registered :class:`PlacementPolicy` — pass ``strategy="mhra"`` or an
-already-constructed policy instance — and runs on ``device`` (the CUDA
-card unless the caller names another).  The default strategy is the
-reference's, ``"cluster_mhra"``, which the port does not have yet: an
-executor built without a strategy or a policy raises
-``NotImplementedError`` rather than place with another algorithm.
+registered :class:`PlacementPolicy` — pass ``strategy="cluster_mhra"``
+(the default, as in the reference), ``"mhra"``, ``"round_robin"`` or
+``"single_site"`` with ``site=``, or an already-constructed policy
+instance.  The fused window greedy runs on ``device`` (the CUDA card
+unless the caller names another); Cluster MHRA's clustered windows run on
+the host's SoA engine.
 """
 from __future__ import annotations
 
@@ -123,6 +123,7 @@ class GreenFaaSExecutor:
         backend: TestbedSim,
         alpha: float = 0.5,
         strategy: str = "cluster_mhra",
+        site: str | None = None,
         db: TaskDB | None = None,
         monitoring: bool = True,
         policy: PlacementPolicy | None = None,
@@ -133,7 +134,18 @@ class GreenFaaSExecutor:
         self.alpha = alpha
         self.strategy = strategy
         self.device = resolve_device(device)
-        self.policy = policy if policy is not None else get_policy(strategy)
+        if policy is not None:
+            self.policy = policy
+        elif strategy == "single_site":
+            names = [e.name for e in endpoints]
+            if site not in names:
+                raise ValueError(
+                    f"strategy='single_site' requires site= one of {names}, "
+                    f"got {site!r}"
+                )
+            self.policy = get_policy(strategy, site=site)
+        else:
+            self.policy = get_policy(strategy)
         self.store = TaskProfileStore(endpoints)
         self.transfer = TransferModel(endpoints)
         self.db = db or TaskDB()
@@ -187,3 +199,24 @@ class GreenFaaSExecutor:
             attributed_energy_j=attributed, makespan_s=sim.makespan_s,
             scheduling_s=sched_s, transfer_j=schedule.transfer_j,
         )
+
+    def warmup(self, fns: list[str], per_endpoint: int = 3) -> None:
+        """Seed the profiles by probing each fn ``per_endpoint`` times on
+        each endpoint (the paper builds profiles from prior monitoring
+        runs); the probes are placed endpoint by endpoint."""
+        tasks = []
+        i = 0
+        for ep in self.endpoints:
+            for fn in fns:
+                for _ in range(per_endpoint):
+                    tasks.append(sched.TaskSpec(id=f"warm{i}", fn=fn))
+                    i += 1
+        names = []
+        for ep in self.endpoints:
+            names += [ep.name] * (len(fns) * per_endpoint)
+        schedule = sched.fixed_assignment(
+            tasks, self.endpoints, self.store, self.transfer,
+            lambda idx, t: names[idx],
+        )
+        sim = self.backend.execute(schedule, tasks)
+        attribute_window(sim, self.models, self.store)

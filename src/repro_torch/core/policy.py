@@ -40,8 +40,10 @@ class PolicyContext:
     energy).  Policies may *query* the store and transfer model but must
     not record into them — learning is the executor's job after
     execution.  ``alive`` is a per-endpoint up/down mask (dead endpoints
-    are excluded from candidate scoring).  ``device`` is where placement
-    runs (a resolved ``torch.device``).
+    are excluded from candidate scoring).  ``device`` is where the fused
+    window greedy runs (a resolved ``torch.device``).  The carbon, DAG,
+    warm-pool and fairness snapshots of the reference's context come with
+    the registers that read them (ROADMAP.md queue 1 item 2).
     """
     endpoints: Sequence[EndpointSpec]
     store: TaskProfileStore
@@ -94,11 +96,8 @@ def available_policies() -> list[str]:
 
 
 #: Policies of the reference that the port does not have yet, with the
-#: ROADMAP item that ports each.
+#: ROADMAP item that ports them: both need the main path's registers.
 NOT_YET_PORTED = {
-    "cluster_mhra": "ROADMAP.md queue 1 item 1 (the SoA engine and cluster_mhra)",
-    "round_robin": "ROADMAP.md queue 1 item 1 (the SoA engine and cluster_mhra)",
-    "single_site": "ROADMAP.md queue 1 item 1 (the SoA engine and cluster_mhra)",
     "carbon_mhra": "ROADMAP.md queue 1 item 2 (the main path's four registers)",
     "lookahead_mhra": "ROADMAP.md queue 1 item 2 (the main path's four registers)",
 }
@@ -136,4 +135,60 @@ class MHRAPolicy(PlacementPolicy):
             tasks, ctx.endpoints, ctx.store, ctx.transfer, ctx.alpha,
             self.heuristics, alive=ctx.alive, state=state,
             device=ctx.device,
+        )
+
+
+@register_policy
+class ClusterMHRAPolicy(PlacementPolicy):
+    """Algorithm 1: agglomerative clustering + per-cluster greedy MHRA
+    (:func:`~repro_torch.core.scheduler.cluster_mhra`)."""
+
+    name = "cluster_mhra"
+
+    def __init__(self, heuristics: Sequence[str] = sched.HEURISTICS,
+                 max_cluster_size: int = 40):
+        self.heuristics = tuple(heuristics)
+        self.max_cluster_size = max_cluster_size
+
+    def place(self, tasks, ctx, state=None):
+        return sched.cluster_mhra(
+            tasks, ctx.endpoints, ctx.store, ctx.transfer, ctx.alpha,
+            self.heuristics, self.max_cluster_size, alive=ctx.alive,
+            state=state, device=ctx.device,
+        )
+
+
+@register_policy
+class RoundRobinPolicy(PlacementPolicy):
+    """Rotates through endpoints; the rotation continues across windows."""
+
+    name = "round_robin"
+
+    def __init__(self):
+        self._offset = 0
+
+    def place(self, tasks, ctx, state=None):
+        s = sched.round_robin(
+            tasks, ctx.endpoints, ctx.store, ctx.transfer,
+            state=state, offset=self._offset,
+        )
+        self._offset = (self._offset + len(list(tasks))) % len(ctx.endpoints)
+        return s
+
+
+@register_policy
+class SingleSitePolicy(PlacementPolicy):
+    """Every task on one named endpoint (Table V per-machine rows)."""
+
+    name = "single_site"
+
+    def __init__(self, site: str | None = None):
+        if not site:
+            raise ValueError("single_site policy requires site=<endpoint name>")
+        self.site = site
+
+    def place(self, tasks, ctx, state=None):
+        return sched.single_site(
+            tasks, ctx.endpoints, ctx.store, ctx.transfer, self.site,
+            state=state,
         )

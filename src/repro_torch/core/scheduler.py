@@ -1,4 +1,5 @@
-"""MHRA (paper §III-F, Algorithm 1) on the fused window greedy.
+"""MHRA and Cluster MHRA (paper §III-F, Algorithm 1) and the Round-Robin /
+single-site baselines of Table V.
 
 Objective:  O = alpha * E_tot/SF1 + (1-alpha) * C_max/SF2
   E_tot = sum_n [ idle_power * allocated-span(+startup) + sum dyn task E ]
@@ -6,32 +7,52 @@ Objective:  O = alpha * E_tot/SF1 + (1-alpha) * C_max/SF2
           whole workflow span (paper: power drawn whether or not tasks run).
   SF1/SF2 = pessimistic all-on-one-machine estimates.
 
-One engine: :func:`mhra` builds the window's registers on the host and
-runs the whole greedy — every ordering heuristic at once — as one call
-of :func:`repro_torch.kernels.placement.ops.greedy_window`: one CUDA
-launch on the card, a plain PyTorch loop on the CPU.  The winning
-heuristic is chosen on the host from :meth:`SoAState.metrics`, the same
-accumulation the SoA engine of the reference reports, so placements,
-objective, energy, makespan, transfer and timeline are bitwise equal to
-it.
+Two engines share the same arithmetic, and :func:`mhra` picks one by the
+window's shape alone, as the reference's jax engine does:
+
+  * a window of single-task units with at most one input each runs the
+    whole greedy -- every ordering heuristic at once -- as one call of
+    :func:`repro_torch.kernels.placement.ops.greedy_window`: one CUDA
+    launch on the card, a plain PyTorch loop on the CPU.  The winning
+    heuristic is chosen on the host from :meth:`SoAState.metrics`.
+  * every other window -- empty, a unit of several tasks (a cluster of
+    :func:`cluster_mhra`), or a task with several inputs (a DAG join's
+    child, one transfer per parent) -- runs through the SoA engine
+    (:func:`_mhra_soa` / :func:`_greedy_soa`) on the host in NumPy.
+
+Both give placements, objective, energy, makespan, transfer and timeline
+bitwise equal to the reference's SoA engine.  A failure of the kernel is
+never caught and retried on the host.
 
 The carbon, lookahead, fairness and warm-pool registers are not built
-yet: they enter the kernel as zero registers with zero weights (bitwise
-inert), so adding one is host prep only.  Clustered units and
-multi-input tasks are not expressible by the fused window and raise.
+yet: the fused window takes them as zero registers with zero weights
+(bitwise inert), and the SoA engine carries only the branches where they
+are absent.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
+from repro_torch.core.clustering import agglomerative_cluster
 from repro_torch.core.endpoint import EndpointSpec
-from repro_torch.core.predictor import TaskProfileStore
+from repro_torch.core.predictor import Prediction, TaskProfileStore
 from repro_torch.core.transfer import E_INC_J_PER_BYTE, TransferModel
 from repro_torch.device import resolve_device
+
+#: Run-memoization counters for the SoA greedy (``_greedy_soa``): a "hit"
+#: is a unit scored by reusing the previous unit's vectorized pass (the
+#: O(1) fast path), a "miss" is a full vectorized scoring pass.
+#: Cumulative across calls; reset with :func:`reset_memo_stats`.
+MEMO_STATS = {"hits": 0, "misses": 0}
+
+
+def reset_memo_stats() -> None:
+    MEMO_STATS["hits"] = 0
+    MEMO_STATS["misses"] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,23 +97,51 @@ HEURISTICS = (
 )
 
 
+def _unit_transfer_delta(transfer, cached, transfer_j, unit, name):
+    """(transfer_j_after, ready_s, cache_keys_added) for placing ``unit``'s
+    inputs on endpoint ``name`` -- a pure function of the cache contents.
+    A shared input is charged once per destination endpoint."""
+    t_bytes, t_files = 0.0, 0
+    new_cached: list[tuple[str, str]] = []
+    for t in unit:
+        for src, n_files, nbytes, shared in t.inputs:
+            if src == name:
+                continue
+            key = (name, f"{src}:{n_files}:{nbytes}")
+            if shared and (key in cached or key in new_cached):
+                continue
+            if shared:
+                new_cached.append(key)
+            transfer_j += transfer.hops(src, name) * nbytes * E_INC_J_PER_BYTE
+            t_bytes += nbytes
+            t_files += n_files
+    ready = transfer.predict_seconds(t_files, t_bytes)
+    return transfer_j, ready, new_cached
+
+
 class SoAState:
     """Structure-of-arrays scheduling state.
 
     Core free-times live in ONE flat float64 array segmented by
     per-endpoint ``offsets``; the per-endpoint registers (``first``/
     ``last``/``dyn``) are vectors.  ``first[i] == np.inf`` encodes
-    "endpoint never used".  Units: ``free``/``first``/``last`` are
+    "endpoint never used".  A heap pop-min + push(end) is "overwrite the
+    first min slot with end" -- the same multiset evolution, so
+    ``assign``/``metrics`` give the same doubles as a heap-backed state
+    fed the same placements.  Units: ``free``/``first``/``last`` are
     seconds, ``dyn``/``transfer_j`` joules; ``metrics()`` returns
-    ``(E_tot J, C_max s, transfer J)``.  ``clone`` deep-copies the
-    arrays but shares the immutable endpoint/transfer objects;
-    ``replace_with`` adopts another state's arrays *by reference*.
+    ``(E_tot J, C_max s, transfer J)``.  ``assign`` mutates in place
+    (including the task-start clamp to ``TaskSpec.not_before``);
+    ``clone`` deep-copies the arrays but shares the immutable
+    endpoint/transfer objects; ``replace_with`` adopts another state's
+    arrays *by reference*.
     """
 
     def __init__(self, endpoints: Sequence[EndpointSpec], transfer: TransferModel):
         self.eps = list(endpoints)
         self.transfer = transfer
         self.names = [e.name for e in self.eps]
+        self.ep_index = {n: i for i, n in enumerate(self.names)}
         cores = np.array([e.cores for e in self.eps], dtype=np.intp)
         self.offsets = np.zeros(len(self.eps) + 1, dtype=np.intp)
         np.cumsum(cores, out=self.offsets[1:])
@@ -108,10 +157,14 @@ class SoAState:
         """Writable view of endpoint ``ei``'s core free-times."""
         return self.free[self.offsets[ei]:self.offsets[ei + 1]]
 
+    def slot_mins(self) -> np.ndarray:
+        """Per-endpoint min free-time in one reduceat pass."""
+        return np.minimum.reduceat(self.free, self.offsets[:-1])
+
     def clone(self, keep_timeline: bool = False) -> "SoAState":
         s = SoAState.__new__(SoAState)
         s.eps, s.transfer = self.eps, self.transfer
-        s.names, s.offsets = self.names, self.offsets
+        s.names, s.ep_index, s.offsets = self.names, self.ep_index, self.offsets
         s.free = self.free.copy()
         s.first = self.first.copy()
         s.last = self.last.copy()
@@ -129,6 +182,64 @@ class SoAState:
         self.transfer_j = other.transfer_j
         self.cached = other.cached
         self.timeline = other.timeline
+
+    def drop_timeline(self, task_ids) -> int:
+        """Retire finished tasks' timeline entries; scoring never reads
+        the timeline, so placements are unaffected.  Returns the count
+        dropped."""
+        pop = self.timeline.pop
+        n = 0
+        for tid in task_ids:
+            if pop(tid, None) is not None:
+                n += 1
+        return n
+
+    def advance_to(self, now: float) -> None:
+        """Raise every core's free time to at least ``now``."""
+        np.maximum(self.free, now, out=self.free)
+
+    def _transfer_delta(self, unit, name: str):
+        return _unit_transfer_delta(
+            self.transfer, self.cached, self.transfer_j, unit, name
+        )
+
+    def assign(
+        self,
+        unit: Sequence[TaskSpec],
+        ep: EndpointSpec,
+        preds: dict[str, Prediction],
+        record_timeline: bool = False,
+    ) -> None:
+        ei = self.ep_index[ep.name]
+        transfer_j, ready, new_cached = self._transfer_delta(unit, ep.name)
+        self.transfer_j = transfer_j
+        self.cached.update(new_cached)
+        if ep.has_batch_scheduler:
+            ready += ep.queue_delay_s
+        slots = self.slot_view(ei)
+        first = self.first[ei]
+        last = self.last[ei]
+        dyn = self.dyn[ei]
+        for t in unit:
+            p = preds[t.id]
+            k = int(np.argmin(slots))
+            start = slots[k]
+            if start < ready:
+                start = ready
+            if start < t.not_before:
+                start = t.not_before
+            end = start + p.runtime_s
+            slots[k] = end
+            if start < first:
+                first = start
+            if end > last:
+                last = end
+            dyn += p.energy_j
+            if record_timeline:
+                self.timeline[t.id] = (start, end)
+        self.first[ei] = first
+        self.last[ei] = last
+        self.dyn[ei] = dyn
 
     def metrics(self) -> tuple[float, float, float]:
         """(E_tot, C_max, transfer_j), accumulated endpoint by endpoint."""
@@ -167,26 +278,41 @@ class PredictionTable:
             if c is None:
                 c = fn_col[t.fn] = len(fn_col)
             fn_ids[ti] = c
+        cache: dict[tuple[str, str], Prediction] = {}
         base_rt = np.empty((n_ep, len(fn_col)))
         base_en = np.empty((n_ep, len(fn_col)))
         for ei, ep in enumerate(self.endpoints):
             for fn, c in fn_col.items():
-                p = store.predict(fn, ep.name)
+                p = cache[(fn, ep.name)] = store.predict(fn, ep.name)
                 base_rt[ei, c] = p.runtime_s
                 base_en[ei, c] = p.energy_j
         self.rt = base_rt[:, fn_ids]
         self.en = base_en[:, fn_ids]
+        self._cache = cache
         # python-float rows for the normalizers' scalar loop
         self.rt_rows = self.rt.tolist()
         self.en_rows = self.en.tolist()
         # endpoint-mean predictions used by the ordering heuristics
         self.rt_mean = self.rt.mean(axis=0)
         self.en_mean = self.en.mean(axis=0)
+        self._rtT: np.ndarray | None = None
+        self._enT: np.ndarray | None = None
 
     def transposed(self) -> tuple[np.ndarray, np.ndarray]:
-        """(n_tasks, n_ep) C-contiguous copies: row ``ti`` is task ti's
-        prediction across all endpoints."""
-        return np.ascontiguousarray(self.rt.T), np.ascontiguousarray(self.en.T)
+        """(n_tasks, n_ep) C-contiguous copies, built on first use: row
+        ``ti`` is task ti's prediction across all endpoints."""
+        if self._rtT is None:
+            self._rtT = np.ascontiguousarray(self.rt.T)
+            self._enT = np.ascontiguousarray(self.en.T)
+        return self._rtT, self._enT
+
+    def per_ep(self) -> dict[str, dict[str, Prediction]]:
+        """``{endpoint: {task id: Prediction}}`` for the fixed-assignment
+        baselines, which commit through :meth:`SoAState.assign`."""
+        return {
+            ep.name: {t.id: self._cache[(t.fn, ep.name)] for t in self.tasks}
+            for ep in self.endpoints
+        }
 
 
 def _sort_order(key: str, table: PredictionTable, unit_indices) -> np.ndarray:
@@ -286,17 +412,21 @@ def mhra(
     transfer: TransferModel,
     alpha: float = 0.5,
     heuristics: Sequence[str] = HEURISTICS,
+    clusters: list[list[int]] | None = None,
     alive: Sequence[bool] | None = None,
     state: SoAState | None = None,
     device=None,
 ) -> Schedule:
-    """Multi-Heuristic Resource Allocation over one window.
+    """Multi-Heuristic Resource Allocation over one window.  With
+    ``clusters`` given (lists of task indices), this is Cluster MHRA's
+    greedy stage: one decision per cluster.
 
     ``alive`` (per-endpoint booleans) masks dead endpoints out of
     candidate scoring; ``state`` places against a live timeline and the
     winning heuristic's result is committed into it.  ``device=None``
-    runs the greedy on the CUDA card and raises when there is none;
-    ``device="cpu"`` runs its plain PyTorch version.
+    means the CUDA card and raises when there is none; ``device="cpu"``
+    runs the fused window's plain PyTorch version.  Which engine places
+    the window follows from its shape alone (module docstring).
     """
     dev = resolve_device(device)
     if not heuristics:
@@ -313,16 +443,16 @@ def mhra(
         if all(alive):
             alive = None   # no-op mask
     tasks = list(tasks)
-    multi = [t.id for t in tasks if len(t.inputs) > 1]
-    if multi:
-        raise NotImplementedError(
-            "multi-input tasks are placed by the SoA engine, which a later "
-            f"slice of the port adds (got {multi[:5]})"
-        )
     table = PredictionTable(tasks, endpoints, store)
-    units = [[t] for t in tasks]
+    if clusters is None:
+        units = [[t] for t in tasks]
+    else:
+        units = [[tasks[i] for i in c] for c in clusters]
     sf1, sf2 = _normalizers_fast(tasks, endpoints, table, transfer)
-    unit_indices = [[table.index[t.id]] for t in tasks]
+    unit_indices = [[table.index[t.id] for t in u] for u in units]
+    if (not units) or any(len(u) != 1 or len(u[0].inputs) > 1 for u in units):
+        return _mhra_soa(units, unit_indices, endpoints, table, transfer,
+                         alpha, heuristics, sf1, sf2, state, alive)
     return _mhra_fused(units, unit_indices, endpoints, table, transfer,
                        alpha, heuristics, sf1, sf2, state, alive, dev)
 
@@ -613,3 +743,506 @@ def _mhra_fused(units, unit_indices, endpoints, table, transfer, alpha,
         state.replace_with(st_w)
         sched.timeline = dict(sched.timeline)
     return sched
+
+
+def _mhra_soa(units, unit_indices, endpoints, table, transfer, alpha,
+              heuristics, sf1, sf2, state, alive=None):
+    """SoA-engine heuristic search: run :func:`_greedy_soa` per ordering
+    heuristic, commit the winner into ``state``."""
+    best: Schedule | None = None
+    best_state: SoAState | None = None
+    for h in heuristics:
+        order = _sort_order(h, table, unit_indices)
+        ordered = [units[i] for i in order]
+        ordered_idx = [unit_indices[i] for i in order]
+        sched, end_state = _greedy_soa(
+            ordered, ordered_idx, endpoints, table, transfer, alpha,
+            sf1, sf2, h, state, alive,
+        )
+        if best is None or sched.objective < best.objective:
+            best, best_state = sched, end_state
+    if state is not None:
+        state.replace_with(best_state)
+        best.timeline = dict(best.timeline)
+    return best
+
+
+def _greedy_soa(
+    units, unit_indices, endpoints, table: PredictionTable, transfer,
+    alpha, sf1, sf2, heuristic, base_state: SoAState | None = None,
+    alive: tuple | None = None,
+) -> tuple[Schedule, SoAState]:
+    """Structure-of-arrays greedy: score a unit against *every* endpoint in
+    a fixed handful of vectorized passes instead of a Python loop over
+    candidates.
+
+    The per-candidate objective is regrouped for vectorization::
+
+        e(i) = transfer_j(i) + (C - const_i) + IDLE_ON * c(i) + self(i)
+
+    where ``C = sum_j const_j`` collects every endpoint's standing
+    contribution (span term + dynamic energy for batch endpoints, dynamic
+    energy for always-on ones), ``IDLE_ON`` is the total always-on idle
+    draw (each always-on endpoint charges ``idle * C_max`` whichever
+    candidate wins), and ``self(i)`` is candidate i's refreshed span/dyn
+    term.  Ties go to the first index.  The *final* objective is
+    recomputed from ``state.metrics()``.
+
+    Slot peeks come from a per-endpoint ``mins`` register over the state's
+    flat free-time array; a commit overwrites the argmin slot (same
+    multiset evolution as heap pop+push) and refreshes only that
+    endpoint's min.  Singleton units with at most one input take the
+    memoized fast path; clustered and multi-input units the general path,
+    which previews each candidate endpoint's slot heap.
+    """
+    state = (
+        base_state.clone(keep_timeline=True)
+        if base_state is not None
+        else SoAState(endpoints, transfer)
+    )
+    n_ep = len(endpoints)
+    names = state.names
+    eps_r = range(n_ep)
+    free = state.free
+    offsets = state.offsets
+    first, last, dyn = state.first, state.last, state.dyn
+    cached = state.cached
+    timeline = state.timeline
+    transfer_j = state.transfer_j
+    mins = state.slot_mins()
+
+    # per-endpoint constants
+    idle = np.array([ep.idle_power_w for ep in endpoints])
+    bt_mask = np.array([ep.has_batch_scheduler for ep in endpoints])
+    su = np.array([ep.startup_energy_j for ep in endpoints])
+    qd_vec = np.where(bt_mask, [ep.queue_delay_s for ep in endpoints], 0.0)
+    idle_bt = np.where(bt_mask, idle, 0.0)
+    su_bt = np.where(bt_mask, su, 0.0)
+    idle_on_sum = float(idle[~bt_mask].sum())
+
+    c_cur = float(max(last.max(initial=0.0), 0.0))
+    # standing per-endpoint objective contributions (see docstring)
+    used = first < np.inf
+    span = np.where(used, last - first, 0.0)
+    const = np.where(bt_mask & used, idle * span + su, 0.0) + dyn
+    static = const.sum() - const
+
+    # python-float mirrors of every register the singleton fast path reads
+    # scalar-by-scalar (a numpy scalar index costs ~5x a list index); the
+    # arrays stay authoritative for the vectorized passes and commits
+    # dual-write.  The values are the same float64 doubles either way.
+    mins_l = mins.tolist()
+    first_l = first.tolist()
+    last_l = last.tolist()
+    dyn_l = dyn.tolist()
+    const_l = const.tolist()
+    qd_l = qd_vec.tolist()
+    idle_bt_l = idle_bt.tolist()
+    su_bt_l = su_bt.tolist()
+    bt_l = bt_mask.tolist()
+    # per-endpoint slot lists are authoritative during this call; the flat
+    # free array is rebuilt once at the end
+    slots_l = [free[offsets[j]:offsets[j + 1]].tolist() for j in eps_r]
+    run_rt_l = run_en_l = None
+    nl_l = e_base_l = obj_l = None
+
+    rtT, enT = table.transposed()
+    a1 = alpha / sf1
+    b1 = (1.0 - alpha) / sf2
+    # dead-endpoint mask: applied *after* every term add so masked entries
+    # stay +inf across memo hits (the commit/C_max refreshes below only
+    # touch live endpoints); the mask is constant for the whole call
+    if alive is not None:
+        alive_l = list(alive)
+        dead_idx = np.flatnonzero(~np.asarray(alive, dtype=bool))
+    else:
+        alive_l = dead_idx = None
+    memo_hits = memo_misses = 0
+    assignments: dict[str, str] = {}
+    # preallocated per-unit buffers
+    start = np.empty(n_ep)
+    end = np.empty(n_ep)
+    nf = np.empty(n_ep)
+    nl = np.empty(n_ep)
+    nd = np.empty(n_ep)
+    c = np.empty(n_ep)
+    e = np.empty(n_ep)
+    e_base = np.empty(n_ep)   # per-candidate score minus its C_max terms
+    obj = np.empty(n_ep)
+    tmp = np.empty(n_ep)
+    # per-input-signature transfer vectors (single-input singleton units):
+    # staged[j] => placing on j transfers nothing (local data, or a shared
+    # key already cached); eff_* are the staged-aware add/ready vectors
+    sig_cache: dict[tuple, dict] = {}
+
+    def _sig(inp):
+        rec = sig_cache.get(inp)
+        if rec is None:
+            src, n_files, nbytes, shared = inp
+            ks = f"{src}:{n_files}:{nbytes}"
+            keys = [None if n == src else (n, ks) for n in names]
+            add = np.array([
+                0.0 if k is None else transfer.hops(src, n) * nbytes * E_INC_J_PER_BYTE
+                for n, k in zip(names, keys)
+            ])
+            ready = transfer.predict_seconds(n_files, nbytes)
+            staged = np.array([
+                k is None or (shared and k in cached) for k in keys
+            ])
+            rec = sig_cache[inp] = {
+                "keys": keys, "add": add, "ready": ready, "shared": shared,
+                "staged": staged,
+                "eff_add": np.where(staged, 0.0, add),
+                "eff_ready": np.where(staged, 0.0, ready) + qd_vec,
+            }
+            # python-float mirrors for the scalar commit path (kept in
+            # sync with the arrays at every staging update)
+            rec["eff_add_l"] = rec["eff_add"].tolist()
+            rec["eff_ready_l"] = rec["eff_ready"].tolist()
+        return rec
+
+    # --- run memoization over the sorted unit stream ----------------------
+    # Sorting makes identical (fn, inputs, not_before) singletons
+    # consecutive, and a commit touches exactly one endpoint's registers.
+    # Within such a run every other candidate's score is stale only by a
+    # *uniform* shift, so the argmin is unchanged: only the committed
+    # endpoint's entry needs a scalar refresh, computed against the run's
+    # basis (c_sum_b, tj_b) so comparisons stay exact.  A commit that
+    # raises C_max shifts candidates non-uniformly, so it refreshes every
+    # candidate's makespan terms; any general-path unit forces a fresh
+    # vectorized pass.
+    run_key = None
+    need_full = True
+    c_sum_b = tj_b = 0.0
+    run_rec: dict | None = None
+    run_rt = run_en = None
+    for unit, uidx in zip(units, unit_indices):
+        if len(unit) == 1 and len(unit[0].inputs) <= 1:
+            # ---- fast path: singleton unit, zero or one input ------------
+            t0 = unit[0]
+            ti = uidx[0]
+            nb0 = t0.not_before
+            key = (t0.fn, t0.inputs, nb0)
+            if need_full or key != run_key:
+                memo_misses += 1
+                run_key = key
+                run_rec = rec = _sig(t0.inputs[0]) if t0.inputs else None
+                run_rt = rtT[ti]
+                run_en = enT[ti]
+                c_sum_b = float(const.sum())
+                np.subtract(c_sum_b, const, out=static)
+                tj_b = transfer_j
+                if rec is None:
+                    np.maximum(mins, qd_vec, out=start)
+                else:
+                    np.maximum(mins, rec["eff_ready"], out=start)
+                if nb0 > 0.0:
+                    np.maximum(start, nb0, out=start)
+                np.add(start, run_rt, out=end)
+                np.minimum(first, start, out=nf)
+                np.maximum(last, end, out=nl)
+                np.add(dyn, run_en, out=nd)
+                np.maximum(nl, c_cur, out=c)
+                # candidate span/dyn term: idle*(nl-nf)+su batch, 0 else
+                np.subtract(nl, nf, out=tmp)
+                np.multiply(tmp, idle_bt, out=tmp)
+                np.add(tmp, su_bt, out=tmp)
+                # e_base: everything except the C_max-dependent terms, so
+                # a later C_max advance only refreshes c and recombines
+                np.add(static, nd, out=e_base)
+                np.add(e_base, tmp, out=e_base)
+                if rec is not None:
+                    np.add(e_base, rec["eff_add"], out=e_base)
+                np.add(e_base, tj_b, out=e_base)
+                np.multiply(c, idle_on_sum, out=e)
+                np.add(e, e_base, out=e)
+                np.multiply(e, a1, out=obj)
+                np.multiply(c, b1, out=tmp)
+                np.add(obj, tmp, out=obj)
+                if dead_idx is not None:
+                    obj[dead_idx] = np.inf
+                # refresh the scalar mirrors the hit/commit path works on
+                run_rt_l = run_rt.tolist()
+                run_en_l = run_en.tolist()
+                nl_l = nl.tolist()
+                e_base_l = e_base.tolist()
+                obj_l = obj.tolist()
+                need_full = False
+            else:
+                memo_hits += 1
+                rec = run_rec
+            ei = obj_l.index(min(obj_l))   # first-min, like np.argmin
+            # ---- commit: same scalar float ops as the vectorized pass,
+            # read from the python mirrors (identical doubles) ------------
+            if rec is None:
+                ready_e = qd_l[ei]
+            else:
+                ready_e = rec["eff_ready_l"][ei]
+                transfer_j += rec["eff_add_l"][ei]
+                if rec["shared"] and not rec["staged"][ei]:
+                    cached.add(rec["keys"][ei])
+                    rec["staged"][ei] = True
+                    rec["eff_add"][ei] = 0.0
+                    rec["eff_add_l"][ei] = 0.0
+                    rec["eff_ready"][ei] = qd_l[ei]
+                    rec["eff_ready_l"][ei] = qd_l[ei]
+            m_e = mins_l[ei]
+            start_v = m_e if m_e >= ready_e else ready_e
+            if start_v < nb0:
+                start_v = nb0
+            end_v = start_v + run_rt_l[ei]
+            f_e = first_l[ei]
+            nf_v = start_v if start_v < f_e else f_e
+            l_e = last_l[ei]
+            nl_v = end_v if end_v > l_e else l_e
+            nd_v = dyn_l[ei] + run_en_l[ei]
+            # heap pop-min+push as "overwrite the first min slot": the
+            # mins register *is* the slot min, so list.index finds the
+            # same slot np.argmin would
+            sl_l = slots_l[ei]
+            sl_l[sl_l.index(m_e)] = end_v
+            m2 = min(sl_l)
+            mins[ei] = m2
+            mins_l[ei] = m2
+            first[ei] = nf_v
+            first_l[ei] = nf_v
+            last[ei] = nl_v
+            last_l[ei] = nl_v
+            dyn[ei] = nd_v
+            dyn_l[ei] = nd_v
+            c_e = (
+                (nl_v - nf_v) * idle_bt_l[ei] + su_bt_l[ei] + nd_v
+                if bt_l[ei] else nd_v
+            )
+            const[ei] = c_e
+            const_l[ei] = c_e
+            # refresh this endpoint's next-task row on the run's basis
+            # (same scalar float op order as the vectorized pass)
+            ready2 = rec["eff_ready_l"][ei] if rec is not None else ready_e
+            s2 = m2 if m2 >= ready2 else ready2
+            if s2 < nb0:
+                s2 = nb0
+            e2 = s2 + run_rt_l[ei]
+            nf2 = s2 if s2 < nf_v else nf_v
+            nl2 = e2 if e2 > nl_v else nl_v
+            nl_l[ei] = nl2
+            e_b = (c_sum_b - c_e) + (nd_v + run_en_l[ei])
+            e_b = e_b + ((nl2 - nf2) * idle_bt_l[ei] + su_bt_l[ei])
+            if rec is not None:
+                e_b = e_b + rec["eff_add_l"][ei]
+            e_b = e_b + tj_b
+            e_base_l[ei] = e_b
+            if end_v > c_cur:
+                # C_max advanced: refresh every candidate's makespan terms
+                # from the cached e_base, element for element the ops the
+                # vectorized pass performs -- identical floats
+                c_cur = end_v
+                for j in eps_r:
+                    if alive_l is not None and not alive_l[j]:
+                        continue   # dead: leave its score at +inf
+                    c2 = nl_l[j]
+                    if c2 < c_cur:
+                        c2 = c_cur
+                    e_s = idle_on_sum * c2 + e_base_l[j]
+                    obj_l[j] = a1 * e_s + b1 * c2
+            else:
+                c2 = nl2 if nl2 > c_cur else c_cur
+                e_s = idle_on_sum * c2 + e_b
+                obj_l[ei] = a1 * e_s + b1 * c2
+            timeline[t0.id] = (start_v, end_v)
+            assignments[t0.id] = names[ei]
+            continue
+        # ---- general path: clustered / multi-input units -----------------
+        run_key = None
+        need_full = True
+        memo_misses += 1
+        np.subtract(const.sum(), const, out=static)
+        heappop, heappush = heapq.heappop, heapq.heappush
+        tjv = np.empty(n_ep)
+        cand = []
+        for ei in eps_r:
+            tj_e, ready_e, new_keys = _unit_transfer_delta(
+                transfer, cached, transfer_j, unit, names[ei]
+            )
+            ready_e += qd_vec[ei]
+            heap = list(slots_l[ei])   # authoritative slots (see init)
+            heapq.heapify(heap)
+            f_e = first[ei]
+            l_e = last[ei]
+            d_e = dyn[ei]
+            entries = []
+            for t, tix in zip(unit, uidx):
+                s_v = heappop(heap)
+                if s_v < ready_e:
+                    s_v = ready_e
+                if s_v < t.not_before:
+                    s_v = t.not_before
+                e_v = s_v + rtT[tix, ei]
+                heappush(heap, e_v)
+                if s_v < f_e:
+                    f_e = s_v
+                if e_v > l_e:
+                    l_e = e_v
+                d_e = d_e + enT[tix, ei]
+                entries.append((t.id, s_v, e_v))
+            tjv[ei] = tj_e
+            nf[ei] = f_e
+            nl[ei] = l_e
+            nd[ei] = d_e
+            cand.append((heap, entries, new_keys))
+        np.maximum(nl, c_cur, out=c)
+        np.subtract(nl, nf, out=tmp)
+        np.multiply(tmp, idle_bt, out=tmp)
+        np.add(tmp, su_bt, out=tmp)
+        np.multiply(c, idle_on_sum, out=e)
+        np.add(e, static, out=e)
+        np.add(e, nd, out=e)
+        np.add(e, tmp, out=e)
+        np.add(e, tjv, out=e)
+        np.multiply(e, a1, out=obj)
+        np.multiply(c, b1, out=tmp)
+        np.add(obj, tmp, out=obj)
+        if dead_idx is not None:
+            obj[dead_idx] = np.inf
+        ei = int(np.argmin(obj))
+        heap, entries, new_keys = cand[ei]
+        transfer_j = float(tjv[ei])
+        cached.update(new_keys)
+        if new_keys:
+            for rec in sig_cache.values():  # invalidate staged views
+                if rec["shared"]:
+                    for j, k in enumerate(rec["keys"]):
+                        if k in new_keys and not rec["staged"][j]:
+                            rec["staged"][j] = True
+                            rec["eff_add"][j] = 0.0
+                            rec["eff_add_l"][j] = 0.0
+                            rec["eff_ready"][j] = qd_vec[j]
+                            rec["eff_ready_l"][j] = qd_l[j]
+        slots_l[ei] = heap
+        mins[ei] = heap[0]
+        mins_l[ei] = heap[0]
+        nf_v = float(nf[ei])
+        nl_v = float(nl[ei])
+        nd_v = float(nd[ei])
+        first[ei] = nf_v
+        first_l[ei] = nf_v
+        last[ei] = nl_v
+        last_l[ei] = nl_v
+        dyn[ei] = nd_v
+        dyn_l[ei] = nd_v
+        if nl_v > c_cur:
+            c_cur = nl_v
+        c_e = (
+            idle_bt_l[ei] * (nl_v - nf_v) + su_bt_l[ei] + nd_v
+            if bt_l[ei] else nd_v
+        )
+        const[ei] = c_e
+        const_l[ei] = c_e
+        name = names[ei]
+        for tid, s_v, e_v in entries:
+            timeline[tid] = (s_v, e_v)
+            assignments[tid] = name
+
+    MEMO_STATS["hits"] += memo_hits
+    MEMO_STATS["misses"] += memo_misses
+    # the python slot lists were authoritative during the loop; restore the
+    # flat free array (the state outlives this call)
+    for j in eps_r:
+        free[offsets[j]:offsets[j + 1]] = slots_l[j]
+    state.transfer_j = transfer_j
+    e_tot, c_max, tj = state.metrics()
+    obj_f = alpha * e_tot / sf1 + (1 - alpha) * c_max / sf2
+    # timeline by reference; _mhra_soa snapshots the winner's once
+    sched = Schedule(assignments, obj_f, e_tot, c_max, tj, heuristic,
+                     state.timeline)
+    return sched, state
+
+
+def compute_clusters(
+    tasks, endpoints, table: PredictionTable, max_cluster_size: int = 40
+) -> list[list[int]]:
+    """Agglomerative clusters of the window's tasks: each task's feature
+    row is its (runtime, energy) prediction on every endpoint, its energy
+    the fleet-mean prediction, the cap the smallest startup energy of a
+    batch-scheduled endpoint."""
+    n_ep = len(endpoints)
+    feats = np.empty((len(tasks), 2 * n_ep))
+    for ei in range(n_ep):
+        feats[:, 2 * ei] = table.rt[ei]
+        feats[:, 2 * ei + 1] = table.en[ei]
+    energies = table.en_mean
+    cap = min(
+        [ep.startup_energy_j for ep in endpoints if ep.has_batch_scheduler]
+        or [np.inf]
+    )
+    return agglomerative_cluster(
+        feats, energies, cap, max_cluster_size=max_cluster_size
+    )
+
+
+def cluster_mhra(
+    tasks: Sequence[TaskSpec],
+    endpoints: Sequence[EndpointSpec],
+    store: TaskProfileStore,
+    transfer: TransferModel,
+    alpha: float = 0.5,
+    heuristics: Sequence[str] = HEURISTICS,
+    max_cluster_size: int = 40,
+    alive: Sequence[bool] | None = None,
+    state: SoAState | None = None,
+    device=None,
+) -> Schedule:
+    """Algorithm 1: agglomerative clustering + per-cluster greedy MHRA.
+    A window whose clusters are all single tasks of at most one input
+    each goes to the fused window on ``device``; any other to the SoA
+    engine on the host (:func:`mhra`)."""
+    tasks = list(tasks)
+    table = PredictionTable(tasks, endpoints, store)
+    clusters = compute_clusters(tasks, endpoints, table, max_cluster_size)
+    return mhra(tasks, endpoints, store, transfer, alpha, heuristics,
+                clusters, alive=alive, state=state, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Baselines (Table V rows)
+# ---------------------------------------------------------------------------
+
+
+def fixed_assignment(
+    tasks, endpoints, store, transfer, pick: Callable[[int, TaskSpec], str],
+    state: SoAState | None = None,
+) -> Schedule:
+    """Place task ``i`` on endpoint ``pick(i, task)``, in order, committing
+    into ``state`` (a fresh one when None).  The objective is NaN: no
+    search took place."""
+    tasks = list(tasks)
+    per_ep = PredictionTable(tasks, endpoints, store).per_ep()
+    by_ep = {e.name: e for e in endpoints}
+    state = state if state is not None else SoAState(endpoints, transfer)
+    assignments = {}
+    for i, t in enumerate(tasks):
+        name = pick(i, t)
+        state.assign([t], by_ep[name], per_ep[name], record_timeline=True)
+        assignments[t.id] = name
+    e, c, tj = state.metrics()
+    return Schedule(assignments, np.nan, e, c, tj, "fixed", dict(state.timeline))
+
+
+def round_robin(tasks, endpoints, store, transfer,
+                state: SoAState | None = None, offset: int = 0) -> Schedule:
+    names = [e.name for e in endpoints]
+    return fixed_assignment(
+        tasks, endpoints, store, transfer,
+        lambda i, t: names[(i + offset) % len(names)], state=state,
+    )
+
+
+def single_site(tasks, endpoints, store, transfer, site: str,
+                state: SoAState | None = None) -> Schedule:
+    names = {e.name for e in endpoints}
+    if site not in names:
+        raise ValueError(
+            f"single_site requires site to be one of {sorted(names)}, got {site!r}"
+        )
+    return fixed_assignment(tasks, endpoints, store, transfer,
+                            lambda i, t: site, state=state)

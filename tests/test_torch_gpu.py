@@ -604,3 +604,50 @@ def test_mhra_on_card_matches_soa_at_400_endpoints(cuda_device):
     assert kernel.LAUNCHES["greedy_window"] == before + 1
     for f in SCHEDULE_FIELDS:
         assert getattr(a, f) == getattr(b, f) == getattr(c, f), f
+
+
+@pytest.mark.gpu
+def test_all_singleton_cluster_mhra_on_card_matches_cpu_and_soa(cuda_device):
+    """``max_cluster_size=1``: every cluster one single-input task, so
+    Cluster MHRA takes the fused route, one window launch on the card,
+    equal to the CPU's plain path and the reference's soa engine."""
+    tasks, eps, store, tm = reference_case(384, 8, True, nb_max=6.0)
+    a = ref_sched.cluster_mhra(tasks, eps, store, tm, alpha=0.5,
+                               max_cluster_size=1, engine="soa")
+    ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
+    before = kernel.LAUNCHES["greedy_window"]
+    b = port_sched.cluster_mhra(ptasks, peps, pstore, ptm, alpha=0.5,
+                                max_cluster_size=1)
+    assert kernel.LAUNCHES["greedy_window"] == before + 1
+    c = port_sched.cluster_mhra(ptasks, peps, pstore, ptm, alpha=0.5,
+                                max_cluster_size=1, device="cpu")
+    for f in SCHEDULE_FIELDS:
+        assert getattr(a, f) == getattr(b, f) == getattr(c, f), f
+    before = kernel.LAUNCHES["greedy_window"]
+    d = port_sched.cluster_mhra(ptasks, peps, pstore, ptm, alpha=0.5)
+    assert kernel.LAUNCHES["greedy_window"] == before   # clustered: host
+    assert set(d.assignments) == set(b.assignments)
+
+
+@pytest.mark.gpu
+def test_soa_engine_equals_window_kernel(cuda_device):
+    """The reference's soa <=> jax contract inside the port, on the card:
+    one window of single-input tasks through the host SoA engine and
+    through the CUDA window kernel, with the end states."""
+    tasks, eps, store, tm = reference_case(2048, 8, True, nb_max=20.0)
+    ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
+    table = port_sched.PredictionTable(ptasks, peps, pstore)
+    sf1, sf2 = port_sched._normalizers_fast(ptasks, peps, table, ptm)
+    s_host = port_sched.SoAState(peps, ptm)
+    s_card = port_sched.SoAState(peps, ptm)
+    a = port_sched._mhra_soa([[t] for t in ptasks],
+                             [[i] for i in range(len(ptasks))], peps, table,
+                             ptm, 0.5, port_sched.HEURISTICS, sf1, sf2, s_host)
+    before = kernel.LAUNCHES["greedy_window"]
+    b = port_sched.mhra(ptasks, peps, pstore, ptm, 0.5, state=s_card)
+    assert kernel.LAUNCHES["greedy_window"] == before + 1
+    for f in SCHEDULE_FIELDS:
+        assert getattr(a, f) == getattr(b, f), f
+    assert s_host.metrics() == s_card.metrics()
+    assert s_host.cached == s_card.cached
+    np.testing.assert_array_equal(s_host.free, s_card.free)

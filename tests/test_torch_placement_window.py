@@ -111,12 +111,15 @@ def test_empty_window_matches_soa():
 
 
 def test_multi_input_tasks_raise_not_implemented():
+    """A window with a multi-input task, which the fused window cannot
+    express and the port once refused with ``NotImplementedError``, now
+    goes to the SoA engine and equals the reference's soa result."""
     tasks, eps, store, tm = reference_case(14)
-    ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
-    two = ((peps[0].name, 1, 1e8, True), (peps[1].name, 1, 5e7, False))
-    ptasks[3] = port_sched.TaskSpec(id="x", fn=ptasks[3].fn, inputs=two)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_sched.mhra(ptasks, peps, pstore, ptm, device="cpu")
+    two = ((eps[0].name, 1, 1e8, True), (eps[1].name, 1, 5e7, False))
+    tasks[3] = ref_sched.TaskSpec(id="x", fn=tasks[3].fn, inputs=two)
+    a, b = _both(tasks, eps, store, tm, 0.5)
+    assert_schedules_equal(a, b)
+    assert b.timeline["x"][0] > 0.0
 
 
 def test_cpu_window_does_not_launch_kernels():
