@@ -40,6 +40,19 @@ The batch placement path (the first slice):
    with single-task clusters on 384 tasks (one window launch, equal to the
    CPU), and one 32,768-task window placed by the host SoA engine and by
    the window kernel, equal on every field, both timed.
+3c. The four scoring registers armed (carbon, lookahead with per-task hop
+   vectors, warm pool, fairness; snapshots from numpy seeds):
+   ``greedy_window`` bitwise against its plain version on a 4,096-task x
+   32-endpoint x 4-heuristic window with ``not_before`` floors and on
+   384-task windows at 416, 1,600 and 2,176 lanes (each launch plan
+   checked); then two 32,768-task windows, (a) carbon and warm only, (b)
+   all four, each placed by ``mhra(device=None)`` (counts zeroed just
+   before, read just after: one window launch) and by the host SoA
+   engine, equal on every field and ``carbon_g``, with the kernel's ms and
+   us a step, the share of run boundaries (``new_run``) and the seconds of
+   ``window_inputs``; then ``carbon_mhra`` with a diurnal carbon signal and
+   ``lookahead_mhra`` with the DAG view of a 3-level DAG through
+   ``get_policy`` on the card, one launch each, equal to the CPU.
 4. Timing with CUDA events after warm-up, at the main path's shapes.
 
 The zamba2-2.7b serving path (the second slice):
@@ -144,6 +157,17 @@ LARGE_PLANS = {
     600: {"lanes_per_thread": 3, "state_on_chip": False, "operands_on_chip": False},
 }
 LARGE_TASKS = 384
+# phase 3c: fleets whose plans put the lane state and the step operands on
+# and off chip, for the register-armed windows: scaled_testbed(100), 416
+# lanes; (400), 1,600 (the operands in global memory); (540), 2,160
+# endpoints in 2,176 lanes (the lane state too)
+REG_PLANS = {
+    100: {"lanes_per_thread": 1, "state_on_chip": True, "slots_on_chip": False},
+    400: {"lanes_per_thread": 2, "state_on_chip": True, "operands_on_chip": False},
+    540: {"lanes_per_thread": 3, "state_on_chip": False, "operands_on_chip": False},
+}
+REGISTERS = ("carbon", "lookahead", "warm", "fairness")
+USERS = ("alice", "bob", "carol")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12   # device memory rate
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
@@ -343,6 +367,48 @@ def make_tasks(n, src, TaskSpec, SEBS_FUNCTIONS, prefix="t"):
                  inputs=inputs)
         for i in range(n)
     ]
+
+
+def register_snapshots(tasks, eps, seed, which=REGISTERS, floors=False,
+                       n_vectors=64):
+    """Seeded scoring snapshots for ``tasks`` on ``eps``: per-endpoint
+    carbon rates and warm-pool penalties, two indebted users, lookahead
+    weights on a share of the tasks (``tail_w`` on every second, ``out_j``
+    on every third, each of those with one of ``n_vectors`` per-task hop
+    vectors).  Tasks get users, and with ``floors`` one of four
+    ``not_before`` values each.  Returns ``(tasks, mhra keyword dict)``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.carbon import CarbonWeights
+    from repro_torch.core.dag import LookaheadWeights
+    from repro_torch.core.fairness import FairnessWeights
+    from repro_torch.core.faults import WarmWeights
+    rng = np.random.default_rng(seed)
+    n_ep = len(eps)
+    nb = (rng.choice(np.round(rng.uniform(0.0, 20.0, 4), 3), len(tasks))
+          if floors else [t.not_before for t in tasks])
+    tasks = [dataclasses.replace(t, user=USERS[i % len(USERS)],
+                                 not_before=float(nb[i]))
+             for i, t in enumerate(tasks)]
+    pool = [tuple(float(x) for x in rng.uniform(0.5, 3.0, n_ep))
+            for _ in range(n_vectors)]
+    out_ids = [t.id for t in tasks[::3]]
+    snaps = {
+        "carbon": CarbonWeights(
+            tuple(float(x) for x in rng.uniform(0.0, 1e-3, n_ep)), 12.0),
+        "warm": WarmWeights(tuple(float(x) for x in rng.uniform(0.0, 40.0, n_ep)),
+                            tuple(float(x) for x in rng.uniform(0.0, 4.0, n_ep))),
+        "fairness": FairnessWeights({"bob": 2.5, "carol": 0.75}, mu=0.6),
+        "lookahead": LookaheadWeights(
+            tail_w={t.id: float(rng.uniform(0.0, 1.0)) for t in tasks[::2]},
+            out_j={tid: float(rng.uniform(0.0, 50.0)) for tid in out_ids},
+            hops_mean=tuple(float(x) for x in rng.uniform(0.5, 3.0, n_ep)),
+            lam=0.8,
+            hops_task={tid: pool[int(rng.integers(n_vectors))] for tid in out_ids}),
+    }
+    return tasks, {k: snaps[k] for k in which}
 
 
 def bits_equal(a, b) -> bool:
@@ -1241,7 +1307,7 @@ def default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
     tasks = make_tasks(N_TASKS, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS, "x")
     t0 = time.perf_counter()
     table = sched.PredictionTable(tasks, eps, store)
-    sf1, sf2 = sched._normalizers_fast(tasks, eps, table, tm)
+    sf1, sf2, _ = sched._normalizers_fast(tasks, eps, table, tm)
     s_host = sched._mhra_soa([[t] for t in tasks], [[i] for i in range(N_TASKS)],
                              eps, table, tm, 0.5, sched.HEURISTICS, sf1, sf2, None)
     host_s = time.perf_counter() - t0
@@ -1265,6 +1331,225 @@ def default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
             "cross_check": {"tasks": N_TASKS, "endpoints": len(eps),
                             "soa_s": host_s, "mhra_device_s": kernel_s},
             "card": card}
+
+
+def registers_phase(dev, card, sched, eps, store, tm, kernel, ops, counters,
+                    zero_counts) -> dict:
+    """Phase 3c: the window kernel with the four scoring registers armed,
+    against its plain version and against the host SoA engine, and the two
+    policies that build the registers on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.carbon import CarbonIntensitySignal
+    from repro_torch.core.dag import DAGView, LookaheadWeights
+    from repro_torch.core.endpoint import scaled_testbed
+    from repro_torch.core.policy import PolicyContext, get_policy
+    from repro_torch.core.predictor import TaskProfileStore
+    from repro_torch.core.testbed import BASE_PROFILES, SEBS_FUNCTIONS
+    from repro_torch.core.transfer import TransferModel
+    fields = ("assignments", "objective", "energy_j", "makespan_s",
+              "transfer_j", "heuristic", "timeline", "carbon_g")
+    outs = ("ei", "start", "end", "base", "slots", "run", "staged", "hs")
+
+    def packed(tasks, kw, fleet):
+        """window_inputs (timed) and the packed window on the card."""
+        f_eps, f_store, f_tm = fleet
+        t0 = time.perf_counter()
+        table = sched.PredictionTable(tasks, f_eps, f_store)
+        sf1, sf2, sf3 = sched._normalizers_fast(tasks, f_eps, table, f_tm,
+                                                kw.get("carbon"))
+        prep0 = time.perf_counter()
+        n_ep, consts, init, xs, _ = sched.window_inputs(
+            [[t] for t in tasks], [[i] for i in range(len(tasks))], f_eps, table,
+            f_tm, 0.5, sched.HEURISTICS, sf1, sf2, sched.SoAState(f_eps, f_tm),
+            None, dev, sf3=sf3, **kw)
+        prep_s = time.perf_counter() - prep0
+        p, n_units = ops.pack(consts, init, xs, dev)
+        share = float(xs["new_run"].sum()) / (len(sched.HEURISTICS) * n_units)
+        return p, n_ep, n_units, {"window_inputs_s": prep_s,
+                                  "table_and_normalizers_s": prep0 - t0,
+                                  "new_run_share": share,
+                                  "hv_rows": int(p["hv_tab"].shape[0])}
+
+    def against_plain(p, n_ep, n_units, label):
+        out_k = kernel.greedy_window(p, n_ep, n_units)
+        out_p = ops._greedy_scan_plain(p, n_ep, n_units)
+        torch.cuda.synchronize()
+        for k in outs:
+            if not bits_equal(out_k[k], out_p[k]):
+                raise AssertionError(f"greedy_window with registers disagrees with "
+                                     f"the plain version on '{k}' ({label})")
+        return max(max_abs_err(out_k[k], out_p[k])
+                   for k in ("start", "end", "base", "slots", "run", "hs"))
+
+    res = {"card": card, "plain_checks": [], "windows": {}, "policies": {}}
+    fleet = (eps, store, tm)
+    # 1. the kernel against its plain version, every register armed
+    tasks, kw = register_snapshots(
+        make_tasks(CHECK_TASKS, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS, "g"),
+        eps, 40, floors=True)
+    p, n_ep, n_units, info = packed(tasks, kw, fleet)
+    if info["hv_rows"] < 64:
+        raise AssertionError(f"the hop table has {info['hv_rows']} rows")
+    err = against_plain(p, n_ep, n_units, f"{CHECK_TASKS} tasks")
+    pl = kernel.plan(p["base"].shape[2], p["slots"].shape[2], p["staged"].shape[1])
+    res["plain_checks"].append({"tasks": n_units, "endpoints": n_ep, "plan": pl,
+                                "max_abs_err": err, **info})
+    print(f"registers: greedy_window {n_units}x{n_ep}x{len(sched.HEURISTICS)} "
+          f"(carbon, lookahead with {info['hv_rows']} hop rows, warm, fairness, "
+          f"floors): bitwise equal to the plain version; new_run share "
+          f"{info['new_run_share']:.4f}; plan {pl}", flush=True)
+    for replicas, want_plan in REG_PLANS.items():
+        l_eps = scaled_testbed(replicas)
+        l_fleet = (l_eps, seeded_store(l_eps, TaskProfileStore, BASE_PROFILES,
+                                       SEBS_FUNCTIONS), TransferModel(l_eps))
+        tasks, kw = register_snapshots(
+            make_tasks(LARGE_TASKS, l_eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS,
+                       "g"), l_eps, 41, floors=True)
+        p, n_ep_l, n_units_l, info = packed(tasks, kw, l_fleet)
+        E_l = p["base"].shape[2]
+        pl = kernel.plan(E_l, p["slots"].shape[2], p["staged"].shape[1])
+        if any(pl[k] != v for k, v in want_plan.items()):
+            raise AssertionError(f"greedy_window at {n_ep_l} endpoints planned {pl}, "
+                                 f"expected {want_plan}")
+        err = against_plain(p, n_ep_l, n_units_l, f"{n_ep_l} endpoints")
+        ms_l = cuda_ms(lambda: kernel.greedy_window(p, n_ep_l, n_units_l), reps=3,
+                       warmup=1)
+        res["plain_checks"].append({"tasks": n_units_l, "endpoints": n_ep_l,
+                                    "lanes": E_l, "plan": pl, "max_abs_err": err,
+                                    "ms": ms_l, "us_per_step": ms_l * 1e3 / n_units_l,
+                                    **info})
+        print(f"registers: greedy_window {n_units_l}x{n_ep_l} (E={E_l}): bitwise "
+              f"equal to the plain version; {ms_l:.6g} ms, "
+              f"{ms_l * 1e3 / n_units_l:.4g} us a step; new_run share "
+              f"{info['new_run_share']:.4f}; plan {pl} [{card}]", flush=True)
+    del p
+
+    # 2. full-size windows: (a) carbon and warm (the run keys of phase 2),
+    # (b) all four; each through mhra(device=None) and the host SoA engine
+    H = len(sched.HEURISTICS)
+    for variant, which in (("a", ("carbon", "warm")), ("b", REGISTERS)):
+        tasks, kw = register_snapshots(
+            make_tasks(N_TASKS, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS,
+                       f"w{variant}"), eps, 42, which=which)
+        p, n_ep, n_units, info = packed(tasks, kw, fleet)
+        gw_ms = cuda_ms(lambda: kernel.greedy_window(p, n_ep, n_units), reps=3,
+                        warmup=1)
+        n_new_run = int(p["xs_i"][:, 4].sum())
+        in_bytes = sum(v.numel() * v.element_size() for v in p.values())
+        out_bytes = sum(v.numel() * v.element_size()
+                        for v in kernel.greedy_window(p, n_ep, n_units).values())
+        C = p["slots"].shape[2]
+        # the FP64 operations of phase 4's count, the run boundaries of this
+        # window; the register terms add ~25 a lane to each full pass
+        w_ops = (H * n_units * (13 * n_ep + 35 + 2 * C)
+                 + n_new_run * (55 * n_ep + 2 * n_ep))
+        bound = max((in_bytes + out_bytes) / HBM_BYTES_PER_S,
+                    w_ops / FP64_FLOPS) * 1e3
+        del p
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        s_card = sched.mhra(tasks, eps, store, tm, 0.5, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = {k: v for c in counters for k, v in c.items()}
+        if counts["greedy_window"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"register window ({variant}) launched {counts}")
+        t0 = time.perf_counter()
+        table = sched.PredictionTable(tasks, eps, store)
+        sf1, sf2, sf3 = sched._normalizers_fast(tasks, eps, table, tm,
+                                                kw.get("carbon"))
+        s_host = sched._mhra_soa([[t] for t in tasks],
+                                 [[i] for i in range(len(tasks))], eps, table, tm,
+                                 0.5, sched.HEURISTICS, sf1, sf2, None, sf3=sf3, **kw)
+        host_s = time.perf_counter() - t0
+        for f in fields:
+            if getattr(s_host, f) != getattr(s_card, f):
+                raise AssertionError(f"register window ({variant}): the host SoA "
+                                     f"engine and the window kernel differ on {f}")
+        if s_card.carbon_g is None or not np.isfinite(s_card.carbon_g):
+            raise AssertionError(f"register window ({variant}): no carbon_g")
+        res["windows"][variant] = {
+            "registers": list(which), "tasks": n_units, "endpoints": n_ep,
+            "kernel_ms": gw_ms, "us_per_step": gw_ms * 1e3 / n_units,
+            "new_run_steps": n_new_run, "bound_ms": bound,
+            "mhra_device_s": card_s, "soa_s": host_s, "launches": counts,
+            "carbon_g": s_card.carbon_g, "heuristic": s_card.heuristic, **info}
+        print(f"registers ({variant}: {', '.join(which)}) {n_units}x{n_ep}x{H}: "
+              f"kernel {gw_ms:.6g} ms, {gw_ms * 1e3 / n_units:.4g} us a step, "
+              f"new_run share {info['new_run_share']:.4f} ({n_new_run} steps), "
+              f"bound {bound * 1e3:.3f} us; window_inputs "
+              f"{info['window_inputs_s']:.3f} s; mhra(device=None) {card_s:.3f} s "
+              f"(one launch), host SoA engine {host_s:.3f} s, equal on "
+              f"{', '.join(fields)} [{card}]", flush=True)
+
+    # 3. the two policies that build registers, through get_policy
+    names = [e.name for e in eps]
+    signal = CarbonIntensitySignal.diurnal(names, seed=5)
+    tasks = make_tasks(2048, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS, "cp")
+    devs = {"card": dev, "cpu": torch.device("cpu")}
+    ctx = {k: PolicyContext(eps, store, tm, 0.5, carbon=signal, now=30_000.0,
+                            device=d) for k, d in devs.items()}
+    # a 3-level DAG: roots, three children each and a join per root; the
+    # first half of the roots completed, their children ready with the
+    # parent's output as their one input
+    rng = np.random.default_rng(6)
+    runtime = {fn: float(np.mean([store.predict(fn, n).runtime_s for n in names]))
+               for fn in SEBS_FUNCTIONS}
+    dag = DAGView(runtime.__getitem__)
+    roots, ready = [], []
+    for r in range(256):
+        root = sched.TaskSpec(id=f"r{r}", fn=SEBS_FUNCTIONS[r % 7])
+        kids = [sched.TaskSpec(id=f"r{r}c{k}", fn=SEBS_FUNCTIONS[(r + k + 1) % 7],
+                               deps=(root.id,),
+                               dep_bytes=float(rng.uniform(1e7, 4e8)))
+                for k in range(3)]
+        join = sched.TaskSpec(id=f"r{r}j", fn=SEBS_FUNCTIONS[(r + 5) % 7],
+                              deps=tuple(k.id for k in kids),
+                              dep_bytes=float(rng.uniform(1e7, 2e8)))
+        for t in (root, *kids, join):
+            dag.add_task(t)
+        roots.append((root, kids))
+    for r, (root, kids) in enumerate(roots[:128]):
+        ep, t_end = names[r % len(names)], 10.0 + r % 7
+        dag.complete(root.id, ep, t_end)
+        ready += [dataclasses.replace(k, deps=(), not_before=t_end,
+                                      inputs=((ep, 1, k.dep_bytes, False),))
+                  for k in kids]
+    batch = [root for root, _ in roots[128:]] + ready
+    lk = LookaheadWeights.from_dag(dag, batch, eps, tm, 1.0, store=store,
+                                   producer_aware=True)
+    if lk is None or not lk.hops_task:
+        raise AssertionError("the DAG view gave no producer-aware lookahead")
+    lctx = {k: PolicyContext(eps, store, tm, 0.5, dag=dag, device=d)
+            for k, d in devs.items()}
+    for name, pol_kw, p_tasks, pctx in (
+            ("carbon_mhra", {}, tasks, ctx),
+            ("lookahead_mhra", {"producer_aware": True}, batch, lctx)):
+        policy = get_policy(name, **pol_kw)
+        zero_counts()
+        t0 = time.perf_counter()
+        s_card = policy.place(p_tasks, pctx["card"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = {k: v for c in counters for k, v in c.items()}
+        s_cpu = policy.place(p_tasks, pctx["cpu"])
+        if counts["greedy_window"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"{name} launched {counts}")
+        for f in fields:
+            if getattr(s_card, f) != getattr(s_cpu, f):
+                raise AssertionError(f"{name} on the card differs from the CPU on {f}")
+        res["policies"][name] = {"tasks": len(p_tasks), "place_s": card_s,
+                                 "launches": counts, "carbon_g": s_card.carbon_g,
+                                 "heuristic": s_card.heuristic}
+        print(f"{name} {len(p_tasks)}x{len(eps)} through get_policy on the card: "
+              f"one greedy_window launch, card == CPU ({', '.join(fields)}); "
+              f"place {card_s:.3f} s [{card}]", flush=True)
+    return res
 
 
 def main() -> int:
@@ -1370,7 +1655,7 @@ def main() -> int:
         f_eps, f_store, f_tm = fleet
         tasks = make_tasks(n_tasks, f_eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS)
         table = sched.PredictionTable(tasks, f_eps, f_store)
-        sf1, sf2 = sched._normalizers_fast(tasks, f_eps, table, f_tm)
+        sf1, sf2, _ = sched._normalizers_fast(tasks, f_eps, table, f_tm)
         units = [[t] for t in tasks]
         idx = [[i] for i in range(n_tasks)]
         n_ep, consts, init, xs, _ = sched.window_inputs(
@@ -1515,6 +1800,11 @@ def main() -> int:
                                SEBS_FUNCTIONS, kernel, counters, zero_counts)
     print(json.dumps({"default_executor": default}), flush=True)
 
+    # ---- 3c. the four scoring registers armed ------------------------------
+    registers = registers_phase(dev, card, sched, eps, store, tm, kernel, ops,
+                                counters, zero_counts)
+    print(json.dumps({"registers": registers}), flush=True)
+
     # ---- 4. timing ------------------------------------------------------
     p_full, n_ep, n_units_full = windows[N_TASKS]
     p_chk, _, n_units = windows[CHECK_TASKS]
@@ -1572,7 +1862,10 @@ def main() -> int:
          "ms": gw_ms, "plain_ms": plain_ms[N_TASKS],
          "bound_ms": max(gw_bound_bytes, gw_bound_ops),
          "bound_by": "bytes" if gw_bound_bytes >= gw_bound_ops else "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "registers_armed": {v: {k: w[k] for k in ("kernel_ms", "us_per_step",
+                                                  "new_run_share", "bound_ms")}
+                             for v, w in registers["windows"].items()}},
     ]
     standalone = [
         {"name": "score_fleet", "route": "cuda", "source": CU_SOURCE,

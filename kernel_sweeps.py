@@ -222,7 +222,7 @@ def window_sweep(card, parent, others, unchecked):
         tm = TransferModel(eps)
         tasks = cs.make_tasks(n_tasks, eps[0].name, sched.TaskSpec, SEBS_FUNCTIONS)
         table = sched.PredictionTable(tasks, eps, store)
-        sf1, sf2 = sched._normalizers_fast(tasks, eps, table, tm)
+        sf1, sf2, _ = sched._normalizers_fast(tasks, eps, table, tm)
         n_ep, consts, init, xs, _ = sched.window_inputs(
             [[t] for t in tasks], [[i] for i in range(n_tasks)], eps, table, tm, 0.5,
             sched.HEURISTICS, sf1, sf2, sched.SoAState(eps, tm), None, dev)

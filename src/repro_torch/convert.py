@@ -2,8 +2,9 @@
 
 Every function reads its argument by attribute, or takes plain numpy
 arrays (it never imports the JAX package), so the parity tests can hand
-the reference's endpoints, tasks, profile store, live state, model
-parameters and serving caches to the port and compare like with like.
+the reference's endpoints, tasks, profile store, live state, scoring
+snapshots and their sources, model parameters and serving caches to the
+port and compare like with like.
 """
 from __future__ import annotations
 
@@ -13,7 +14,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.carbon import (
+    CarbonIntensitySignal,
+    CarbonTrace,
+    CarbonWeights,
+)
+from repro_torch.core.dag import DAGView, LookaheadWeights
 from repro_torch.core.endpoint import EndpointSpec
+from repro_torch.core.fairness import FairnessLedger, FairnessWeights, FairShare
+from repro_torch.core.faults import FaultTrace, WarmWeights
 from repro_torch.core.predictor import RunningStat, TaskProfileStore
 from repro_torch.core.scheduler import SoAState, TaskSpec
 from repro_torch.models.common import ParamSpec, Params
@@ -57,6 +66,76 @@ def soa_state(state, eps, transfer) -> SoAState:
     out.transfer_j = float(state.transfer_j)
     out.cached = set(state.cached)
     out.timeline = dict(state.timeline)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The scoring registers' snapshots and the objects they are taken from
+# ---------------------------------------------------------------------------
+
+
+def carbon_weights(w) -> CarbonWeights:
+    return CarbonWeights(tuple(float(r) for r in w.rates), float(w.gamma))
+
+
+def carbon_signal(sig) -> CarbonIntensitySignal:
+    """A carbon signal with the reference's traces (breakpoints, values,
+    period) and endpoint→region map."""
+    traces = {
+        name: CarbonTrace(np.array(t.times, dtype=np.float64),
+                          np.array(t.gco2_per_kwh, dtype=np.float64),
+                          t.period_s)
+        for name, t in sig.traces.items()
+    }
+    return CarbonIntensitySignal(traces, regions=dict(sig.regions))
+
+
+def lookahead_weights(w) -> LookaheadWeights:
+    ht = None if w.hops_task is None else {
+        k: tuple(float(x) for x in v) for k, v in w.hops_task.items()}
+    return LookaheadWeights(dict(w.tail_w), dict(w.out_j),
+                            tuple(float(x) for x in w.hops_mean),
+                            float(w.lam), ht)
+
+
+def dag_view(calls, runtime=None, prune: bool = True) -> DAGView:
+    """A DAG view built by replaying a recorded call sequence:
+    ``("add_task", task)`` (the task read by attribute) or
+    ``("complete", task_id, endpoint, t_end)``, in the order the
+    reference's view received them."""
+    view = DAGView(runtime, prune=prune)
+    for call in calls:
+        if call[0] == "add_task":
+            view.add_task(tasks([call[1]])[0])
+        elif call[0] == "complete":
+            view.complete(call[1], call[2], float(call[3]))
+        else:
+            raise ValueError(f"unknown DAG view call {call[0]!r}")
+    return view
+
+
+def warm_weights(w) -> WarmWeights:
+    return WarmWeights(tuple(w.cold_j), tuple(w.cold_s))
+
+
+def fault_trace(f) -> FaultTrace:
+    return FaultTrace({k: tuple(tuple(iv) for iv in v) for k, v in f.down.items()},
+                      float(f.straggler_p), float(f.straggler_factor), int(f.seed))
+
+
+def fairness_weights(w) -> FairnessWeights:
+    return FairnessWeights({u: float(d) for u, d in w.debt.items()}, float(w.mu))
+
+
+def fairness_ledger(ledger) -> FairnessLedger:
+    """A ledger with the reference's share, epoch, weights and accounts."""
+    names = [f.name for f in dataclasses.fields(FairShare)]
+    share = ledger.share
+    out = FairnessLedger(FairShare(**{n: getattr(share, n) for n in names}))
+    out._epoch = int(ledger._epoch)
+    out._w = dict(ledger._w)
+    out._acct = {u: [float(a[0]), float(a[1]), int(a[2])]
+                 for u, a in ledger._acct.items()}
     return out
 
 

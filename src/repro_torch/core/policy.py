@@ -25,7 +25,11 @@ from typing import ClassVar, Sequence
 import torch
 
 from repro_torch.core import scheduler as sched
+from repro_torch.core.carbon import CarbonIntensitySignal, CarbonWeights
+from repro_torch.core.dag import DAGView, LookaheadWeights
 from repro_torch.core.endpoint import EndpointSpec
+from repro_torch.core.fairness import FairnessWeights
+from repro_torch.core.faults import WarmWeights
 from repro_torch.core.predictor import TaskProfileStore
 from repro_torch.core.scheduler import Schedule, SoAState, TaskSpec
 from repro_torch.core.transfer import TransferModel
@@ -39,17 +43,32 @@ class PolicyContext:
     joules; ``alpha`` weights energy vs makespan (``alpha=1`` is pure
     energy).  Policies may *query* the store and transfer model but must
     not record into them — learning is the executor's job after
-    execution.  ``alive`` is a per-endpoint up/down mask (dead endpoints
-    are excluded from candidate scoring).  ``device`` is where the fused
-    window greedy runs (a resolved ``torch.device``).  The carbon, DAG,
-    warm-pool and fairness snapshots of the reference's context come with
-    the registers that read them (ROADMAP.md queue 1 item 2).
+    execution.
+
+    ``carbon``/``now`` describe the grid when the batch is placed:
+    carbon-aware policies snapshot per-endpoint g/J rates from the signal
+    at ``now``.  ``dag`` is the live planning graph
+    (:class:`~repro_torch.core.dag.DAGView`) lookahead policies snapshot
+    per-task weights from.  ``alive`` is a per-endpoint up/down mask (dead
+    endpoints are excluded from candidate scoring), ``warm`` a
+    :class:`~repro_torch.core.faults.WarmWeights` expected-cold-start
+    penalty and ``fairness`` a
+    :class:`~repro_torch.core.fairness.FairnessWeights` debt snapshot,
+    which the MHRA-family policies fold into candidate scoring.  Each
+    defaults to None, which leaves every scoring path as without it.
+    ``device`` is where the fused window greedy runs (a resolved
+    ``torch.device``).
     """
     endpoints: Sequence[EndpointSpec]
     store: TaskProfileStore
     transfer: TransferModel
     alpha: float = 0.5
+    carbon: CarbonIntensitySignal | None = None
+    now: float = 0.0
+    dag: DAGView | None = None
     alive: tuple | None = None
+    warm: WarmWeights | None = None
+    fairness: FairnessWeights | None = None
     device: torch.device | None = None
 
 
@@ -95,25 +114,11 @@ def available_policies() -> list[str]:
     return sorted(_REGISTRY)
 
 
-#: Policies of the reference that the port does not have yet, with the
-#: ROADMAP item that ports them: both need the main path's registers.
-NOT_YET_PORTED = {
-    "carbon_mhra": "ROADMAP.md queue 1 item 2 (the main path's four registers)",
-    "lookahead_mhra": "ROADMAP.md queue 1 item 2 (the main path's four registers)",
-}
-
-
 def get_policy(name: str, **kwargs) -> PlacementPolicy:
-    """Instantiate a registered policy by name (kwargs -> constructor).
-    A policy of the reference that the port does not have yet raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    """Instantiate a registered policy by name (kwargs -> constructor)."""
     try:
         cls = _REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"policy {name!r} is not ported yet ({NOT_YET_PORTED[name]}); "
-                f"available: {available_policies()}") from None
         raise ValueError(
             f"unknown policy {name!r}; available: {available_policies()}"
         ) from None
@@ -134,7 +139,74 @@ class MHRAPolicy(PlacementPolicy):
         return sched.mhra(
             tasks, ctx.endpoints, ctx.store, ctx.transfer, ctx.alpha,
             self.heuristics, alive=ctx.alive, state=state,
-            device=ctx.device,
+            device=ctx.device, warm=ctx.warm, fairness=ctx.fairness,
+        )
+
+
+@register_policy
+class CarbonMHRAPolicy(PlacementPolicy):
+    """MHRA scoring carbon-adjusted energy: the objective gains a
+    ``gamma * gCO2/SF3`` term with per-endpoint g/J rates snapshotted
+    from ``ctx.carbon`` at ``ctx.now``, so placements chase low-carbon
+    grids.  Without a signal in the context it is plain MHRA."""
+
+    name = "carbon_mhra"
+
+    def __init__(self, heuristics: Sequence[str] = sched.HEURISTICS,
+                 gamma: float = 1.0):
+        self.heuristics = tuple(heuristics)
+        if gamma < 0:
+            raise ValueError(f"gamma must be non-negative, got {gamma}")
+        self.gamma = gamma
+
+    def place(self, tasks, ctx, state=None):
+        carbon = None
+        if ctx.carbon is not None:
+            carbon = CarbonWeights.from_signal(
+                ctx.carbon, ctx.endpoints, ctx.now, self.gamma
+            )
+        return sched.mhra(
+            tasks, ctx.endpoints, ctx.store, ctx.transfer, ctx.alpha,
+            self.heuristics, alive=ctx.alive, state=state,
+            device=ctx.device, carbon=carbon, warm=ctx.warm,
+            fairness=ctx.fairness,
+        )
+
+
+@register_policy
+class LookaheadMHRAPolicy(PlacementPolicy):
+    """MHRA over the planning graph: candidates are scored with two extra
+    DAG-aware terms snapshotted from ``ctx.dag`` — rank weighting (each
+    task's candidate finish time weighted by its normalized downstream
+    criticality) and data gravity (a producer is charged the expected
+    escape cost of the bytes its children will pull).  ``lam`` scales
+    both (0 = plain MHRA); ``producer_aware`` prices that escape at the
+    hop distance to the children's predicted endpoints instead of the
+    fleet mean.  A batch with no downstream structure places as plain
+    MHRA.  The reported objective stays the unshaped one."""
+
+    name = "lookahead_mhra"
+
+    def __init__(self, heuristics: Sequence[str] = sched.HEURISTICS,
+                 lam: float = 1.0, producer_aware: bool = False):
+        self.heuristics = tuple(heuristics)
+        if lam < 0:
+            raise ValueError(f"lam must be non-negative, got {lam}")
+        self.lam = lam
+        self.producer_aware = producer_aware
+
+    def place(self, tasks, ctx, state=None):
+        lookahead = None
+        if ctx.dag is not None:
+            lookahead = LookaheadWeights.from_dag(
+                ctx.dag, tasks, ctx.endpoints, ctx.transfer, self.lam,
+                store=ctx.store, producer_aware=self.producer_aware,
+            )
+        return sched.mhra(
+            tasks, ctx.endpoints, ctx.store, ctx.transfer, ctx.alpha,
+            self.heuristics, alive=ctx.alive, state=state,
+            device=ctx.device, lookahead=lookahead, warm=ctx.warm,
+            fairness=ctx.fairness,
         )
 
 
@@ -154,7 +226,8 @@ class ClusterMHRAPolicy(PlacementPolicy):
         return sched.cluster_mhra(
             tasks, ctx.endpoints, ctx.store, ctx.transfer, ctx.alpha,
             self.heuristics, self.max_cluster_size, alive=ctx.alive,
-            state=state, device=ctx.device,
+            state=state, device=ctx.device, warm=ctx.warm,
+            fairness=ctx.fairness,
         )
 
 

@@ -20,14 +20,20 @@ window's shape alone, as the reference's jax engine does:
     child, one transfer per parent) -- runs through the SoA engine
     (:func:`_mhra_soa` / :func:`_greedy_soa`) on the host in NumPy.
 
-Both give placements, objective, energy, makespan, transfer and timeline
-bitwise equal to the reference's SoA engine.  A failure of the kernel is
-never caught and retried on the host.
+Both give placements, objective, energy, makespan, transfer, timeline and
+``carbon_g`` bitwise equal to the reference's SoA engine.  A failure of
+the kernel is never caught and retried on the host.
 
-The carbon, lookahead, fairness and warm-pool registers are not built
-yet: the fused window takes them as zero registers with zero weights
-(bitwise inert), and the SoA engine carries only the branches where they
-are absent.
+Four optional scoring registers shape every candidate score, each a
+frozen per-call snapshot: ``carbon`` (:class:`~repro_torch.core.carbon.
+CarbonWeights`, a ``gamma * gCO2/SF3`` objective term), ``lookahead``
+(:class:`~repro_torch.core.dag.LookaheadWeights`, rank-weighted finish
+times plus data-gravity credits), ``warm`` (:class:`~repro_torch.core.
+faults.WarmWeights`, an expected cold-start penalty) and ``fairness``
+(:class:`~repro_torch.core.fairness.FairnessWeights`, the advantage tax of
+indebted users).  Lookahead and fairness join the run-memoization key.
+In the fused window an absent register enters as zeros with zero weights
+(bitwise inert); the SoA engine takes its register-free branches.
 """
 from __future__ import annotations
 
@@ -37,8 +43,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from repro_torch.core.carbon import CarbonWeights
 from repro_torch.core.clustering import agglomerative_cluster
+from repro_torch.core.dag import LookaheadWeights
 from repro_torch.core.endpoint import EndpointSpec
+from repro_torch.core.fairness import FairnessWeights
+from repro_torch.core.faults import WarmWeights
 from repro_torch.core.predictor import Prediction, TaskProfileStore
 from repro_torch.core.transfer import E_INC_J_PER_BYTE, TransferModel
 from repro_torch.device import resolve_device
@@ -84,9 +94,19 @@ class Schedule:
     transfer_j: float
     heuristic: str = ""
     timeline: dict[str, tuple[float, float]] = dataclasses.field(default_factory=dict)
+    carbon_g: float | None = None   # scoring-time gCO2 estimate (carbon runs)
 
     def edp(self) -> float:
         return self.energy_j * self.makespan_s
+
+    def w_ed2p(self) -> float:
+        return self.energy_j * self.makespan_s ** 2
+
+    def cdp(self) -> float | None:
+        """Carbon-delay product gCO2*s (None outside carbon-aware runs)."""
+        if self.carbon_g is None:
+            return None
+        return self.carbon_g * self.makespan_s
 
 
 HEURISTICS = (
@@ -259,6 +279,37 @@ class SoAState:
         return e_tot, c_max, self.transfer_j
 
 
+def _carbon_terms_g(eps, first, last, dyn, rates, c_max) -> float:
+    """Carbon-adjusted endpoint energy in gCO2: each endpoint's share of
+    E_tot (idle span / always-on idle + startup + dynamic) weighted by its
+    g/J rate.  Transfer energy is excluded (its grid locus is ambiguous)."""
+    g = 0.0
+    for j, ep in enumerate(eps):
+        w = rates[j]
+        f = first[j]
+        if f is None:
+            if not ep.has_batch_scheduler:
+                g += w * (ep.idle_power_w * c_max)
+            continue
+        if ep.has_batch_scheduler:
+            g += w * (ep.idle_power_w * (last[j] - f) + ep.startup_energy_j
+                      + dyn[j])
+        else:
+            g += w * (ep.idle_power_w * c_max + dyn[j])
+    return g
+
+
+def state_carbon_g(state: SoAState, rates) -> float:
+    """gCO2 of a committed scheduling state under per-endpoint g/J
+    ``rates`` (aligned with ``state.eps``); see :func:`_carbon_terms_g`."""
+    c_max = max(float(state.last.max(initial=0.0)), 0.0)
+    first = [None if state.first[i] == np.inf else float(state.first[i])
+             for i in range(len(state.eps))]
+    last = [float(v) for v in state.last]
+    dyn = [float(v) for v in state.dyn]
+    return _carbon_terms_g(state.eps, first, last, dyn, rates, c_max)
+
+
 class PredictionTable:
     """Per-(task, endpoint) predictions as numpy arrays.
 
@@ -342,14 +393,16 @@ def _sort_order(key: str, table: PredictionTable, unit_indices) -> np.ndarray:
     raise ValueError(key)
 
 
-def _normalizers_fast(tasks, endpoints, table: PredictionTable,
-                      transfer) -> tuple[float, float]:
+def _normalizers_fast(tasks, endpoints, table: PredictionTable, transfer,
+                      carbon=None) -> tuple[float, float, float]:
     """SF1/SF2: pessimistic all-on-one-endpoint estimates, with the
-    sequential float sequence of a single-endpoint ``metrics()``."""
+    sequential float sequence of a single-endpoint ``metrics()``.  With
+    ``carbon`` given, SF3 is the matching pessimistic carbon estimate (all
+    tasks on the endpoint, weighted by its own g/J rate); else 1e-9."""
     heappop, heappush = heapq.heappop, heapq.heappush
     n = len(tasks)
     nbs = [t.not_before for t in tasks]
-    sf1 = sf2 = 0.0
+    sf1 = sf2 = sf3 = 0.0
     for ei, ep in enumerate(endpoints):
         name = ep.name
         # transfer delta of the whole workload as one unit, fresh cache
@@ -402,7 +455,28 @@ def _normalizers_fast(tasks, endpoints, table: PredictionTable,
                 e += ep.idle_power_w * c
             e += dyn
         sf1, sf2 = max(sf1, e), max(sf2, c)
-    return max(sf1, 1e-9), max(sf2, 1e-9)
+        if carbon is not None:
+            # single-endpoint _carbon_terms_g, same expression grouping
+            w = carbon.rates[ei]
+            if first is None:
+                g = w * (ep.idle_power_w * c) if not ep.has_batch_scheduler else 0.0
+            elif ep.has_batch_scheduler:
+                g = w * (ep.idle_power_w * (last - first)
+                         + ep.startup_energy_j + dyn)
+            else:
+                g = w * (ep.idle_power_w * c + dyn)
+            sf3 = max(sf3, g)
+    return max(sf1, 1e-9), max(sf2, 1e-9), max(sf3, 1e-9)
+
+
+def _warm_terms(warm: WarmWeights, alpha: float, sf1: float, sf2: float):
+    """Per-endpoint warm-pool penalty added (last) to every candidate
+    score: expected cold-start energy and latency normalized like the base
+    objective terms, constant within a call."""
+    return [
+        alpha * cj / sf1 + (1 - alpha) * cs / sf2
+        for cj, cs in zip(warm.cold_j, warm.cold_s)
+    ]
 
 
 def mhra(
@@ -416,6 +490,10 @@ def mhra(
     alive: Sequence[bool] | None = None,
     state: SoAState | None = None,
     device=None,
+    carbon: CarbonWeights | None = None,
+    lookahead: LookaheadWeights | None = None,
+    warm: WarmWeights | None = None,
+    fairness: FairnessWeights | None = None,
 ) -> Schedule:
     """Multi-Heuristic Resource Allocation over one window.  With
     ``clusters`` given (lists of task indices), this is Cluster MHRA's
@@ -427,10 +505,30 @@ def mhra(
     means the CUDA card and raises when there is none; ``device="cpu"``
     runs the fused window's plain PyTorch version.  Which engine places
     the window follows from its shape alone (module docstring).
+
+    ``carbon`` adds ``gamma * G/SF3`` to the objective, G the
+    carbon-adjusted endpoint energy (gCO2) under the snapshot's g/J rates;
+    the reported objective includes it and ``Schedule.carbon_g`` holds G.
+    ``lookahead`` adds the DAG-aware shaping term to every *candidate*
+    score (the reported objective stays the unshaped one); ``warm`` adds
+    each endpoint's expected cold-start penalty; ``fairness`` charges an
+    indebted user's task ``mu * debt`` times the advantage a candidate
+    offers over the fleet-mean prediction.  ``None`` (the default) leaves
+    every float sequence as without the register.
     """
     dev = resolve_device(device)
     if not heuristics:
         raise ValueError("mhra requires at least one ordering heuristic")
+    if carbon is not None and len(carbon.rates) != len(endpoints):
+        raise ValueError(
+            f"carbon weights cover {len(carbon.rates)} endpoints but the "
+            f"fleet has {len(endpoints)}"
+        )
+    if lookahead is not None and len(lookahead.hops_mean) != len(endpoints):
+        raise ValueError(
+            f"lookahead weights cover {len(lookahead.hops_mean)} endpoints "
+            f"but the fleet has {len(endpoints)}"
+        )
     if alive is not None:
         alive = tuple(bool(a) for a in alive)
         if len(alive) != len(endpoints):
@@ -442,31 +540,46 @@ def mhra(
             raise ValueError("alive mask excludes every endpoint")
         if all(alive):
             alive = None   # no-op mask
+    if warm is not None and len(warm.cold_j) != len(endpoints):
+        raise ValueError(
+            f"warm weights cover {len(warm.cold_j)} endpoints but the "
+            f"fleet has {len(endpoints)}"
+        )
+    if fairness is not None and (not fairness.debt or fairness.mu == 0.0):
+        fairness = None   # no-op snapshot
     tasks = list(tasks)
     table = PredictionTable(tasks, endpoints, store)
     if clusters is None:
         units = [[t] for t in tasks]
     else:
         units = [[tasks[i] for i in c] for c in clusters]
-    sf1, sf2 = _normalizers_fast(tasks, endpoints, table, transfer)
+    sf1, sf2, sf3 = _normalizers_fast(tasks, endpoints, table, transfer,
+                                      carbon)
     unit_indices = [[table.index[t.id] for t in u] for u in units]
+    regs = dict(carbon=carbon, sf3=sf3, lookahead=lookahead, alive=alive,
+                warm=warm, fairness=fairness)
     if (not units) or any(len(u) != 1 or len(u[0].inputs) > 1 for u in units):
         return _mhra_soa(units, unit_indices, endpoints, table, transfer,
-                         alpha, heuristics, sf1, sf2, state, alive)
+                         alpha, heuristics, sf1, sf2, state, **regs)
     return _mhra_fused(units, unit_indices, endpoints, table, transfer,
-                       alpha, heuristics, sf1, sf2, state, alive, dev)
+                       alpha, heuristics, sf1, sf2, state, dev, **regs)
 
 
 def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
-                  heuristics, sf1, sf2, base, alive, device):
+                  heuristics, sf1, sf2, base, alive, device, carbon=None,
+                  sf3=1.0, lookahead=None, warm=None, fairness=None):
     """Host prep of one window: ``(n_ep, consts, init, xs, aux)`` for
     :func:`~repro_torch.kernels.placement.ops.greedy_window`, plus what
     the winner selection needs (``aux``).
 
     Every scalar and register is the same host numpy expression as the
     reference's SoA greedy, so every double entering the kernel is the
-    same.  The carbon, lookahead, fairness and warm registers enter as
-    zeros with zero weights.
+    same.  The carbon and warm registers are per-lane constants; the
+    lookahead weights (``u_tw``, ``u_oj``, a per-task row of the hop
+    table ``hv_tab``) and the fairness debt (``u_fd``) are per-task
+    streams that join the run key, so ``new_run`` falls where the SoA
+    engine's memo misses.  An absent register enters as zeros with zero
+    weights.
     """
     from repro_torch.kernels.placement import ops as pops
 
@@ -486,18 +599,31 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
     const0 = np.where(bt_mask & used, idle * span0 + su, 0.0) + base.dyn
     a1 = alpha / sf1
     b1 = (1.0 - alpha) / sf2
-    # carbon / lookahead / fairness / warm: zero registers, zero weights
-    rates_v = np.zeros(n_ep)
-    g1 = 0.0
-    w_idle_on = 0.0
+    if carbon is not None:
+        rates_v = np.asarray(carbon.rates, dtype=float)
+        g1 = carbon.gamma / sf3
+        w_idle_on = float((rates_v * idle)[~bt_mask].sum())
+    else:
+        rates_v = np.zeros(n_ep)
+        g1 = 0.0
+        w_idle_on = 0.0
     const_g0 = rates_v * const0
-    hm_vec = np.zeros(n_ep)
-    lam = 0.0
-    lam_b1 = lam * b1
+    if lookahead is not None:
+        lk_tail, lk_out = lookahead.tail_w, lookahead.out_j
+        lk_ht = lookahead.hops_task
+        hm_vec = np.asarray(lookahead.hops_mean, dtype=float)
+        lam = lookahead.lam
+    else:
+        lk_tail = lk_out = lk_ht = None
+        hm_vec = np.zeros(n_ep)
+        lam = 0.0
+    lam_b1 = lam * b1   # lk_c1 = (lam*b1)*u_tw, the SoA engine's grouping
     lam_a1 = lam * a1
-    f_mu = 0.0
+    fdebt = fairness.debt if fairness is not None else None
+    f_mu = fairness.mu if fairness is not None else 0.0
     f_beta = 1.0 - alpha
-    wt_v = np.zeros(n_ep)
+    wt_v = (np.asarray(_warm_terms(warm, alpha, sf1, sf2))
+            if warm is not None else np.zeros(n_ep))
     alive_v = (np.ones(n_ep, dtype=bool) if alive is None
                else np.asarray(alive, dtype=bool))
 
@@ -563,7 +689,6 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
     last0 = padv(base.last)
     dyn0 = padv(base.dyn)
 
-    hm_p = padv(hm_vec)
     rtT, enT = table.transposed()
     en_mean, rt_mean = table.en_mean, table.rt_mean
 
@@ -589,18 +714,57 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
                          count=n_units)
     nb_all = np.empty(n_units)
     sig_all = np.zeros(n_units, dtype=np.int32)
+    u_tw_all = np.zeros(n_units)
+    u_oj_all = np.zeros(n_units)
+    u_fd_all = np.zeros(n_units)
     gid_all = np.empty(n_units, dtype=np.int64)
     key_ids: dict = {}
+    # hop-vector table: row 0 is the fleet mean; producer-aware tasks get
+    # their own (deduplicated) rows, indexed per task by ``hv_id``
+    hv_rows = [padv(hm_vec)]
+    hv_ids: dict = {}
+    hv_id_all = np.zeros(n_units, dtype=np.int32)
     tasks0 = [u[0] for u in units]
-    # run keys (fn, inputs, not_before): equal keys share one run basis
-    key_list = [(t.fn, t.inputs, t.not_before) for t in tasks0]
-    nb_all[:] = [k[2] for k in key_list]
-    kid = key_ids.setdefault
-    gid_all[:] = [kid(k, len(key_ids)) for k in key_list]
-    if sig_index:
-        sidx = sig_index.get
-        sig_all[:] = [sidx(t.inputs[0], 0) if t.inputs else 0
-                      for t in tasks0]
+    if lk_tail is None and fdebt is None:
+        # run keys (fn, inputs, not_before): equal keys share one run basis
+        key_list = [(t.fn, t.inputs, t.not_before) for t in tasks0]
+        nb_all[:] = [k[2] for k in key_list]
+        kid = key_ids.setdefault
+        gid_all[:] = [kid(k, len(key_ids)) for k in key_list]
+        if sig_index:
+            sidx = sig_index.get
+            sig_all[:] = [sidx(t.inputs[0], 0) if t.inputs else 0
+                          for t in tasks0]
+    else:
+        # the SoA engine's wider run key: the task's lookahead weights and
+        # hop vector, and its user's debt
+        for i, t0 in enumerate(tasks0):
+            nb0 = t0.not_before
+            nb_all[i] = nb0
+            if lk_tail is not None:
+                u_tw = lk_tail.get(t0.id, 0.0)
+                u_oj = lk_out.get(t0.id, 0.0)
+                u_tw_all[i] = u_tw
+                u_oj_all[i] = u_oj
+                key = (t0.fn, t0.inputs, nb0, u_tw, u_oj)
+                if lk_ht is not None:
+                    hv_t = lk_ht.get(t0.id)
+                    key = key + (hv_t,)
+                    if hv_t is not None:
+                        hid = hv_ids.get(hv_t)
+                        if hid is None:
+                            hid = hv_ids[hv_t] = len(hv_rows)
+                            hv_rows.append(padv(np.asarray(hv_t)))
+                        hv_id_all[i] = hid
+            else:
+                key = (t0.fn, t0.inputs, nb0)
+            if fdebt is not None:
+                u_fd = fdebt.get(t0.user, 0.0)
+                u_fd_all[i] = u_fd
+                key = key + (u_fd,)
+            if t0.inputs:
+                sig_all[i] = sig_index[t0.inputs[0]]
+            gid_all[i] = key_ids.setdefault(key, len(key_ids))
     ready_arr = np.asarray(ready_list)
     shared_arr = np.asarray(shared_list, dtype=bool)
 
@@ -610,6 +774,7 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
                            dtype=np.intp)
         orders.append(order)
         xs["ti"][hi, :n_units] = ti_all[order]
+        xs["hv_id"][hi, :n_units] = hv_id_all[order]
         xs["valid"][hi, :n_units] = True
         g = gid_all[order]
         nr = xs["new_run"][hi, :n_units]
@@ -621,6 +786,9 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
         xs["ready_s"][hi, :n_units] = ready_arr[s]
         xs["shared_s"][hi, :n_units] = shared_arr[s]
         xs["nb"][hi, :n_units] = nb_all[order]
+        xs["u_tw"][hi, :n_units] = u_tw_all[order]
+        xs["u_oj"][hi, :n_units] = u_oj_all[order]
+        xs["u_fd"][hi, :n_units] = u_fd_all[order]
 
     # per-task (E,) rows enter the greedy as gathers into these constant
     # tables (profile rows / transfer signatures / hop vectors)
@@ -635,7 +803,9 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
     frt_tab[:len(rt_mean)] = rt_mean
     add_tab = np.zeros((S, E))
     add_tab[:n_sigs] = np.stack(add_rows)
-    hv_tab = hm_p[None, :].copy()
+    V = pops.bucket_pow2(len(hv_rows))
+    hv_tab = np.zeros((V, E))
+    hv_tab[:len(hv_rows)] = np.stack(hv_rows)
 
     f64 = np.float64
     consts = {
@@ -673,13 +843,15 @@ def window_inputs(units, unit_indices, endpoints, table, transfer, alpha,
 
 
 def _mhra_fused(units, unit_indices, endpoints, table, transfer, alpha,
-                heuristics, sf1, sf2, state, alive, device):
+                heuristics, sf1, sf2, state, device, carbon=None, sf3=1.0,
+                lookahead=None, alive=None, warm=None, fairness=None):
     """Heuristic search as one fused window greedy (all heuristics in one
     call), committing the winner into ``state``.
 
     The winning objective is recomputed from ``SoAState.metrics()`` on
-    the final registers, on the host, and first-min argmins break ties
-    like ``np.argmin``.  The live ``SoAState`` is read into device
+    the final registers, on the host, plus the carbon term of
+    :func:`state_carbon_g` when ``carbon`` is given, and first-min
+    argmins break ties like ``np.argmin``.  The live ``SoAState`` is read into device
     tensors at the window boundary and only the winner's registers are
     written back — no per-decision host/device traffic.
     """
@@ -690,10 +862,15 @@ def _mhra_fused(units, unit_indices, endpoints, table, transfer, alpha,
     n_units = len(units)
     n_ep, consts, init, xs, aux = window_inputs(
         units, unit_indices, endpoints, table, transfer, alpha, heuristics,
-        sf1, sf2, base, alive, device,
+        sf1, sf2, base, alive, device, carbon, sf3, lookahead, warm,
+        fairness,
     )
     out, (ei_y, s_y, e_y) = pops.greedy_window(n_ep, consts, init, xs,
                                                device)
+    # a run boundary is one of the SoA engine's memo misses
+    misses = int(xs["new_run"].sum())
+    MEMO_STATS["misses"] += misses
+    MEMO_STATS["hits"] += len(heuristics) * n_units - misses
 
     # winner: objective recomputed from SoAState.metrics() per heuristic
     best_hi = -1
@@ -711,11 +888,15 @@ def _mhra_fused(units, unit_indices, endpoints, table, transfer, alpha,
         st_h.transfer_j = float(out["tj"][hi])
         e_tot, c_max, tjv = st_h.metrics()
         obj_f = alpha * e_tot / sf1 + (1 - alpha) * c_max / sf2
+        carbon_g = None
+        if carbon is not None:
+            carbon_g = state_carbon_g(st_h, carbon.rates)
+            obj_f = obj_f + carbon.gamma * carbon_g / sf3
         if best_obj is None or obj_f < best_obj:
             best_hi, best_obj = hi, obj_f
-            best_rec = (st_h, obj_f, e_tot, c_max, tjv)
+            best_rec = (st_h, obj_f, e_tot, c_max, tjv, carbon_g)
 
-    st_w, obj_f, e_tot, c_max, tjv = best_rec
+    st_w, obj_f, e_tot, c_max, tjv, carbon_g = best_rec
     h_name = heuristics[best_hi]
     assignments: dict[str, str] = {}
     timeline = dict(base.timeline)
@@ -738,7 +919,7 @@ def _mhra_fused(units, unit_indices, endpoints, table, transfer, alpha,
             if rowf[ei] and not row0[ei] and keys[ei] is not None:
                 st_w.cached.add(keys[ei])
     sched = Schedule(assignments, obj_f, e_tot, c_max, tjv, h_name,
-                     timeline)
+                     timeline, carbon_g=carbon_g)
     if state is not None:
         state.replace_with(st_w)
         sched.timeline = dict(sched.timeline)
@@ -746,7 +927,8 @@ def _mhra_fused(units, unit_indices, endpoints, table, transfer, alpha,
 
 
 def _mhra_soa(units, unit_indices, endpoints, table, transfer, alpha,
-              heuristics, sf1, sf2, state, alive=None):
+              heuristics, sf1, sf2, state, carbon=None, sf3=1.0,
+              lookahead=None, alive=None, warm=None, fairness=None):
     """SoA-engine heuristic search: run :func:`_greedy_soa` per ordering
     heuristic, commit the winner into ``state``."""
     best: Schedule | None = None
@@ -757,7 +939,8 @@ def _mhra_soa(units, unit_indices, endpoints, table, transfer, alpha,
         ordered_idx = [unit_indices[i] for i in order]
         sched, end_state = _greedy_soa(
             ordered, ordered_idx, endpoints, table, transfer, alpha,
-            sf1, sf2, h, state, alive,
+            sf1, sf2, h, state, carbon, sf3, lookahead, alive, warm,
+            fairness,
         )
         if best is None or sched.objective < best.objective:
             best, best_state = sched, end_state
@@ -770,7 +953,10 @@ def _mhra_soa(units, unit_indices, endpoints, table, transfer, alpha,
 def _greedy_soa(
     units, unit_indices, endpoints, table: PredictionTable, transfer,
     alpha, sf1, sf2, heuristic, base_state: SoAState | None = None,
-    alive: tuple | None = None,
+    carbon: CarbonWeights | None = None, sf3: float = 1.0,
+    lookahead: LookaheadWeights | None = None,
+    alive: tuple | None = None, warm: WarmWeights | None = None,
+    fairness: FairnessWeights | None = None,
 ) -> tuple[Schedule, SoAState]:
     """Structure-of-arrays greedy: score a unit against *every* endpoint in
     a fixed handful of vectorized passes instead of a Python loop over
@@ -844,11 +1030,77 @@ def _greedy_soa(
     # free array is rebuilt once at the end
     slots_l = [free[offsets[j]:offsets[j + 1]].tolist() for j in eps_r]
     run_rt_l = run_en_l = None
-    nl_l = e_base_l = obj_l = None
+    nl_l = e_base_l = obj_l = g_base_l = lk_l = None
 
     rtT, enT = table.transposed()
     a1 = alpha / sf1
     b1 = (1.0 - alpha) / sf2
+    # carbon term: one extra vector register (const_g = rates*const) and a
+    # weighted always-on idle sum; everything else reuses the e machinery
+    if carbon is not None:
+        rates_v = np.asarray(carbon.rates, dtype=float)
+        g1 = carbon.gamma / sf3
+        w_idle_on = float((rates_v * idle)[~bt_mask].sum())
+        const_g = rates_v * const
+        static_g = const_g.sum() - const_g
+        g_base = np.empty(n_ep)
+        gbuf = np.empty(n_ep)
+        rates_l = rates_v.tolist()
+        const_g_l = const_g.tolist()
+    else:
+        rates_v = None
+    # lookahead term: one extra vector register computed per run basis —
+    # lk = lam*b1*tail_w*end + lam*a1*out_j*hops_mean.  Both factors are
+    # part of the run key, so within a run only the committed endpoint's
+    # entry needs the scalar refresh (its candidate end moved).
+    if lookahead is not None:
+        lk_tail = lookahead.tail_w
+        lk_out = lookahead.out_j
+        hm_vec = np.asarray(lookahead.hops_mean, dtype=float)
+        hm_l = hm_vec.tolist()
+        lam = lookahead.lam
+        lk = np.empty(n_ep)
+        lk_tailv = np.empty(n_ep)
+        lk_c1 = lk_c2 = 0.0
+        u_tw = u_oj = 0.0
+        # producer-aware gravity: per-run hop vector (fleet mean unless the
+        # task carries its own predicted-consumer vector); the per-task
+        # choice joins the memo key so runs never mix vectors
+        lk_ht = lookahead.hops_task
+        run_hv = hm_vec
+        run_hv_l = hm_l
+    else:
+        lk = None
+        lk_ht = None
+    # warm-pool term: one extra vector register, constant over the whole
+    # call (the WarmWeights snapshot is per-placement-call), added as the
+    # final term of every candidate score — same doubles as the
+    # reference's delta engine's `obj + wt[ei]`.
+    if warm is not None:
+        wt_l = _warm_terms(warm, alpha, sf1, sf2)
+        wt_v = np.asarray(wt_l)
+    else:
+        wt_l = wt_v = None
+    # fairness term: one extra vector register per run (the advantage tax
+    # depends only on the run's predictions and the task's user-debt, so
+    # it is constant within a run and the per-task debt joins the memo
+    # key).  The elementwise op sequence mirrors the reference's delta
+    # engine's scalar accumulation: multiplication commutes bitwise, so
+    # the register holds the *same doubles*, not a ~1ulp regroup.
+    if fairness is not None:
+        fdebt = fairness.debt
+        f_mu = fairness.mu
+        f_beta = 1.0 - alpha
+        frt_mean = table.rt_mean
+        fen_mean = table.en_mean
+        fw_v = np.zeros(n_ep)
+        fjv = np.empty(n_ep)
+        fsv = np.empty(n_ep)
+        fbuf = np.empty(n_ep)
+        fw_l = fw_v.tolist()
+        u_fd = 0.0
+    else:
+        fdebt = fw_l = None
     # dead-endpoint mask: applied *after* every term add so masked entries
     # stay +inf across memo hits (the commit/C_max refreshes below only
     # touch live endpoints); the mask is constant for the whole call
@@ -903,17 +1155,18 @@ def _greedy_soa(
 
     # --- run memoization over the sorted unit stream ----------------------
     # Sorting makes identical (fn, inputs, not_before) singletons
-    # consecutive, and a commit touches exactly one endpoint's registers.
-    # Within such a run every other candidate's score is stale only by a
-    # *uniform* shift, so the argmin is unchanged: only the committed
-    # endpoint's entry needs a scalar refresh, computed against the run's
-    # basis (c_sum_b, tj_b) so comparisons stay exact.  A commit that
-    # raises C_max shifts candidates non-uniformly, so it refreshes every
-    # candidate's makespan terms; any general-path unit forces a fresh
-    # vectorized pass.
+    # consecutive (with lookahead and fairness: identical weights too), and
+    # a commit touches exactly one endpoint's registers.  Within such a run
+    # every other candidate's score is stale only by a *uniform* shift, so
+    # the argmin is unchanged: only the committed endpoint's entry needs a
+    # scalar refresh, computed against the run's basis (c_sum_b, tj_b,
+    # cg_sum_b) so comparisons stay exact.  A commit that raises C_max
+    # shifts candidates non-uniformly, so it refreshes every candidate's
+    # makespan terms; any general-path unit forces a fresh vectorized
+    # pass.
     run_key = None
     need_full = True
-    c_sum_b = tj_b = 0.0
+    c_sum_b = tj_b = cg_sum_b = 0.0
     run_rec: dict | None = None
     run_rt = run_en = None
     for unit, uidx in zip(units, unit_indices):
@@ -922,7 +1175,23 @@ def _greedy_soa(
             t0 = unit[0]
             ti = uidx[0]
             nb0 = t0.not_before
-            key = (t0.fn, t0.inputs, nb0)
+            # not_before is part of the run identity; under lookahead the
+            # per-task rank/gravity weights join the key
+            if lk is None:
+                key = (t0.fn, t0.inputs, nb0)
+            else:
+                u_tw = lk_tail.get(t0.id, 0.0)
+                u_oj = lk_out.get(t0.id, 0.0)
+                key = (t0.fn, t0.inputs, nb0, u_tw, u_oj)
+                if lk_ht is not None:
+                    # tasks with different consumer-hop vectors must not
+                    # share a run (the gravity register differs)
+                    hv_t = lk_ht.get(t0.id)
+                    key = key + (hv_t,)
+            if fdebt is not None:
+                # tasks taxed differently must not share a run
+                u_fd = fdebt.get(t0.user, 0.0)
+                key = key + (u_fd,)
             if need_full or key != run_key:
                 memo_misses += 1
                 run_key = key
@@ -931,6 +1200,9 @@ def _greedy_soa(
                 run_en = enT[ti]
                 c_sum_b = float(const.sum())
                 np.subtract(c_sum_b, const, out=static)
+                if rates_v is not None:
+                    cg_sum_b = float(const_g.sum())
+                    np.subtract(cg_sum_b, const_g, out=static_g)
                 tj_b = transfer_j
                 if rec is None:
                     np.maximum(mins, qd_vec, out=start)
@@ -954,11 +1226,59 @@ def _greedy_soa(
                 if rec is not None:
                     np.add(e_base, rec["eff_add"], out=e_base)
                 np.add(e_base, tj_b, out=e_base)
+                if rates_v is not None:
+                    # carbon base: static_g + rates*(span term + dyn);
+                    # tmp still holds the span terms here
+                    np.add(tmp, nd, out=gbuf)
+                    np.multiply(gbuf, rates_v, out=gbuf)
+                    np.add(gbuf, static_g, out=g_base)
                 np.multiply(c, idle_on_sum, out=e)
                 np.add(e, e_base, out=e)
                 np.multiply(e, a1, out=obj)
                 np.multiply(c, b1, out=tmp)
                 np.add(obj, tmp, out=obj)
+                if rates_v is not None:
+                    np.multiply(c, w_idle_on, out=gbuf)
+                    np.add(gbuf, g_base, out=gbuf)
+                    np.multiply(gbuf, g1, out=gbuf)
+                    np.add(obj, gbuf, out=obj)
+                if lk is not None:
+                    if lk_ht is not None:
+                        if hv_t is None:
+                            run_hv, run_hv_l = hm_vec, hm_l
+                        else:
+                            run_hv = np.asarray(hv_t, dtype=float)
+                            run_hv_l = run_hv.tolist()
+                    lk_c1 = lam * b1 * u_tw
+                    lk_c2 = lam * a1 * u_oj
+                    np.multiply(end, lk_c1, out=lk)
+                    np.multiply(run_hv, lk_c2, out=tmp)
+                    np.add(lk, tmp, out=lk)
+                    np.add(obj, lk, out=obj)
+                if fdebt is not None:
+                    if u_fd != 0.0:
+                        # elementwise the reference's delta scalar loop:
+                        # debt-scaled relu(mean - predicted), alpha/beta-
+                        # weighted, SF-normalized, times mu
+                        np.subtract(fen_mean[ti], run_en, out=fbuf)
+                        np.multiply(fbuf, u_fd, out=fjv)
+                        fjv[fbuf <= 0.0] = 0.0
+                        np.subtract(frt_mean[ti], run_rt, out=fbuf)
+                        np.multiply(fbuf, u_fd, out=fsv)
+                        fsv[fbuf <= 0.0] = 0.0
+                        np.multiply(fjv, alpha, out=fjv)
+                        np.divide(fjv, sf1, out=fjv)
+                        np.multiply(fsv, f_beta, out=fsv)
+                        np.divide(fsv, sf2, out=fsv)
+                        np.add(fjv, fsv, out=fw_v)
+                        np.multiply(fw_v, f_mu, out=fw_v)
+                    else:
+                        # debt-free user: the reference's delta engine still
+                        # adds the (zero) term, so mirror the add exactly
+                        fw_v.fill(0.0)
+                    np.add(obj, fw_v, out=obj)
+                if wt_v is not None:
+                    np.add(obj, wt_v, out=obj)
                 if dead_idx is not None:
                     obj[dead_idx] = np.inf
                 # refresh the scalar mirrors the hit/commit path works on
@@ -967,6 +1287,12 @@ def _greedy_soa(
                 nl_l = nl.tolist()
                 e_base_l = e_base.tolist()
                 obj_l = obj.tolist()
+                if rates_v is not None:
+                    g_base_l = g_base.tolist()
+                if lk is not None:
+                    lk_l = lk.tolist()
+                if fdebt is not None:
+                    fw_l = fw_v.tolist()
                 need_full = False
             else:
                 memo_hits += 1
@@ -1016,6 +1342,10 @@ def _greedy_soa(
             )
             const[ei] = c_e
             const_l[ei] = c_e
+            if rates_v is not None:
+                cg_e = rates_l[ei] * c_e
+                const_g[ei] = cg_e
+                const_g_l[ei] = cg_e
             # refresh this endpoint's next-task row on the run's basis
             # (same scalar float op order as the vectorized pass)
             ready2 = rec["eff_ready_l"][ei] if rec is not None else ready_e
@@ -1032,6 +1362,16 @@ def _greedy_soa(
                 e_b = e_b + rec["eff_add_l"][ei]
             e_b = e_b + tj_b
             e_base_l[ei] = e_b
+            if rates_v is not None:
+                g_b = (cg_sum_b - cg_e) + rates_l[ei] * (
+                    ((nl2 - nf2) * idle_bt_l[ei] + su_bt_l[ei])
+                    + (nd_v + run_en_l[ei])
+                )
+                g_base_l[ei] = g_b
+            if lk is not None:
+                # same scalar op order as the vectorized lk pass
+                lk_e = e2 * lk_c1 + run_hv_l[ei] * lk_c2
+                lk_l[ei] = lk_e
             if end_v > c_cur:
                 # C_max advanced: refresh every candidate's makespan terms
                 # from the cached e_base, element for element the ops the
@@ -1044,11 +1384,35 @@ def _greedy_soa(
                     if c2 < c_cur:
                         c2 = c_cur
                     e_s = idle_on_sum * c2 + e_base_l[j]
-                    obj_l[j] = a1 * e_s + b1 * c2
+                    if rates_v is None:
+                        o_v = a1 * e_s + b1 * c2
+                    else:
+                        o_v = (a1 * e_s + b1 * c2
+                               + g1 * (w_idle_on * c2 + g_base_l[j]))
+                    if lk is not None:
+                        o_v = o_v + lk_l[j]
+                    if fw_l is not None:
+                        # run-constant: predictions and user-debt don't
+                        # move on commit
+                        o_v = o_v + fw_l[j]
+                    if wt_l is not None:
+                        o_v = o_v + wt_l[j]
+                    obj_l[j] = o_v
             else:
                 c2 = nl2 if nl2 > c_cur else c_cur
                 e_s = idle_on_sum * c2 + e_b
-                obj_l[ei] = a1 * e_s + b1 * c2
+                if rates_v is None:
+                    o_v = a1 * e_s + b1 * c2
+                else:
+                    o_v = (a1 * e_s + b1 * c2
+                           + g1 * (w_idle_on * c2 + g_b))
+                if lk is not None:
+                    o_v = o_v + lk_e
+                if fw_l is not None:
+                    o_v = o_v + fw_l[ei]
+                if wt_l is not None:
+                    o_v = o_v + wt_l[ei]
+                obj_l[ei] = o_v
             timeline[t0.id] = (start_v, end_v)
             assignments[t0.id] = names[ei]
             continue
@@ -1057,6 +1421,8 @@ def _greedy_soa(
         need_full = True
         memo_misses += 1
         np.subtract(const.sum(), const, out=static)
+        if rates_v is not None:
+            np.subtract(const_g.sum(), const_g, out=static_g)
         heappop, heappush = heapq.heappop, heapq.heappush
         tjv = np.empty(n_ep)
         cand = []
@@ -1070,6 +1436,8 @@ def _greedy_soa(
             f_e = first[ei]
             l_e = last[ei]
             d_e = dyn[ei]
+            tl_e = 0.0
+            fj_e = fs_e = 0.0
             entries = []
             for t, tix in zip(unit, uidx):
                 s_v = heappop(heap)
@@ -1084,16 +1452,37 @@ def _greedy_soa(
                 if e_v > l_e:
                     l_e = e_v
                 d_e = d_e + enT[tix, ei]
+                if lk is not None:
+                    tl_e += lk_tail.get(t.id, 0.0) * e_v
+                if fdebt is not None:
+                    # the reference's delta general path, op for op
+                    d = fdebt.get(t.user, 0.0)
+                    if d != 0.0:
+                        adv_j = fen_mean[tix] - enT[tix, ei]
+                        if adv_j > 0.0:
+                            fj_e += d * adv_j
+                        adv_s = frt_mean[tix] - rtT[tix, ei]
+                        if adv_s > 0.0:
+                            fs_e += d * adv_s
                 entries.append((t.id, s_v, e_v))
             tjv[ei] = tj_e
             nf[ei] = f_e
             nl[ei] = l_e
             nd[ei] = d_e
+            if lk is not None:
+                lk_tailv[ei] = tl_e
+            if fdebt is not None:
+                fjv[ei] = fj_e
+                fsv[ei] = fs_e
             cand.append((heap, entries, new_keys))
         np.maximum(nl, c_cur, out=c)
         np.subtract(nl, nf, out=tmp)
         np.multiply(tmp, idle_bt, out=tmp)
         np.add(tmp, su_bt, out=tmp)
+        if rates_v is not None:
+            np.add(tmp, nd, out=gbuf)
+            np.multiply(gbuf, rates_v, out=gbuf)
+            np.add(gbuf, static_g, out=g_base)
         np.multiply(c, idle_on_sum, out=e)
         np.add(e, static, out=e)
         np.add(e, nd, out=e)
@@ -1102,6 +1491,45 @@ def _greedy_soa(
         np.multiply(e, a1, out=obj)
         np.multiply(c, b1, out=tmp)
         np.add(obj, tmp, out=obj)
+        if rates_v is not None:
+            np.multiply(c, w_idle_on, out=gbuf)
+            np.add(gbuf, g_base, out=gbuf)
+            np.multiply(gbuf, g1, out=gbuf)
+            np.add(obj, gbuf, out=obj)
+        if lk is not None:
+            u_oj = 0.0
+            for t in unit:
+                u_oj += lk_out.get(t.id, 0.0)
+            np.multiply(lk_tailv, lam * b1, out=lk)
+            if lk_ht is None:
+                np.multiply(hm_vec, lam * a1 * u_oj, out=tmp)
+            else:
+                # producer-aware: gravity accumulates per task at each
+                # task's own consumer-hop vector
+                tmp.fill(0.0)
+                for t in unit:
+                    _oj = lk_out.get(t.id, 0.0)
+                    if _oj != 0.0:
+                        _hv = lk_ht.get(t.id)
+                        np.add(tmp,
+                               np.multiply(
+                                   hm_vec if _hv is None
+                                   else np.asarray(_hv, dtype=float),
+                                   _oj),
+                               out=tmp)
+                np.multiply(tmp, lam * a1, out=tmp)
+            np.add(lk, tmp, out=lk)
+            np.add(obj, lk, out=obj)
+        if fdebt is not None:
+            np.multiply(fjv, alpha, out=fjv)
+            np.divide(fjv, sf1, out=fjv)
+            np.multiply(fsv, f_beta, out=fsv)
+            np.divide(fsv, sf2, out=fsv)
+            np.add(fjv, fsv, out=fbuf)
+            np.multiply(fbuf, f_mu, out=fbuf)
+            np.add(obj, fbuf, out=obj)
+        if wt_v is not None:
+            np.add(obj, wt_v, out=obj)
         if dead_idx is not None:
             obj[dead_idx] = np.inf
         ei = int(np.argmin(obj))
@@ -1138,6 +1566,10 @@ def _greedy_soa(
         )
         const[ei] = c_e
         const_l[ei] = c_e
+        if rates_v is not None:
+            cg_e = rates_l[ei] * c_e
+            const_g[ei] = cg_e
+            const_g_l[ei] = cg_e
         name = names[ei]
         for tid, s_v, e_v in entries:
             timeline[tid] = (s_v, e_v)
@@ -1152,9 +1584,13 @@ def _greedy_soa(
     state.transfer_j = transfer_j
     e_tot, c_max, tj = state.metrics()
     obj_f = alpha * e_tot / sf1 + (1 - alpha) * c_max / sf2
+    carbon_g = None
+    if carbon is not None:
+        carbon_g = state_carbon_g(state, carbon.rates)
+        obj_f = obj_f + carbon.gamma * carbon_g / sf3
     # timeline by reference; _mhra_soa snapshots the winner's once
     sched = Schedule(assignments, obj_f, e_tot, c_max, tj, heuristic,
-                     state.timeline)
+                     state.timeline, carbon_g=carbon_g)
     return sched, state
 
 
@@ -1191,16 +1627,22 @@ def cluster_mhra(
     alive: Sequence[bool] | None = None,
     state: SoAState | None = None,
     device=None,
+    carbon: CarbonWeights | None = None,
+    lookahead: LookaheadWeights | None = None,
+    warm: WarmWeights | None = None,
+    fairness: FairnessWeights | None = None,
 ) -> Schedule:
     """Algorithm 1: agglomerative clustering + per-cluster greedy MHRA.
     A window whose clusters are all single tasks of at most one input
     each goes to the fused window on ``device``; any other to the SoA
-    engine on the host (:func:`mhra`)."""
+    engine on the host (:func:`mhra`, which takes the four registers)."""
     tasks = list(tasks)
     table = PredictionTable(tasks, endpoints, store)
     clusters = compute_clusters(tasks, endpoints, table, max_cluster_size)
     return mhra(tasks, endpoints, store, transfer, alpha, heuristics,
-                clusters, alive=alive, state=state, device=device)
+                clusters, alive=alive, state=state, device=device,
+                carbon=carbon, lookahead=lookahead, warm=warm,
+                fairness=fairness)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@ stores and tasks built from numpy seeds, converted into the port with
 ``repro_torch.convert``, and the bitwise schedule comparison."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,7 @@ from repro_torch import convert
 from repro_torch.core.transfer import TransferModel as PortTransferModel
 
 SCHEDULE_FIELDS = ("assignments", "objective", "energy_j", "makespan_s",
-                   "transfer_j", "heuristic", "timeline")
+                   "transfer_j", "heuristic", "timeline", "carbon_g")
 
 
 def base_machine(name: str) -> tuple[str, int]:
@@ -80,6 +82,68 @@ def reference_case(n_tasks, replicas=1, shared_input=True, seed=0,
                        seed=seed, nb_max=nb_max)
     return (tasks, eps, seeded_store(eps, jitter_seed=jitter_seed),
             TransferModel(eps))
+
+
+USERS = ("alice", "bob", "carol")
+REGISTERS = ("carbon", "lookahead", "warm", "fairness")
+
+
+def register_case(tasks, eps, seed, which=REGISTERS, producer_aware=True,
+                  n_vectors=64, n_weights=3):
+    """The reference's scoring snapshots for ``tasks`` on ``eps``, made
+    from one numpy seed (the same seed gives the same doubles in any
+    process): per-endpoint carbon rates, warm-pool penalties, two
+    indebted users, lookahead weights on a share of the tasks (``tail_w``
+    on every second task, ``out_j`` on every third, each drawn from
+    ``n_weights`` seeded values) and, with ``producer_aware``, per-task hop
+    vectors drawn from ``n_vectors`` distinct ones.  Returns ``(tasks with users, mhra keyword dict)``."""
+    from repro.core.carbon import CarbonWeights
+    from repro.core.dag import LookaheadWeights
+    from repro.core.fairness import FairnessWeights
+    from repro.core.faults import WarmWeights
+
+    rng = np.random.default_rng(seed)
+    n_ep = len(eps)
+    tasks = [dataclasses.replace(t, user=USERS[i % len(USERS)])
+             for i, t in enumerate(tasks)]
+    kw = {}
+    carbon = CarbonWeights(
+        rates=tuple(float(rng.uniform(0.0, 1e-3)) for _ in range(n_ep)),
+        gamma=12.0)
+    warm = WarmWeights(
+        cold_j=tuple(float(rng.uniform(0.0, 40.0)) for _ in range(n_ep)),
+        cold_s=tuple(float(rng.uniform(0.0, 4.0)) for _ in range(n_ep)))
+    fairness = FairnessWeights(debt={"bob": 2.5, "carol": 0.75}, mu=0.6)
+    pool = [tuple(float(x) for x in rng.uniform(0.5, 3.0, n_ep))
+            for _ in range(n_vectors)]
+    # weights from a few values each, so that tasks with equal weights but
+    # other hop vectors meet in one stretch of the stream
+    tw_vals = rng.uniform(0.0, 1.0, n_weights)
+    oj_vals = rng.uniform(0.0, 50.0, n_weights)
+    out_ids = [t.id for t in tasks[::3]]
+    hops_task = None
+    if producer_aware:
+        hops_task = {tid: pool[int(rng.integers(n_vectors))]
+                     for tid in out_ids}
+    lookahead = LookaheadWeights(
+        tail_w={t.id: float(rng.choice(tw_vals)) for t in tasks[::2]},
+        out_j={tid: float(rng.choice(oj_vals)) for tid in out_ids},
+        hops_mean=tuple(float(rng.uniform(0.5, 3.0)) for _ in range(n_ep)),
+        lam=0.8, hops_task=hops_task)
+    regs = {"carbon": carbon, "lookahead": lookahead, "warm": warm,
+            "fairness": fairness}
+    for k in which:
+        kw[k] = regs[k]
+    return tasks, kw
+
+
+def port_registers(kw):
+    """The reference's snapshots of ``register_case`` as the port's."""
+    conv = {"carbon": convert.carbon_weights,
+            "lookahead": convert.lookahead_weights,
+            "warm": convert.warm_weights,
+            "fairness": convert.fairness_weights}
+    return {k: (v if k == "alive" else conv[k](v)) for k, v in kw.items()}
 
 
 def to_port(tasks, eps, store):

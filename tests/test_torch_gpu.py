@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from _torch_common import (  # noqa: F401 — cuda_device is a fixture
+    REGISTERS,
     SCHEDULE_FIELDS,
     cuda_device,
+    port_registers,
     reference_case,
+    register_case,
     to_port,
 )
 from repro.core import scheduler as ref_sched
@@ -77,16 +80,23 @@ def test_score_fleet_kernel_matches_plain(cuda_device, seed, n, ties):
         assert int(idx_k) == int(torch.nonzero(kw["alive"])[0])
 
 
-def _window(n_tasks, replicas, device, nb_max=20.0):
+def _window(n_tasks, replicas, device, nb_max=20.0, regs=()):
+    """A packed window of single-input tasks; ``regs`` arms those of the
+    four registers (``register_case`` snapshots, seed 31)."""
     tasks, eps, store, _ = reference_case(n_tasks, replicas, True,
                                           nb_max=nb_max)
+    kw = {}
+    if regs:
+        tasks, kw = register_case(tasks, eps, 31, which=regs)
     ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
+    pkw = port_registers(kw)
     table = port_sched.PredictionTable(ptasks, peps, pstore)
-    sf1, sf2 = port_sched._normalizers_fast(ptasks, peps, table, ptm)
+    sf1, sf2, sf3 = port_sched._normalizers_fast(ptasks, peps, table, ptm,
+                                                 pkw.get("carbon"))
     n_ep, consts, init, xs, _ = port_sched.window_inputs(
         [[t] for t in ptasks], [[i] for i in range(n_tasks)], peps, table,
         ptm, 0.5, port_sched.HEURISTICS, sf1, sf2,
-        port_sched.SoAState(peps, ptm), None, device)
+        port_sched.SoAState(peps, ptm), None, device, sf3=sf3, **pkw)
     p, n_units = ops.pack(consts, init, xs, device)
     return p, n_ep, n_units
 
@@ -637,7 +647,7 @@ def test_soa_engine_equals_window_kernel(cuda_device):
     tasks, eps, store, tm = reference_case(2048, 8, True, nb_max=20.0)
     ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
     table = port_sched.PredictionTable(ptasks, peps, pstore)
-    sf1, sf2 = port_sched._normalizers_fast(ptasks, peps, table, ptm)
+    sf1, sf2, _ = port_sched._normalizers_fast(ptasks, peps, table, ptm)
     s_host = port_sched.SoAState(peps, ptm)
     s_card = port_sched.SoAState(peps, ptm)
     a = port_sched._mhra_soa([[t] for t in ptasks],
@@ -651,3 +661,59 @@ def test_soa_engine_equals_window_kernel(cuda_device):
     assert s_host.metrics() == s_card.metrics()
     assert s_host.cached == s_card.cached
     np.testing.assert_array_equal(s_host.free, s_card.free)
+
+
+# ---------------------------------------------------------------------------
+# the four scoring registers armed in the window kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas,regs", [
+    (8, ("carbon",)), (8, ("lookahead",)), (8, ("warm",)), (8, ("fairness",)),
+    (8, REGISTERS), (100, REGISTERS), (400, REGISTERS), (540, REGISTERS)])
+def test_greedy_window_kernel_matches_plain_with_registers(cuda_device, replicas,
+                                                           regs):
+    """Each register alone at 32 lanes, then all four with a hop table of
+    many rows at 32, 416, 1,600 and 2,176 lanes (every launch plan with
+    the lane state and the step operands on and off chip)."""
+    p, n_ep, n_units = _window(320 if replicas == 8 else 96, replicas,
+                               cuda_device, regs=regs)
+    if "lookahead" in regs:
+        assert p["hv_tab"].shape[0] > 8
+    if replicas in _LARGE_PLANS:
+        lanes, want_plan = _LARGE_PLANS[replicas]
+        got_plan = kernel.plan(lanes, p["slots"].shape[2], p["staged"].shape[1])
+        assert {k: got_plan[k] for k in want_plan} == want_plan
+    before = kernel.LAUNCHES["greedy_window"]
+    out_k = kernel.greedy_window(p, n_ep, n_units)
+    out_p = ops._greedy_scan_plain(p, n_ep, n_units)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["greedy_window"] == before + 1
+    for k in out_k:
+        assert torch.equal(_bits(out_k[k]), _bits(out_p[k])), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas,alive_dead", [(8, ()), (2, (1, 6))])
+def test_mhra_on_card_with_registers_matches_cpu_and_soa(cuda_device, replicas,
+                                                         alive_dead):
+    """All four registers through ``mhra(device=None)``: one window launch,
+    ``==`` the CPU's plain path and the reference's soa engine."""
+    tasks, eps, store, tm = reference_case(400, replicas, True, nb_max=15.0)
+    tasks, kw = register_case(tasks, eps, 32)
+    alive = (tuple(i not in alive_dead for i in range(len(eps)))
+             if alive_dead else None)
+    a = ref_sched.mhra(tasks, eps, store, tm, alpha=0.4, engine="soa",
+                       alive=alive, **kw)
+    ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
+    pkw = port_registers(kw)
+    before = kernel.LAUNCHES["greedy_window"]
+    b = port_sched.mhra(ptasks, peps, pstore, ptm, alpha=0.4, alive=alive,
+                        **pkw)
+    assert kernel.LAUNCHES["greedy_window"] == before + 1
+    c = port_sched.mhra(ptasks, peps, pstore, ptm, alpha=0.4, alive=alive,
+                        device="cpu", **pkw)
+    for f in SCHEDULE_FIELDS:
+        assert getattr(a, f) == getattr(b, f) == getattr(c, f), f
+    assert b.carbon_g is not None

@@ -83,10 +83,10 @@ def test_unmonitored_batch_matches_reference():
 
 
 def test_default_strategy_is_the_reference_s_and_raises_until_ported():
-    """Built with no strategy, both executors place with ``cluster_mhra``;
-    the reference's policies that the port does not have yet refuse
-    loudly, naming the ROADMAP item that ports them, instead of placing
-    with another algorithm."""
+    """Built with no strategy, both executors place with ``cluster_mhra``.
+    Every reference policy the executor can name is ported now: the two
+    that once refused (``carbon_mhra``, ``lookahead_mhra``) build, and an
+    unknown name still raises ``ValueError``."""
     eps = scaled_testbed(1)
     ref = GreenFaaSExecutor(eps, RefSim(eps, seed=0))
     assert ref.strategy == "cluster_mhra" and ref.policy.name == "cluster_mhra"
@@ -96,10 +96,14 @@ def test_default_strategy_is_the_reference_s_and_raises_until_ported():
     assert port.policy.name == "cluster_mhra"
     assert port.policy.max_cluster_size == ref.policy.max_cluster_size
     for name in ("carbon_mhra", "lookahead_mhra"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1 item 2"):
-            PortExecutor(peps, PortSim(peps, seed=0), strategy=name,
-                         device="cpu")
+        ex = PortExecutor(peps, PortSim(peps, seed=0), strategy=name,
+                          device="cpu")
+        assert ex.policy.name == name
+        assert GreenFaaSExecutor(eps, RefSim(eps, seed=0),
+                                 strategy=name).policy.name == name
+    with pytest.raises(ValueError, match="unknown policy"):
+        PortExecutor(peps, PortSim(peps, seed=0), strategy="no_such_policy",
+                     device="cpu")
     assert PortExecutor(peps, PortSim(peps, seed=0), strategy="mhra",
                         device="cpu").policy.name == "mhra"
 

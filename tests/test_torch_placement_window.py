@@ -14,7 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import assert_schedules_equal, reference_case, to_port
+from _torch_common import (
+    assert_schedules_equal,
+    port_registers,
+    reference_case,
+    register_case,
+    to_port,
+)
 from repro.core import scheduler as ref_sched
 from repro.core.scheduler import SoAState
 from repro_torch import convert
@@ -110,7 +116,7 @@ def test_empty_window_matches_soa():
     assert_schedules_equal(a, b)
 
 
-def test_multi_input_tasks_raise_not_implemented():
+def test_multi_input_tasks_go_to_the_soa_engine():
     """A window with a multi-input task, which the fused window cannot
     express and the port once refused with ``NotImplementedError``, now
     goes to the SoA engine and equals the reference's soa result."""
@@ -133,7 +139,7 @@ def test_greedy_window_wrapper_runs_plain_on_cpu_without_launching():
     tasks, eps, store, tm = reference_case(33, 2, True, nb_max=10.0)
     ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
     table = port_sched.PredictionTable(ptasks, peps, pstore)
-    sf1, sf2 = port_sched._normalizers_fast(ptasks, peps, table, ptm)
+    sf1, sf2, _ = port_sched._normalizers_fast(ptasks, peps, table, ptm)
     n_ep, consts, init, xs, _ = port_sched.window_inputs(
         [[t] for t in ptasks], [[i] for i in range(len(ptasks))], peps,
         table, ptm, 0.5, port_sched.HEURISTICS, sf1, sf2,
@@ -165,12 +171,17 @@ def test_lane_buckets():
 # ---------------------------------------------------------------------------
 
 #: (n_tasks, replicas, shared input, alpha, dead endpoints, not_before
-#: max, profile jitter seed)
-JAX_CASES = ((28, 1, True, 0.5, (), 0.0, None),
-             (48, 2, False, 0.3, (2,), 30.0, None))
+#: max, profile jitter seed, register seed: None, or the seed from which
+#: each side builds all four scoring snapshots with ``register_case``)
+JAX_CASES = ((28, 1, True, 0.5, (), 0.0, None, None),
+             (48, 2, False, 0.3, (2,), 30.0, None, None))
 #: small enough to run the scan op by op (about a second per task), with
 #: jittered profiles so that every register carries full-precision doubles
-EAGER_CASE = (14, 2, True, 0.4, (1,), 0.0, 3)
+EAGER_CASE = (14, 2, True, 0.4, (1,), 0.0, 3, None)
+#: all four registers armed, producer-aware hop vectors, floors, a dead
+#: endpoint: the jitted engine, and one op by op
+JAX_REGISTER_CASE = (40, 2, True, 0.4, (1,), 15.0, 6, 21)
+EAGER_REGISTER_CASE = (16, 2, True, 0.4, (), 8.0, 3, 22)
 
 _JAX_SCRIPT = r"""
 import json, sys
@@ -181,7 +192,7 @@ jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
 import numpy as np
 tests_dir, cases, out_dir, eager = sys.argv[1:5]
 sys.path[:0] = [tests_dir]
-from _torch_common import reference_case
+from _torch_common import reference_case, register_case
 from repro.core import scheduler as S
 from repro.kernels.placement import ops as pops
 _window = pops.greedy_window
@@ -208,12 +219,18 @@ def capture(n_ep, consts, init, xs):
 
 pops.greedy_window = capture
 out = []
-for ci, (n, rep, shared, alpha, dead, nb, jit) in enumerate(json.loads(cases)):
+for ci, (n, rep, shared, alpha, dead, nb, jit, rseed) in enumerate(
+        json.loads(cases)):
     tasks, eps, store, tm = reference_case(n, rep, shared, nb_max=nb,
                                            jitter_seed=jit)
+    kw = {}
+    if rseed is not None:
+        tasks, kw = register_case(tasks, eps, rseed)
     alive = tuple(i not in dead for i in range(len(eps))) if dead else None
     before = pops.COMPILE_STATS["compiles"]
-    s = S.mhra(tasks, eps, store, tm, alpha=alpha, engine="jax", alive=alive)
+    S.reset_memo_stats()
+    s = S.mhra(tasks, eps, store, tm, alpha=alpha, engine="jax", alive=alive,
+               **kw)
     assert pops.COMPILE_STATS["compiles"] == before + 1, "fell back to soa"
     np.savez("%s/case%d.npz" % (out_dir, ci), **captured)
     out.append({
@@ -221,6 +238,8 @@ for ci, (n, rep, shared, alpha, dead, nb, jit) in enumerate(json.loads(cases)):
         "objective": s.objective.hex(), "energy_j": s.energy_j.hex(),
         "makespan_s": s.makespan_s.hex(), "transfer_j": s.transfer_j.hex(),
         "timeline": {k: [a.hex(), b.hex()] for k, (a, b) in s.timeline.items()},
+        "carbon_g": None if s.carbon_g is None else s.carbon_g.hex(),
+        "memo": dict(S.MEMO_STATS),
     })
 print("RESULT " + json.dumps(out))
 """
@@ -247,13 +266,17 @@ def _run_reference_jax(cases, out_dir, backend, eager):
 
 
 def _port_schedule(case):
-    n, rep, shared, alpha, dead, nb, jit = case
+    n, rep, shared, alpha, dead, nb, jit, rseed = case
     tasks, eps, store, _ = reference_case(n, rep, shared, nb_max=nb,
                                           jitter_seed=jit)
+    kw = {}
+    if rseed is not None:
+        tasks, kw = register_case(tasks, eps, rseed)
     ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
     alive = tuple(i not in dead for i in range(len(eps))) if dead else None
+    port_sched.reset_memo_stats()
     return port_sched.mhra(ptasks, peps, pstore, ptm, alpha=alpha,
-                           alive=alive, device="cpu")
+                           alive=alive, device="cpu", **port_registers(kw))
 
 
 def _assert_matches_hex(b, ref):
@@ -265,6 +288,9 @@ def _assert_matches_hex(b, ref):
         k: (float.fromhex(a), float.fromhex(e))
         for k, (a, e) in ref["timeline"].items()
     }
+    want_g = ref["carbon_g"]
+    assert b.carbon_g == (None if want_g is None else float.fromhex(want_g))
+    assert port_sched.MEMO_STATS == ref["memo"]
 
 
 def test_matches_reference_jax_engine_pallas_interpret(tmp_path):
@@ -284,8 +310,36 @@ def test_plain_scan_matches_eager_jax_scan_registers(tmp_path):
     register one ulp off the SoA engine's NumPy arithmetic, which the
     port reproduces (no decision changes either way).
     """
-    got = _run_reference_jax([EAGER_CASE], tmp_path, "xla", eager=True)
-    _assert_matches_hex(_port_schedule(EAGER_CASE), got[0])
+    _assert_plain_scan_matches_eager(EAGER_CASE, tmp_path)
+
+
+def test_matches_reference_jax_engine_with_registers(tmp_path):
+    """All four registers armed, with producer-aware hop vectors (a hop
+    table of many rows), ``==`` the reference's fused JAX engine with its
+    Pallas score kernel in interpret mode, ``carbon_g`` and the run-memo
+    counts included."""
+    got = _run_reference_jax([JAX_REGISTER_CASE], tmp_path, "pallas",
+                             eager=False)
+    _assert_matches_hex(_port_schedule(JAX_REGISTER_CASE), got[0])
+
+
+def test_plain_scan_matches_eager_jax_scan_with_registers(tmp_path):
+    """The eager comparison with every register armed: the carbon, lookahead
+    and fairness run registers (``g_base_r``, ``lk_r``, ``fw_r``), the
+    carbon basis ``cg_sum_b`` and the rest of the carry double for
+    double."""
+    carry, ins = _assert_plain_scan_matches_eager(EAGER_REGISTER_CASE,
+                                                  tmp_path)
+    assert ins["consts"]["hv_tab"].shape[0] > 1
+    assert ins["scalars"]["g1"] > 0 and ins["scalars"]["f_mu"] > 0
+    for k in ("lk_r", "fw_r", "g_base_r"):
+        assert np.any(carry[k] != 0.0), k
+    assert np.all(carry["cg_sum_b"] > 0.0)
+
+
+def _assert_plain_scan_matches_eager(case, tmp_path):
+    got = _run_reference_jax([case], tmp_path, "xla", eager=True)
+    _assert_matches_hex(_port_schedule(case), got[0])
     with np.load(tmp_path / "case0.npz") as npz:
         n_ep = int(npz["n_ep"])
         parts = {g: {} for g in ("consts", "scalars", "init", "xs", "out", "ys")}
@@ -297,10 +351,11 @@ def test_plain_scan_matches_eager_jax_scan_registers(tmp_path):
     carry, ys = ops.greedy_window(n_ep, parts["consts"], parts["init"],
                                   parts["xs"], device="cpu")
     n_units = int(parts["xs"]["valid"][0].sum())
-    assert n_units == EAGER_CASE[0]
+    assert n_units == case[0]
     for i, y in enumerate(ys):
         np.testing.assert_array_equal(y[:, :n_units],
                                       parts["ys"][str(i)][:, :n_units])
     assert set(carry) == set(parts["out"])
     for k, v in parts["out"].items():
         np.testing.assert_array_equal(carry[k], v, err_msg=k)
+    return carry, parts

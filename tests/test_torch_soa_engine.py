@@ -174,23 +174,34 @@ def test_cluster_mhra_on_live_state_across_windows(replicas, shared):
 def test_all_singleton_cluster_mhra_takes_the_fused_route(monkeypatch):
     """``max_cluster_size=1``: every cluster is one single-input task, so
     the window goes to the fused window greedy (one call), not the SoA
-    engine, and still equals the reference."""
+    engine, and still equals the reference.  The fused window counts the
+    run-memo hits and misses the reference's SoA engine counts (its
+    ``new_run`` flags are the SoA engine's misses)."""
     tasks, eps, store, tm = reference_case(96, 2, True, nb_max=5.0)
     calls = []
     window = ops.greedy_window
+    soa_calls = []
+    greedy_soa = port_sched._greedy_soa
 
     def counted(*args, **kw):
         calls.append(args[0])
         return window(*args, **kw)
 
+    def counted_soa(*args, **kw):
+        soa_calls.append(1)
+        return greedy_soa(*args, **kw)
+
     monkeypatch.setattr(ops, "greedy_window", counted)
+    monkeypatch.setattr(port_sched, "_greedy_soa", counted_soa)
+    ref_sched.reset_memo_stats()
     a = ref_sched.cluster_mhra(tasks, eps, store, tm, alpha=0.5,
                                max_cluster_size=1, engine="soa")
-    before = dict(port_sched.MEMO_STATS)
+    port_sched.reset_memo_stats()
     b = port_sched.cluster_mhra(*to_port(tasks, eps, store), alpha=0.5,
                                 max_cluster_size=1, device="cpu")
     assert calls == [len(eps)]
-    assert port_sched.MEMO_STATS == before
+    assert soa_calls == []
+    assert port_sched.MEMO_STATS == ref_sched.MEMO_STATS
     assert_schedules_equal(a, b)
 
 
@@ -286,7 +297,7 @@ def test_soa_engine_equals_fused_window_on_single_task_windows(replicas,
     tasks, eps, store, tm = reference_case(120, replicas, True, nb_max=nb_max)
     ptasks, peps, pstore, ptm = to_port(tasks, eps, store)
     table = port_sched.PredictionTable(ptasks, peps, pstore)
-    sf1, sf2 = port_sched._normalizers_fast(ptasks, peps, table, ptm)
+    sf1, sf2, _ = port_sched._normalizers_fast(ptasks, peps, table, ptm)
     units = [[t] for t in ptasks]
     idx = [[i] for i in range(len(ptasks))]
     s_host, s_dev = port_sched.SoAState(peps, ptm), port_sched.SoAState(peps, ptm)
