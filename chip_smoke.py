@@ -53,6 +53,20 @@ The batch placement path (the first slice):
    ``window_inputs``; then ``carbon_mhra`` with a diurnal carbon signal and
    ``lookahead_mhra`` with the DAG view of a 3-level DAG through
    ``get_policy`` on the card, one launch each, equal to the CPU.
+3d. The streaming path: three ``OnlineEngine`` streams, each on the card
+   (``device=None``) and on the CPU (``device="cpu"``), equal on every
+   window (the whole ``Schedule``, the tasks placed and their floors, the
+   simulator's records) and on the summary, completions, WAN events, shed
+   and permanently failed tasks; the window kernel's launches (counts
+   zeroed just before the card's run, read just after) equal the placement
+   calls whose tasks all have at most one input. (poisson) the reference's
+   sustained-Poisson latency cell at its largest fleet, planner-only;
+   (long) its 16,384-task fork-join stream, pruned; (armed) a monitored
+   stream with churn, stragglers, warm pools, a noisy carbon forecast
+   with deferral, ``"defer"`` admission, two agent-routed regions and
+   speculation.  Each prints its windows, launches, placement seconds (a
+   window's p50/p95 and a decision's), the kernel's device ms and the
+   wall seconds.
 4. Timing with CUDA events after warm-up, at the main path's shapes.
 
 The zamba2-2.7b serving path (the second slice):
@@ -168,6 +182,17 @@ REG_PLANS = {
 }
 REGISTERS = ("carbon", "lookahead", "warm", "fairness")
 USERS = ("alice", "bob", "carol")
+# phase 3d: the streaming path.  (poisson) the reference's sustained-Poisson
+# latency cell at its largest fleet (benchmarks/placement_latency.py:100-126,
+# :66, :151-152: scaled_testbed(8), 4,096 tasks at 64 tasks/s, windows of
+# 0.25 s); (long) its long stream (:196-254: 16,384 tasks in fork-join epochs of 127
+# on scaled_testbed(2)); (armed) a monitored stream with every fault and
+# register armed: 2,048 tasks from 4 users in windows of up to 256
+STREAMS = ("poisson", "long", "armed")
+POISSON_TASKS, POISSON_RATE_HZ, POISSON_WINDOW_S = 4096, 64.0, 0.25
+LONG_STREAM_TASKS, LONG_STREAM_WIDTH = 16384, 127
+ARMED_TASKS, ARMED_WINDOW, ARMED_RATE_HZ, ARMED_HORIZON_S = 2048, 256, 16.0, 300.0
+ARMED_USERS = ("u0", "u1", "u2", "u3")
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12   # device memory rate
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
@@ -1552,6 +1577,322 @@ def registers_phase(dev, card, sched, eps, store, tm, kernel, ops, counters,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: the streaming path, OnlineEngine over one live state
+# ---------------------------------------------------------------------------
+
+
+def churn_down(names, horizon_s, churn, mttr_s, seed, protect):
+    """Seeded endpoint churn over ``[0, horizon_s)``, drawn as the
+    reference's ``workloads/faults.py::churn_fault_trace`` draws it:
+    per endpoint, a first outage inside the busy span, down times
+    Exp(mttr) in [mttr/2, 4 mttr], up times Exp(mttr (1 - churn) / churn).
+    Returns the ``down`` mapping of a ``FaultTrace``."""
+    import zlib
+
+    import numpy as np
+    down = {}
+    up_mean = mttr_s * (1.0 - churn) / churn
+    for name in names:
+        if name in protect:
+            continue
+        rng = np.random.default_rng(
+            (seed * 0x9E3779B1 + zlib.crc32(name.encode())) % 2 ** 32)
+        ivs = []
+        t = float(rng.uniform(0.05, 0.45)) * horizon_s
+        while t < horizon_s:
+            d = min(max(float(rng.exponential(mttr_s)), 0.5 * mttr_s),
+                    4.0 * mttr_s)
+            ivs.append((t, t + d))
+            t += d + float(rng.exponential(up_mean))
+        if ivs:
+            down[name] = tuple(ivs)
+    return down
+
+
+def epoch_dag_tasks(n_tasks, width, TaskSpec, SEBS_FUNCTIONS):
+    """Fork-join epochs (``benchmarks/placement_latency.py:196-224``):
+    ``width`` workers fan out of the previous epoch's reducer with 5 MB
+    each, then a reducer joins them with 1 MB from each."""
+    tasks, epoch = [], 0
+    while len(tasks) < n_tasks:
+        prev = f"r{epoch - 1}" if epoch else None
+        workers = []
+        for j in range(width):
+            if len(tasks) >= n_tasks - 1:
+                break
+            tid = f"e{epoch}_{j}"
+            tasks.append(TaskSpec(id=tid, fn=SEBS_FUNCTIONS[j % len(SEBS_FUNCTIONS)],
+                                  deps=(prev,) if prev else (), dep_bytes=5e6))
+            workers.append(tid)
+        tasks.append(TaskSpec(id=f"r{epoch}",
+                              fn=SEBS_FUNCTIONS[epoch % len(SEBS_FUNCTIONS)],
+                              deps=tuple(workers), dep_bytes=1e6))
+        epoch += 1
+    return tasks
+
+
+def build_stream(name, device):
+    """One of phase 3d's streams as a fresh engine and its script of
+    calls: ``("tick", t)``, ``("submit", task, t)``, ``("submit_many",
+    tasks, t)``, ``("drain",)``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.carbon import CarbonIntensitySignal
+    from repro_torch.core.endpoint import scaled_testbed
+    from repro_torch.core.engine import OnlineEngine
+    from repro_torch.core.fairness import FairShare
+    from repro_torch.core.faults import FaultTrace
+    from repro_torch.core.predictor import TaskProfileStore
+    from repro_torch.core.region import RegionRouter, RegionSpec
+    from repro_torch.core.scheduler import TaskSpec
+    from repro_torch.core.testbed import (
+        BASE_PROFILES, MACHINE_COEFS, SEBS_FUNCTIONS, TestbedSim,
+    )
+    fns = SEBS_FUNCTIONS
+    if name == "poisson":
+        # placement_latency.py:100-126 at its largest fleet
+        eps = scaled_testbed(8)
+        store = seeded_store(eps, TaskProfileStore, BASE_PROFILES, fns)
+        eng = OnlineEngine(eps, None, policy="lookahead_mhra", alpha=0.5,
+                           window_s=POISSON_WINDOW_S, max_batch=256, store=store,
+                           monitoring=False, device=device)
+        n = POISSON_TASKS
+        arrivals = np.cumsum(np.random.default_rng(0).exponential(
+            1.0 / POISSON_RATE_HZ, size=n))
+        rng = np.random.default_rng(1)
+        dep_draw, dep_of = rng.random(n), rng.integers(1, 64, size=n)
+        inputs = ((eps[0].name, 1, 200e6, True),)
+        script = []
+        for i, arr in enumerate(arrivals):
+            deps = ()
+            if dep_draw[i] < 0.1 and i > 0:
+                deps = (f"t{max(0, i - int(dep_of[i]))}",)
+            script.append(("tick", float(arr)))
+            script.append(("submit", TaskSpec(
+                id=f"t{i}", fn=fns[i % len(fns)], inputs=inputs, deps=deps,
+                dep_bytes=1e6 if deps else 0.0), float(arr)))
+        return eng, script + [("drain",)]
+    if name == "long":
+        # placement_latency.py:196-254: fork-join epochs, pruned, 8 windows kept
+        eps = scaled_testbed(2)
+        store = seeded_store(eps, TaskProfileStore, BASE_PROFILES, fns)
+        eng = OnlineEngine(eps, None, policy="lookahead_mhra", alpha=0.5,
+                           window_s=1e9, max_batch=10**9, store=store,
+                           monitoring=False, prune=True, retain_windows=8,
+                           device=device)
+        tasks = epoch_dag_tasks(LONG_STREAM_TASKS, LONG_STREAM_WIDTH, TaskSpec, fns)
+        return eng, [("submit_many", tasks, 0.0), ("drain",)]
+    # "armed": a monitored stream with every fault and register armed
+    eps = [dataclasses.replace(e, cold_start_s=1.5, cold_start_j=30.0,
+                               keepalive_s=20.0) for e in scaled_testbed(8)]
+    names = [e.name for e in eps]
+    half = len(names) // 2
+    regions = {n: ("east" if i < half else "west") for i, n in enumerate(names)}
+    faults = FaultTrace(
+        down=churn_down(names, ARMED_HORIZON_S, 0.15, 30.0, seed=0,
+                        protect={names[0], names[half]}),
+        straggler_p=0.05, straggler_factor=3.0, seed=0)
+    profiles, coefs = replica_profiles(eps, BASE_PROFILES, MACHINE_COEFS)
+    sim = TestbedSim(eps, profiles=profiles, coefs=coefs, seed=0, faults=faults)
+    carbon = CarbonIntensitySignal.diurnal(
+        ["east", "west"], period_s=600.0, seed=2, regions=regions,
+    ).with_forecast_noise(0.1, seed=3)
+    router = RegionRouter([
+        RegionSpec("east", tuple(names[:half]), callers=ARMED_USERS[:2]),
+        RegionSpec("west", tuple(names[half:]), callers=ARMED_USERS[2:]),
+    ], mode="agent")
+    store = seeded_store(eps, TaskProfileStore, BASE_PROFILES, fns)
+    eng = OnlineEngine(
+        eps, sim, policy="carbon_mhra", alpha=0.5, window_s=30.0,
+        max_batch=ARMED_WINDOW, store=store, monitoring=True, device=device,
+        carbon=carbon, defer_horizon_s=60.0, faults=faults, spec_factor=2.0,
+        retry_backoff_s=5.0,
+        fairness=FairShare(budget_j=1500.0, window_s=30.0, mu=0.5),
+        admission="defer", regions=router)
+    n = ARMED_TASKS
+    rng = np.random.default_rng(4)
+    arrivals = np.cumsum(rng.exponential(1.0 / ARMED_RATE_HZ, size=n))
+    # one heavy user and three light ones
+    users = rng.choice(len(ARMED_USERS), size=n, p=[0.55, 0.15, 0.15, 0.15])
+    src = {"east": names[0], "west": names[half]}
+    script = []
+    for i, arr in enumerate(arrivals):
+        u = ARMED_USERS[int(users[i])]
+        home = "east" if u in ARMED_USERS[:2] else "west"
+        script.append(("tick", float(arr)))
+        script.append(("submit", TaskSpec(
+            id=f"a{i}", fn=fns[i % len(fns)], user=u,
+            inputs=((src[home], 1, 2e6, True),)), float(arr)))
+    return eng, script + [("drain",)]
+
+
+def run_stream(eng, script, kernel, ops):
+    """Drive one stream; return every window's digest (the whole
+    ``Schedule``, the tasks placed, the simulator's records), the summary
+    but its host clock, the placement calls (all, and those whose units
+    are all single tasks with at most one input: the window kernel's),
+    per-decision placement latencies, the window kernel's device ms (CUDA
+    events around each launch) and the window wrapper's host seconds."""
+    import numpy as np
+    import torch
+
+    digests, lat, sched_s = [], [], []
+    calls = {"place": 0, "fused_shape": 0, "fused_place_s": 0.0,
+             "window_wrapper_s": 0.0}
+    events = []
+    flush, place = eng.flush, eng.policy.place
+    k_window, o_window = kernel.greedy_window, ops.greedy_window
+
+    def recorded():
+        res = flush()
+        if res is not None:
+            s = res.schedule
+            digests.append((
+                res.index, res.submitted_at, tuple(t.id for t in res.tasks),
+                tuple(t.not_before for t in res.tasks), s.assignments,
+                s.objective, s.energy_j, s.makespan_s, s.transfer_j,
+                s.heuristic, s.timeline, s.carbon_g, res.attributed_j,
+                None if res.sim is None else tuple(
+                    (r.task_id, r.endpoint, r.worker_pid, r.t_start, r.t_end,
+                     r.energy_j, r.failed) for r in res.sim.records)))
+            lat.extend([res.scheduling_s / len(res.tasks) * 1e3] * len(res.tasks))
+            sched_s.append(res.scheduling_s)
+        return res
+
+    def counted(tasks, ctx, state=None):
+        t0 = time.perf_counter()
+        out = place(tasks, ctx, state=state)
+        dt = time.perf_counter() - t0
+        calls["place"] += 1
+        if tasks and all(len(t.inputs) <= 1 for t in tasks):
+            calls["fused_shape"] += 1
+            calls["fused_place_s"] += dt
+        return out
+
+    def timed_kernel(p, n_ep, n_units):
+        if p["base"].device.type != "cuda":
+            return k_window(p, n_ep, n_units)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = k_window(p, n_ep, n_units)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    def timed_window(*a, **k):
+        t0 = time.perf_counter()
+        out = o_window(*a, **k)
+        calls["window_wrapper_s"] += time.perf_counter() - t0
+        return out
+
+    eng.flush, eng.policy.place = recorded, counted
+    kernel.greedy_window, ops.greedy_window = timed_kernel, timed_window
+    try:
+        t0 = time.perf_counter()
+        for op, *args in script:
+            if op == "tick":
+                eng.tick(args[0])
+            elif op == "submit":
+                eng.submit(args[0], when=args[1])
+            elif op == "submit_many":
+                eng.submit_many(args[0], when=args[1])
+            else:
+                eng.drain()
+        wall = time.perf_counter() - t0
+    finally:
+        kernel.greedy_window, ops.greedy_window = k_window, o_window
+    if events:
+        torch.cuda.synchronize()
+    summary = summary_without_clock(eng.summary())
+    p50, p95 = np.percentile(lat, (50.0, 95.0)) if lat else (0.0, 0.0)
+    return {
+        "digests": digests, "summary": summary, "calls": calls, "wall_s": wall,
+        "windows": len(digests), "placement_s": float(sum(sched_s)),
+        "window_p50_s": float(np.percentile(sched_s, 50.0)),
+        "window_p95_s": float(np.percentile(sched_s, 95.0)),
+        "decision_p50_ms": float(p50), "decision_p95_ms": float(p95),
+        "kernel_ms": float(sum(a.elapsed_time(b) for a, b in events)),
+        "end": {"completed": dict(eng.completed), "wan_events": list(eng.wan_events),
+                "shed": sorted(eng.shed_ids),
+                "failed_permanently": sorted(eng.failed_permanently)},
+    }
+
+
+def summary_without_clock(summary) -> dict:
+    """An ``EngineSummary`` as a dict, but its host clock."""
+    import dataclasses
+    d = dataclasses.asdict(summary)
+    d.pop("scheduling_s")
+    return d
+
+
+def streaming_phase(card, kernel, ops, counters, zero_counts) -> dict:
+    """Phase 3d: three streams through ``OnlineEngine`` on the card
+    (``device=None``) and on the CPU (``device="cpu"``), equal window by
+    window and in the end state; the window kernel launched once per
+    placement call whose units are all single tasks with at most one
+    input, and never otherwise."""
+    out = {"card": card}
+    for name in STREAMS:
+        eng, script = build_stream(name, None)
+        zero_counts()
+        card_run = run_stream(eng, script, kernel, ops)
+        counts = {k: v for c in counters for k, v in c.items()}
+        eng, script = build_stream(name, "cpu")
+        cpu_run = run_stream(eng, script, kernel, ops)
+        launches = counts.pop("greedy_window")
+        if launches != card_run["calls"]["fused_shape"] or any(counts.values()):
+            raise AssertionError(
+                f"stream {name}: {launches} window launches for "
+                f"{card_run['calls']['fused_shape']} single-input placement calls "
+                f"(other kernels {counts})")
+        if card_run["windows"] != cpu_run["windows"]:
+            raise AssertionError(f"stream {name}: {card_run['windows']} windows on "
+                                 f"the card, {cpu_run['windows']} on the CPU")
+        for i, (a, b) in enumerate(zip(card_run["digests"], cpu_run["digests"])):
+            if a != b:
+                raise AssertionError(f"stream {name}: window {i} on the card "
+                                     f"differs from the CPU")
+        for k in ("summary", "end"):
+            if card_run[k] != cpu_run[k]:
+                raise AssertionError(f"stream {name}: the card's {k} differs "
+                                     f"from the CPU's")
+        c = card_run["calls"]
+        s = card_run["summary"]
+        row = {
+            "windows": card_run["windows"], "tasks": s["tasks"],
+            "placement_calls": c["place"], "launches": launches,
+            "placement_s": card_run["placement_s"],
+            "window_p50_s": card_run["window_p50_s"],
+            "window_p95_s": card_run["window_p95_s"],
+            "decision_p50_ms": card_run["decision_p50_ms"],
+            "decision_p95_ms": card_run["decision_p95_ms"],
+            "fused_calls_place_s": c["fused_place_s"],
+            "window_wrapper_s": c["window_wrapper_s"],
+            "kernel_ms": card_run["kernel_ms"], "wall_s": card_run["wall_s"],
+            "cpu_wall_s": cpu_run["wall_s"], "cpu_placement_s": cpu_run["placement_s"],
+            "summary": s,
+        }
+        out[name] = row
+        print(f"stream {name}: {row['windows']} windows, {s['tasks']} tasks placed, "
+              f"{c['place']} placement calls, {launches} greedy_window launches "
+              f"(= the single-input calls); card == CPU on every window's "
+              f"schedule, tasks and records, the summary, completions, WAN "
+              f"events, shed and failed tasks; placement {row['placement_s']:.3f} s "
+              f"(a window p50 {row['window_p50_s'] * 1e3:.3f} ms, p95 "
+              f"{row['window_p95_s'] * 1e3:.3f} ms; a decision p50 "
+              f"{row['decision_p50_ms']:.4f} ms, p95 {row['decision_p95_ms']:.4f} ms), "
+              f"of which the single-input calls {c['fused_place_s']:.3f} s, the "
+              f"window wrapper {c['window_wrapper_s']:.3f} s, the kernel "
+              f"{row['kernel_ms']:.3f} ms; wall {row['wall_s']:.3f} s (CPU twin "
+              f"{row['cpu_wall_s']:.3f} s) [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1805,6 +2146,10 @@ def main() -> int:
                                 counters, zero_counts)
     print(json.dumps({"registers": registers}), flush=True)
 
+    # ---- 3d. the streaming path: OnlineEngine over one live state --------
+    streams = streaming_phase(card, kernel, ops, counters, zero_counts)
+    print(json.dumps({"streams": streams}), flush=True)
+
     # ---- 4. timing ------------------------------------------------------
     p_full, n_ep, n_units_full = windows[N_TASKS]
     p_chk, _, n_units = windows[CHECK_TASKS]
@@ -1865,7 +2210,9 @@ def main() -> int:
          "library_ms": None,
          "registers_armed": {v: {k: w[k] for k in ("kernel_ms", "us_per_step",
                                                   "new_run_share", "bound_ms")}
-                             for v, w in registers["windows"].items()}},
+                             for v, w in registers["windows"].items()},
+         "stream_launches": {name: streams[name]["launches"] for name in STREAMS},
+         "stream_kernel_ms": {name: streams[name]["kernel_ms"] for name in STREAMS}},
     ]
     standalone = [
         {"name": "score_fleet", "route": "cuda", "source": CU_SOURCE,

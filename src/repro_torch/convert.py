@@ -24,6 +24,7 @@ from repro_torch.core.endpoint import EndpointSpec
 from repro_torch.core.fairness import FairnessLedger, FairnessWeights, FairShare
 from repro_torch.core.faults import FaultTrace, WarmWeights
 from repro_torch.core.predictor import RunningStat, TaskProfileStore
+from repro_torch.core.region import RegionRouter, RegionSpec
 from repro_torch.core.scheduler import SoAState, TaskSpec
 from repro_torch.models.common import ParamSpec, Params
 from repro_torch.models.lm import lm_specs
@@ -80,14 +81,16 @@ def carbon_weights(w) -> CarbonWeights:
 
 def carbon_signal(sig) -> CarbonIntensitySignal:
     """A carbon signal with the reference's traces (breakpoints, values,
-    period) and endpoint→region map."""
+    period), endpoint→region map and forecast-noise width."""
     traces = {
         name: CarbonTrace(np.array(t.times, dtype=np.float64),
                           np.array(t.gco2_per_kwh, dtype=np.float64),
                           t.period_s)
         for name, t in sig.traces.items()
     }
-    return CarbonIntensitySignal(traces, regions=dict(sig.regions))
+    out = CarbonIntensitySignal(traces, regions=dict(sig.regions))
+    out.forecast_sigma = float(sig.forecast_sigma)
+    return out
 
 
 def lookahead_weights(w) -> LookaheadWeights:
@@ -123,15 +126,42 @@ def fault_trace(f) -> FaultTrace:
                       float(f.straggler_p), float(f.straggler_factor), int(f.seed))
 
 
+def fair_share(share) -> FairShare:
+    """A fair-share policy, field by field."""
+    names = [f.name for f in dataclasses.fields(FairShare)]
+    return FairShare(**{n: getattr(share, n) for n in names})
+
+
+def region_specs(specs) -> list[RegionSpec]:
+    """Region specs, field by field (the WAN link maps copied)."""
+    names = [f.name for f in dataclasses.fields(RegionSpec)]
+    out = []
+    for r in specs:
+        kw = {n: getattr(r, n) for n in names}
+        for n in ("wan_bw_bps", "wan_latency_s", "wan_j_per_byte"):
+            kw[n] = dict(kw[n])
+        out.append(RegionSpec(**kw))
+    return out
+
+
+def region_router(router, carbon=None) -> RegionRouter:
+    """A router with the reference's regions (in its order), mode, home
+    and scoring constants; ``carbon`` is the port's signal, if the
+    reference's router carries one."""
+    return RegionRouter(
+        region_specs(router.regions.values()), mode=router.mode,
+        home=router.home, carbon=carbon, beta_queue=router.beta_queue,
+        rt_scale=router.rt_scale,
+    )
+
+
 def fairness_weights(w) -> FairnessWeights:
     return FairnessWeights({u: float(d) for u, d in w.debt.items()}, float(w.mu))
 
 
 def fairness_ledger(ledger) -> FairnessLedger:
     """A ledger with the reference's share, epoch, weights and accounts."""
-    names = [f.name for f in dataclasses.fields(FairShare)]
-    share = ledger.share
-    out = FairnessLedger(FairShare(**{n: getattr(share, n) for n in names}))
+    out = FairnessLedger(fair_share(ledger.share))
     out._epoch = int(ledger._epoch)
     out._w = dict(ledger._w)
     out._acct = {u: [float(a[0]), float(a[1]), int(a[2])]

@@ -1,4 +1,5 @@
-"""The batch pipeline (predict -> place -> run -> attribute -> learn):
+"""The placement pipeline (predict -> place -> run -> attribute -> learn),
+in batches and as a stream:
 
 - scheduler:  MHRA and Cluster MHRA (the fused window greedy, or the
               SoA engine for clustered and multi-input windows), the
@@ -9,5 +10,17 @@
 - clustering: agglomerative task clustering for Cluster MHRA
 - policy:     placement policies registrable by name
 - executor:   batch executor over the testbed simulator
+- engine:     online engine: arrival windows over one live ``SoAState``
+- region:     the region router above the endpoint fleet
 - testbed:    discrete-event simulator of the paper's Table-I testbed
 """
+from repro_torch.core.engine import EngineSummary, OnlineEngine, WindowResult
+from repro_torch.core.region import RegionRouter, RegionSpec
+
+__all__ = [
+    "EngineSummary",
+    "OnlineEngine",
+    "RegionRouter",
+    "RegionSpec",
+    "WindowResult",
+]

@@ -2,15 +2,18 @@
 
 Each endpoint (or the region it lives in) carries a piecewise-linear
 intensity trace in gCO2 per kWh; the scheduler reads a per-endpoint g/J
-snapshot of it at the moment a window is placed:
+snapshot of it at the moment a window is placed, and the online engine's
+deferral queue searches it for the fleet-mean trough:
 
 - :class:`CarbonTrace` — one region's trace: sorted breakpoint times (s)
   and gCO2/kWh values, linearly interpolated, optionally periodic (a
-  compressed "day" that repeats).
+  compressed "day" that repeats); point lookups, exact integrals and
+  interval means stay closed-form.
 - :class:`CarbonIntensitySignal` — a fleet-level bundle of traces with an
-  endpoint→region map and the seeded synthetic constructors
-  :meth:`~CarbonIntensitySignal.diurnal` and
-  :meth:`~CarbonIntensitySignal.step`.
+  endpoint→region map, the exact fleet-mean minimum over a horizon, the
+  seeded synthetic constructors :meth:`~CarbonIntensitySignal.diurnal`
+  and :meth:`~CarbonIntensitySignal.step`, and a seeded forecast view
+  (:meth:`~CarbonIntensitySignal.with_forecast_noise`).
 - :class:`CarbonWeights` — the per-endpoint g/J snapshot the scheduling
   engines consume: rates aligned with the engine's endpoint order plus
   the objective weight ``gamma`` (see ``scheduler.mhra(carbon=...)``).
@@ -79,6 +82,44 @@ class CarbonTrace:
         """Intensity as gCO2 per *joule* at time(s) ``t``."""
         return self.at(t) / J_PER_KWH
 
+    # -- exact piecewise integrals -----------------------------------------
+    def _knots_within(self, t0: float, t1: float) -> np.ndarray:
+        """All breakpoint times strictly inside (t0, t1), unwrapped for
+        periodic traces."""
+        if self.period_s is None:
+            k = self.times
+            return k[(k > t0) & (k < t1)]
+        p = self.period_s
+        n0 = int(np.floor(t0 / p)) - 1
+        n1 = int(np.floor(t1 / p)) + 1
+        shifts = np.arange(n0, n1 + 1, dtype=float) * p
+        k = (self.times[None, :] + shifts[:, None]).ravel()
+        return np.unique(k[(k > t0) & (k < t1)])
+
+    def integral(self, t0: float, t1: float) -> float:
+        """∫ intensity dt over [t0, t1] in gCO2·s/kWh — exact (trapezoid
+        over every linear segment)."""
+        if t1 < t0:
+            raise ValueError(f"integral needs t0 <= t1, got [{t0}, {t1}]")
+        if t1 == t0:
+            return 0.0
+        pts = np.concatenate(([t0], self._knots_within(t0, t1), [t1]))
+        return float(np.trapezoid(self.at(pts), pts))
+
+    def mean(self, t0: float, t1: float) -> float:
+        """Mean intensity (gCO2/kWh) over [t0, t1]; point value if t0==t1."""
+        if t1 == t0:
+            return float(self.at(t0))
+        return self.integral(t0, t1) / (t1 - t0)
+
+    def integral_rate(self, t0: float, t1: float) -> float:
+        """∫ rate dt in gCO2·s/J — multiply by watts for idle-power grams."""
+        return self.integral(t0, t1) / J_PER_KWH
+
+    def mean_rate(self, t0: float, t1: float) -> float:
+        """Mean gCO2/J over [t0, t1] — multiply by joules for task grams."""
+        return self.mean(t0, t1) / J_PER_KWH
+
 
 class CarbonIntensitySignal:
     """Per-endpoint/region carbon-intensity traces behind one lookup.
@@ -87,6 +128,12 @@ class CarbonIntensitySignal:
     regions (an endpoint whose name is itself a trace key needs no entry;
     a ``"default"`` trace, if present, catches everything else).
     """
+
+    #: Relative forecast-noise width this signal was built with (see
+    #: :meth:`with_forecast_noise`); 0 for ground-truth signals.  The
+    #: online engine widens its deferral margin by ``defer_sigma_k *
+    #: sigma``, so noisy forecasts defer less aggressively.
+    forecast_sigma: float = 0.0
 
     def __init__(self, traces: Mapping[str, CarbonTrace],
                  regions: Mapping[str, str] | None = None):
@@ -120,9 +167,45 @@ class CarbonIntensitySignal:
     def rate_g_per_j(self, endpoint: str, t: float) -> float:
         return self.trace_for(endpoint).rate(t)
 
+    def mean_rate(self, endpoint: str, t0: float, t1: float) -> float:
+        return self.trace_for(endpoint).mean_rate(t0, t1)
+
+    def integral_rate(self, endpoint: str, t0: float, t1: float) -> float:
+        return self.trace_for(endpoint).integral_rate(t0, t1)
+
+    def grams(self, endpoint: str, energy_j: float, t0: float, t1: float
+              ) -> float:
+        """gCO2 for ``energy_j`` joules spread uniformly over [t0, t1]."""
+        return energy_j * self.mean_rate(endpoint, t0, t1)
+
+    # -- fleet-level queries (temporal shifting) ----------------------------
     def rates_at(self, endpoints: Sequence[str], t: float) -> np.ndarray:
         """Per-endpoint g/J snapshot at time ``t`` (engine weight vector)."""
         return np.array([self.rate_g_per_j(n, t) for n in endpoints])
+
+    def fleet_mean_intensity(self, endpoints: Sequence[str], t: float) -> float:
+        return float(np.mean([self.intensity(n, t) for n in endpoints]))
+
+    def argmin_fleet_mean(self, endpoints: Sequence[str], t0: float, t1: float
+                          ) -> tuple[float, float]:
+        """(t_best, intensity) minimizing the fleet-mean intensity over
+        [t0, t1].  The fleet mean of piecewise-linear traces is itself
+        piecewise linear, so the exact minimum sits on a breakpoint or an
+        interval edge — no sampling grid, no tolerance."""
+        if t1 < t0:
+            raise ValueError(f"need t0 <= t1, got [{t0}, {t1}]")
+        names = list(endpoints)
+        cands = [np.array([t0, t1])]
+        distinct = {id(tr): tr for tr in (self.trace_for(n) for n in names)}
+        for tr in distinct.values():
+            cands.append(tr._knots_within(t0, t1))
+        pts = np.unique(np.concatenate(cands))
+        means = np.zeros_like(pts)
+        for n in names:
+            means += np.asarray(self.trace_for(n).at(pts), dtype=float)
+        means /= len(names)
+        k = int(np.argmin(means))
+        return float(pts[k]), float(means[k])
 
     @classmethod
     def diurnal(
@@ -177,6 +260,33 @@ class CarbonIntensitySignal:
             vals = np.array([low, low, high, high, low, low])
             traces[name] = CarbonTrace(ts, vals, period_s=period_s)
         return cls(traces, regions=regions)
+
+    def with_forecast_noise(self, sigma: float, seed: int = 0
+                            ) -> "CarbonIntensitySignal":
+        """The signal as a forecast would see it: every breakpoint's
+        intensity perturbed by seeded multiplicative Gaussian noise of
+        relative width ``sigma`` (floored at 1 gCO2/kWh so traces stay
+        valid).  ``sigma=0`` returns ``self`` unchanged; traces are
+        perturbed in sorted-name order, so the same ``(sigma, seed)``
+        always yields the same forecast.  The returned signal records
+        ``sigma`` in :attr:`forecast_sigma`."""
+        if sigma < 0:
+            raise ValueError(f"sigma must be non-negative, got {sigma}")
+        if sigma == 0.0:
+            return self
+        rng = np.random.default_rng(seed)
+        traces = {}
+        for name in sorted(self.traces):
+            t = self.traces[name]
+            noisy = t.gco2_per_kwh * rng.normal(
+                1.0, sigma, t.gco2_per_kwh.shape
+            )
+            traces[name] = CarbonTrace(
+                t.times.copy(), np.maximum(noisy, 1.0), t.period_s
+            )
+        out = CarbonIntensitySignal(traces, regions=self.regions)
+        out.forecast_sigma = sigma
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,23 +1,39 @@
-"""Fault model pieces the scheduler reads: the scripted endpoint down
-intervals of a :class:`FaultTrace` and the warm-pool scoring weights
-threaded into the MHRA objective.
+"""Fault model for the online engine and testbed: endpoint churn
+(fail/recover and join/leave), straggler runtime inflation, and the
+warm-pool scoring weights threaded into the MHRA objective.
+
+A :class:`FaultTrace` is a seeded, immutable script of fleet misbehavior,
+shared by the simulator (which kills in-flight tasks and inflates
+straggler runtimes) and the engine (which masks dead endpoints from
+candidate scoring when ``fault_aware``).  An empty trace is a bitwise
+no-op on every path: straggler draws come from a crc32 hash of ``(seed,
+task_id)``, never from the testbed's noise RNG.
 
 Down intervals are half-open ``[d0, d1)`` seconds, sorted and
-non-overlapping per endpoint.  :class:`WarmWeights` is a frozen
-per-placement-call snapshot (like ``CarbonWeights``/``LookaheadWeights``),
-so the SoA run-memoization key does not change: the weights are constant
-for the whole greedy call.  Units: seconds and joules throughout.
+non-overlapping per endpoint; an endpoint joining at ``t_j`` is down over
+``[0, t_j)``, one leaving at ``t_l`` over ``[t_l, inf)``.
+:class:`WarmWeights` is a frozen per-placement-call snapshot (like
+``CarbonWeights``/``LookaheadWeights``), so the SoA run-memoization key
+does not change: the weights are constant for the whole greedy call.
+Units: seconds and joules throughout.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import zlib
 from typing import TYPE_CHECKING, Mapping, Sequence
 
 if TYPE_CHECKING:
     from repro_torch.core.scheduler import SoAState
 
 INF = float("inf")
+
+
+def _hash_unit(seed: int, key: str) -> float:
+    """Deterministic uniform draw in [0, 1) from (seed, key) — independent
+    of every RNG stream in the simulator."""
+    return zlib.crc32(f"{seed}:{key}".encode()) / 2 ** 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +91,22 @@ class FaultTrace:
             self, "_starts", {n: [a for a, _ in ivs] for n, ivs in norm.items()}
         )
 
+    @classmethod
+    def empty(cls) -> "FaultTrace":
+        return cls()
+
+    def __bool__(self) -> bool:
+        return bool(self.down) or self.straggler_p > 0.0
+
+    # -- churn queries ------------------------------------------------------
+    def is_up(self, name: str, t: float) -> bool:
+        """Is ``name`` up at time ``t``? (half-open: up at exactly d1)."""
+        ivs = self.down.get(name)
+        if not ivs:
+            return True
+        i = bisect.bisect_right(self._starts[name], t) - 1
+        return i < 0 or t >= ivs[i][1]
+
     def down_overlap(
         self, name: str, start: float, end: float
     ) -> tuple[float, float] | None:
@@ -92,6 +124,33 @@ class FaultTrace:
             if b > start:
                 return (a, b)
         return None
+
+    def next_up(self, name: str, t: float) -> float:
+        """Earliest time >= ``t`` at which ``name`` is up (``t`` itself if
+        already up; ``inf`` if it left the fleet for good)."""
+        ivs = self.down.get(name)
+        if not ivs:
+            return t
+        i = bisect.bisect_right(self._starts[name], t) - 1
+        up = t
+        for a, b in ivs[max(i, 0):]:
+            if a <= up < b:
+                up = b
+            elif a > up:
+                break
+        return up
+
+    # -- straggler draws ----------------------------------------------------
+    def straggle_factor(self, task_id: str) -> float:
+        """Runtime multiplier for ``task_id``: ``straggler_factor`` with
+        probability ``straggler_p``, else 1.0.  Pure hash of
+        ``(seed, task_id)`` — the same task straggles (or not)
+        identically across runs, engines, and retries."""
+        if self.straggler_p <= 0.0:
+            return 1.0
+        if _hash_unit(self.seed, task_id) < self.straggler_p:
+            return self.straggler_factor
+        return 1.0
 
 
 @dataclasses.dataclass(frozen=True)

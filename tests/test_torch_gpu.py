@@ -717,3 +717,40 @@ def test_mhra_on_card_with_registers_matches_cpu_and_soa(cuda_device, replicas,
     for f in SCHEDULE_FIELDS:
         assert getattr(a, f) == getattr(b, f) == getattr(c, f), f
     assert b.carbon_g is not None
+
+
+@pytest.mark.gpu
+def test_online_arrivals_stream_on_card_matches_cpu(cuda_device):
+    """The online-arrivals stream (``examples/online_arrivals.py``: the
+    Table-I testbed, 4 windows of 140, monitoring on) through the port's
+    ``OnlineEngine`` on the card and on the CPU: one window launch a
+    window against the live state, and every window's schedule, records
+    and attributed joules, the learned profiles and the summary equal."""
+    from repro_torch.core.endpoint import table1_testbed
+    from repro_torch.core.engine import OnlineEngine
+    from repro_torch.core.scheduler import TaskSpec
+    from repro_torch.core.testbed import SEBS_FUNCTIONS, TestbedSim
+
+    runs = []
+    for device in (None, "cpu"):
+        eps = table1_testbed()
+        eng = OnlineEngine(eps, TestbedSim(eps, seed=0), policy="mhra",
+                           alpha=0.2, window_s=30.0, max_batch=512,
+                           monitoring=True, device=device)
+        out = []
+        for w in range(4):
+            eng.submit_many([TaskSpec(id=f"w{w}t{i}",
+                                      fn=SEBS_FUNCTIONS[i % len(SEBS_FUNCTIONS)])
+                             for i in range(140)])
+            before = kernel.LAUNCHES["greedy_window"]
+            res = eng.flush()
+            launched = kernel.LAUNCHES["greedy_window"] - before
+            assert launched == (1 if device is None else 0)
+            out.append((tuple(getattr(res.schedule, f) for f in SCHEDULE_FIELDS),
+                        res.attributed_j,
+                        [(r.task_id, r.endpoint, r.t_start, r.t_end, r.energy_j)
+                         for r in res.sim.records]))
+        s = eng.summary()
+        runs.append((out, eng.store.stats(), s.energy_j, s.makespan_s,
+                     s.attributed_j, s.objective))
+    assert runs[0] == runs[1]

@@ -13,6 +13,7 @@ from _torch_common import reference_case, to_port
 from repro_torch import resolve_device
 from repro_torch.core import scheduler as port_sched
 from repro_torch.core.endpoint import table1_testbed
+from repro_torch.core.engine import OnlineEngine
 from repro_torch.core.executor import GreenFaaSExecutor
 from repro_torch.core.testbed import TestbedSim as PortSim
 from repro_torch.kernels.placement import ops
@@ -20,8 +21,8 @@ from repro_torch.launch.serve import serve_batch
 from repro_torch.models.registry import get_api
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 _IMPORTS_REFERENCE = re.compile(
     r"^\s*(import\s+repro(\.|\s|,|$)|from\s+repro(\.|\s+import))", re.M)
 _IMPORTS_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
@@ -32,6 +33,7 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.executor\n"
+        "import repro_torch.core.engine, repro_torch.core.region\n"
         "import repro_torch.kernels.placement.ops\n"
         "import repro_torch.launch.serve, repro_torch.models.registry\n"
         "assert not any(m == 'repro' or m.startswith('repro.') "
@@ -61,6 +63,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         GreenFaaSExecutor(table1_testbed(), PortSim())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OnlineEngine(table1_testbed(), PortSim())
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.greedy_window(1, {}, {}, {})
     assert resolve_device("cpu") == torch.device("cpu")
