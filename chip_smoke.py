@@ -67,6 +67,17 @@ The batch placement path (the first slice):
    speculation.  Each prints its windows, launches, placement seconds (a
    window's p50/p95 and a decision's), the kernel's device ms and the
    wall seconds.
+3e. The paper's evaluation: the six scenarios of
+   ``examples/torch_paper_eval.py`` (synthetic, the molecular-design DAG,
+   carbon, chaos, multi-tenant, geo) at the paper's sizes (1,792 tasks; the
+   DAG in 4 waves of 48/48/96), every policy row and every paper gate,
+   through ``run_policy``/``evaluate_trace`` on the card (``device=None``;
+   the DAG's edges checked on the card's windows) and on the CPU
+   (``device="cpu"``), equal on every ``PolicyRun`` field but
+   ``scheduling_s`` and ``engine``.  Each prints its wall seconds, its
+   placement seconds split into the host SoA engine's calls, the window
+   wrapper and the kernel (CUDA events), its window launches (counts zeroed
+   just before, read just after) and the device's idle share.
 4. Timing with CUDA events after warm-up, at the main path's shapes.
 
 The zamba2-2.7b serving path (the second slice):
@@ -193,6 +204,10 @@ POISSON_TASKS, POISSON_RATE_HZ, POISSON_WINDOW_S = 4096, 64.0, 0.25
 LONG_STREAM_TASKS, LONG_STREAM_WIDTH = 16384, 127
 ARMED_TASKS, ARMED_WINDOW, ARMED_RATE_HZ, ARMED_HORIZON_S = 2048, 256, 16.0, 300.0
 ARMED_USERS = ("u0", "u1", "u2", "u3")
+# phase 3e: the paper's evaluation (examples/torch_paper_eval.py, the twin of
+# examples/paper_eval.py) at the reference's paper sizes: 1,792 tasks a
+# scenario, the DAG in 4 waves of 48 docks, 48 simulations and 96 inferences
+EVAL_SIZE = "full"
 # NVIDIA's H100 SXM data sheet, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12   # device memory rate
 FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
@@ -1582,34 +1597,6 @@ def registers_phase(dev, card, sched, eps, store, tm, kernel, ops, counters,
 # ---------------------------------------------------------------------------
 
 
-def churn_down(names, horizon_s, churn, mttr_s, seed, protect):
-    """Seeded endpoint churn over ``[0, horizon_s)``, drawn as the
-    reference's ``workloads/faults.py::churn_fault_trace`` draws it:
-    per endpoint, a first outage inside the busy span, down times
-    Exp(mttr) in [mttr/2, 4 mttr], up times Exp(mttr (1 - churn) / churn).
-    Returns the ``down`` mapping of a ``FaultTrace``."""
-    import zlib
-
-    import numpy as np
-    down = {}
-    up_mean = mttr_s * (1.0 - churn) / churn
-    for name in names:
-        if name in protect:
-            continue
-        rng = np.random.default_rng(
-            (seed * 0x9E3779B1 + zlib.crc32(name.encode())) % 2 ** 32)
-        ivs = []
-        t = float(rng.uniform(0.05, 0.45)) * horizon_s
-        while t < horizon_s:
-            d = min(max(float(rng.exponential(mttr_s)), 0.5 * mttr_s),
-                    4.0 * mttr_s)
-            ivs.append((t, t + d))
-            t += d + float(rng.exponential(up_mean))
-        if ivs:
-            down[name] = tuple(ivs)
-    return down
-
-
 def epoch_dag_tasks(n_tasks, width, TaskSpec, SEBS_FUNCTIONS):
     """Fork-join epochs (``benchmarks/placement_latency.py:196-224``):
     ``width`` workers fan out of the previous epoch's reducer with 5 MB
@@ -1644,13 +1631,13 @@ def build_stream(name, device):
     from repro_torch.core.endpoint import scaled_testbed
     from repro_torch.core.engine import OnlineEngine
     from repro_torch.core.fairness import FairShare
-    from repro_torch.core.faults import FaultTrace
     from repro_torch.core.predictor import TaskProfileStore
     from repro_torch.core.region import RegionRouter, RegionSpec
     from repro_torch.core.scheduler import TaskSpec
     from repro_torch.core.testbed import (
         BASE_PROFILES, MACHINE_COEFS, SEBS_FUNCTIONS, TestbedSim,
     )
+    from repro_torch.workloads.faults import churn_fault_trace
     fns = SEBS_FUNCTIONS
     if name == "poisson":
         # placement_latency.py:100-126 at its largest fleet
@@ -1691,10 +1678,9 @@ def build_stream(name, device):
     names = [e.name for e in eps]
     half = len(names) // 2
     regions = {n: ("east" if i < half else "west") for i, n in enumerate(names)}
-    faults = FaultTrace(
-        down=churn_down(names, ARMED_HORIZON_S, 0.15, 30.0, seed=0,
-                        protect={names[0], names[half]}),
-        straggler_p=0.05, straggler_factor=3.0, seed=0)
+    faults = churn_fault_trace(names, ARMED_HORIZON_S, churn=0.15, mttr_s=30.0,
+                               seed=0, protect=(names[0], names[half]),
+                               straggler_p=0.05, straggler_factor=3.0)
     profiles, coefs = replica_profiles(eps, BASE_PROFILES, MACHINE_COEFS)
     sim = TestbedSim(eps, profiles=profiles, coefs=coefs, seed=0, faults=faults)
     carbon = CarbonIntensitySignal.diurnal(
@@ -1893,6 +1879,179 @@ def streaming_phase(card, kernel, ops, counters, zero_counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the paper's evaluation, six scenarios replayed per policy
+# ---------------------------------------------------------------------------
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (the repository's ``src`` on the
+    path)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod     # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bits(x):
+    """``x`` with every float as its hex string: equal bits compare equal,
+    NaN included."""
+    if isinstance(x, float):
+        return x.hex()
+    if isinstance(x, dict):
+        return {k: bits(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [bits(v) for v in x]
+    return x
+
+
+def policy_run_digest(run) -> dict:
+    """Every ``PolicyRun`` field but the host clock (``scheduling_s``) and
+    the device it ran on (``engine``), floats as bits."""
+    import dataclasses
+    d = dataclasses.asdict(run)
+    d.pop("scheduling_s")
+    d.pop("engine")
+    return bits(d)
+
+
+def scenario_digest(scn) -> dict:
+    """A scenario's tables (every row), its payload numbers and its gated
+    runs, as compared between the card and the CPU."""
+    return {
+        "results": [(r.workload, r.n_tasks, bits(r.alpha), r.baseline,
+                     [policy_run_digest(x) for x in r.rows]) for r in scn.results],
+        "extra": bits(scn.extra),
+        "gated": [(label, policy_run_digest(run)) for label, run, _ in scn.gated],
+    }
+
+
+def first_difference(a, b, path="") -> str:
+    """Where two digests first differ, as a path of keys and indices."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in a.keys() | b.keys():
+            if a.get(k) != b.get(k):
+                return first_difference(a.get(k), b.get(k), f"{path}.{k}")
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+    return f"{path}: {a!r} != {b!r}"
+
+
+def evaluation_phase(card, sched, kernel, ops, counters, zero_counts) -> dict:
+    """Phase 3e: the six scenarios of ``examples/torch_paper_eval.py`` at
+    ``EVAL_SIZE``, every policy row and every paper gate, through
+    ``run_policy``/``evaluate_trace`` on the card (``device=None``) and
+    again on the CPU (``device="cpu"``), equal on every ``PolicyRun``
+    field but ``scheduling_s`` and ``engine``, in every row, payload number
+    and gated run.  The card's run is timed: wall seconds, placement
+    seconds (every run's ``PolicyRun.scheduling_s``) split into the host
+    SoA engine's calls (``_mhra_soa``), the window path's (``_mhra_fused``:
+    host prep, then the window wrapper ``ops.greedy_window``, then the
+    kernel, CUDA events around each launch), the window kernel's launches
+    (counts zeroed just before, read just after; one per wrapper call) and
+    the device's idle share of the wall time (1 - kernel time / wall; the
+    kernel is the only device work of this path besides the wrapper's
+    copies)."""
+    import torch
+
+    from repro_torch.core import evaluate
+    pe = load_example("torch_paper_eval")
+    out = {"card": card, "size": EVAL_SIZE}
+    for name in pe.SCENARIOS:
+        t = {"runs": 0, "placement_s": 0.0, "soa_s": 0.0, "soa_calls": 0,
+             "fused_s": 0.0, "fused_calls": 0, "wrapper_s": 0.0, "wrapper_calls": 0}
+        events = []
+        orig = {"run_policy": evaluate.run_policy, "_mhra_soa": sched._mhra_soa,
+                "_mhra_fused": sched._mhra_fused, "ops_window": ops.greedy_window,
+                "kernel_window": kernel.greedy_window}
+
+        def counted_run(*a, **k):
+            res = orig["run_policy"](*a, **k)
+            run = res[0] if isinstance(res, tuple) else res
+            t["runs"] += 1
+            t["placement_s"] += run.scheduling_s
+            return res
+
+        def host_timed(key, fn):
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    t[f"{key}_s"] += time.perf_counter() - t0
+                    t[f"{key}_calls"] += 1
+            return timed
+
+        def timed_kernel(p, n_ep, n_units):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            res = orig["kernel_window"](p, n_ep, n_units)
+            ev[1].record()
+            events.append(ev)
+            return res
+
+        evaluate.run_policy = pe.run_policy = counted_run
+        sched._mhra_soa = host_timed("soa", orig["_mhra_soa"])
+        sched._mhra_fused = host_timed("fused", orig["_mhra_fused"])
+        ops.greedy_window = host_timed("wrapper", orig["ops_window"])
+        kernel.greedy_window = timed_kernel
+        zero_counts()
+        try:
+            t0 = time.perf_counter()
+            card_scn = pe.RUNNERS[name](EVAL_SIZE, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            evaluate.run_policy = pe.run_policy = orig["run_policy"]
+            sched._mhra_soa, sched._mhra_fused = orig["_mhra_soa"], orig["_mhra_fused"]
+            ops.greedy_window, kernel.greedy_window = orig["ops_window"], orig["kernel_window"]
+        counts = {k: v for c in counters for k, v in c.items()}
+        launches = counts.pop("greedy_window")
+        if launches != t["wrapper_calls"] or any(counts.values()):
+            raise AssertionError(
+                f"evaluation {name}: {launches} window launches for "
+                f"{t['wrapper_calls']} window wrapper calls (other kernels {counts})")
+        if name == "moldesign" and launches < 1:
+            raise AssertionError("evaluation moldesign: no window launch")
+        t0 = time.perf_counter()
+        cpu_scn = pe.RUNNERS[name](EVAL_SIZE, "cpu")
+        cpu_wall = time.perf_counter() - t0
+        a, b = scenario_digest(card_scn), scenario_digest(cpu_scn)
+        if a != b:
+            raise AssertionError(f"evaluation {name}: the card differs from the "
+                                 f"CPU at {first_difference(a, b)}")
+        engines = {r.engine for res in card_scn.results for r in res.rows} - {"n/a"}
+        if engines - {"cuda"}:
+            raise AssertionError(f"evaluation {name}: rows placed on {engines}")
+        kernel_ms = float(sum(x.elapsed_time(y) for x, y in events))
+        rows = sum(len(res.rows) for res in card_scn.results)
+        row = {
+            "rows": rows, "runs": t["runs"], "launches": launches,
+            "wall_s": wall, "placement_s": t["placement_s"],
+            "soa_engine_s": t["soa_s"], "soa_engine_calls": t["soa_calls"],
+            "fused_calls_s": t["fused_s"], "fused_calls": t["fused_calls"],
+            "window_wrapper_s": t["wrapper_s"], "kernel_ms": kernel_ms,
+            "idle_share": 1.0 - kernel_ms / (wall * 1e3),
+            "cpu_wall_s": cpu_wall, "extra": card_scn.extra,
+        }
+        out[name] = row
+        print(f"evaluation {name} ({EVAL_SIZE}): {rows} rows, {t['runs']} runs, card "
+              f"== CPU on every PolicyRun field but scheduling_s and engine, every "
+              f"payload number and gated run; every paper gate passed; "
+              f"{launches} greedy_window launches; wall {wall:.3f} s (CPU twin "
+              f"{cpu_wall:.3f} s); placement {t['placement_s']:.3f} s, of which the "
+              f"host SoA engine {t['soa_s']:.3f} s ({t['soa_calls']} calls), the "
+              f"window path {t['fused_s']:.3f} s ({t['fused_calls']} calls: window "
+              f"wrapper {t['wrapper_s']:.3f} s, kernel {kernel_ms:.3f} ms); device "
+              f"idle {row['idle_share']:.6f} of the wall [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1933,8 +2092,10 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
+    # numpy's version too: seeded workloads draw through its generators
+    # (the multi-tenant trace's Zipf ranks differ between its versions)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
+          f"{np.__version__} python {sys.version.split()[0]}", flush=True)
 
     # ---- 1. build: one nvcc per source, all started together ----------
     t0 = time.perf_counter()
@@ -2149,6 +2310,10 @@ def main() -> int:
     # ---- 3d. the streaming path: OnlineEngine over one live state --------
     streams = streaming_phase(card, kernel, ops, counters, zero_counts)
     print(json.dumps({"streams": streams}), flush=True)
+
+    # ---- 3e. the paper's evaluation: six scenarios, every policy row -------
+    evaluation = evaluation_phase(card, sched, kernel, ops, counters, zero_counts)
+    print(json.dumps({"evaluation": evaluation}), flush=True)
 
     # ---- 4. timing ------------------------------------------------------
     p_full, n_ep, n_units_full = windows[N_TASKS]

@@ -3,11 +3,12 @@
 Every function reads its argument by attribute, or takes plain numpy
 arrays (it never imports the JAX package), so the parity tests can hand
 the reference's endpoints, tasks, profile store, live state, scoring
-snapshots and their sources, model parameters and serving caches to the
-port and compare like with like.
+snapshots and their sources, workload traces, model parameters and
+serving caches to the port and compare like with like.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -28,6 +29,7 @@ from repro_torch.core.region import RegionRouter, RegionSpec
 from repro_torch.core.scheduler import SoAState, TaskSpec
 from repro_torch.models.common import ParamSpec, Params
 from repro_torch.models.lm import lm_specs
+from repro_torch.workloads.trace import WorkloadTrace
 
 
 def endpoints(eps) -> list[EndpointSpec]:
@@ -142,6 +144,32 @@ def region_specs(specs) -> list[RegionSpec]:
             kw[n] = dict(kw[n])
         out.append(RegionSpec(**kw))
     return out
+
+
+def workload_trace(trace) -> WorkloadTrace:
+    """A workload trace with the reference's name, tasks, arrivals,
+    endpoints, per-function profiles and signatures; its ``meta`` copied,
+    with the region specs and the carbon signal (the geo trace's) as the
+    port's."""
+    meta = {}
+    for k, v in trace.meta.items():
+        if k == "region_specs":
+            meta[k] = region_specs(v)
+        elif k == "carbon_signal":
+            meta[k] = carbon_signal(v)
+        else:
+            meta[k] = copy.deepcopy(v)
+    return WorkloadTrace(
+        name=trace.name,
+        tasks=tasks(trace.tasks),
+        arrivals=np.array(trace.arrivals, dtype=np.float64),
+        endpoints=endpoints(trace.endpoints),
+        profiles={fn: {m: (float(rt), float(w)) for m, (rt, w) in per.items()}
+                  for fn, per in trace.profiles.items()},
+        signatures={fn: np.array(sig, dtype=np.float64)
+                    for fn, sig in trace.signatures.items()},
+        meta=meta,
+    )
 
 
 def region_router(router, carbon=None) -> RegionRouter:

@@ -13,6 +13,8 @@ in batches and as a stream:
 - engine:     online engine: arrival windows over one live ``SoAState``
 - region:     the region router above the endpoint fleet
 - testbed:    discrete-event simulator of the paper's Table-I testbed
+- database, report: the task/energy DB and its energy reports (§III-G)
+- evaluate:   one workload trace replayed per policy: EDP, GPS-UP, gCO2
 """
 from repro_torch.core.engine import EngineSummary, OnlineEngine, WindowResult
 from repro_torch.core.region import RegionRouter, RegionSpec

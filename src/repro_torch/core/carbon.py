@@ -13,7 +13,9 @@ deferral queue searches it for the fleet-mean trough:
   endpoint→region map, the exact fleet-mean minimum over a horizon, the
   seeded synthetic constructors :meth:`~CarbonIntensitySignal.diurnal`
   and :meth:`~CarbonIntensitySignal.step`, and a seeded forecast view
-  (:meth:`~CarbonIntensitySignal.with_forecast_noise`).
+  (:meth:`~CarbonIntensitySignal.with_forecast_noise`), and a real-trace
+  JSON round trip (:meth:`~CarbonIntensitySignal.to_json`,
+  :meth:`~CarbonIntensitySignal.from_json`).
 - :class:`CarbonWeights` — the per-endpoint g/J snapshot the scheduling
   engines consume: rates aligned with the engine's endpoint order plus
   the objective weight ``gamma`` (see ``scheduler.mhra(carbon=...)``).
@@ -25,6 +27,8 @@ constructors are seeded — same seed, same signal, bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -119,6 +123,21 @@ class CarbonTrace:
     def mean_rate(self, t0: float, t1: float) -> float:
         """Mean gCO2/J over [t0, t1] — multiply by joules for task grams."""
         return self.mean(t0, t1) / J_PER_KWH
+
+    def to_payload(self) -> dict:
+        return {
+            "times_s": self.times.tolist(),
+            "gco2_per_kwh": self.gco2_per_kwh.tolist(),
+            "period_s": self.period_s,
+        }
+
+    @classmethod
+    def from_payload(cls, d: Mapping) -> "CarbonTrace":
+        return cls(
+            times=np.asarray(d["times_s"], dtype=float),
+            gco2_per_kwh=np.asarray(d["gco2_per_kwh"], dtype=float),
+            period_s=d.get("period_s"),
+        )
 
 
 class CarbonIntensitySignal:
@@ -287,6 +306,34 @@ class CarbonIntensitySignal:
         out = CarbonIntensitySignal(traces, regions=self.regions)
         out.forecast_sigma = sigma
         return out
+
+    def to_payload(self) -> dict:
+        return {
+            "traces": {k: t.to_payload() for k, t in self.traces.items()},
+            "regions": dict(self.regions),
+        }
+
+    def to_json(self, path: str) -> dict:
+        payload = self.to_payload()
+        p = pathlib.Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(payload, indent=2, sort_keys=True))
+        return payload
+
+    @classmethod
+    def from_payload(cls, d: Mapping) -> "CarbonIntensitySignal":
+        return cls(
+            {k: CarbonTrace.from_payload(t) for k, t in d["traces"].items()},
+            regions=d.get("regions") or {},
+        )
+
+    @classmethod
+    def from_json(cls, path: str) -> "CarbonIntensitySignal":
+        """Load a real-trace JSON file: ``{"traces": {region: {"times_s":
+        [...], "gco2_per_kwh": [...], "period_s": null|float}},
+        "regions": {endpoint: region}}`` (the format :meth:`to_json`
+        writes)."""
+        return cls.from_payload(json.loads(pathlib.Path(path).read_text()))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -754,3 +754,42 @@ def test_online_arrivals_stream_on_card_matches_cpu(cuda_device):
         runs.append((out, eng.store.stats(), s.energy_j, s.makespan_s,
                      s.attributed_j, s.objective))
     assert runs[0] == runs[1]
+
+
+def _scenario_on_card_and_cpu(scenario):
+    """Every run of one ``paper_eval`` scenario at its tiny size on the card
+    and on the CPU: the rows, and the window launches on the card."""
+    from _torch_eval import PORT, RUNS, run_bits, run_case
+    launches = 0
+    for label, *_ in RUNS[scenario]:
+        before = kernel.LAUNCHES["greedy_window"]
+        card = run_case(PORT, scenario, label, where={"device": None})
+        launches += kernel.LAUNCHES["greedy_window"] - before
+        cpu = run_case(PORT, scenario, label)
+        assert run_bits(card) == run_bits(cpu), label
+        assert card.engine == ("n/a" if cpu.engine == "n/a" else "cuda")
+    return launches
+
+
+@pytest.mark.gpu
+def test_paper_eval_dag_scenario_on_card_matches_cpu(cuda_device):
+    """The molecular-design DAG scenario (``examples/paper_eval.py`` at its
+    tiny size, every policy row) through ``run_policy`` on the card and on
+    the CPU: every ``PolicyRun`` field but the clock and the engine label
+    equal, at least one window launch, and every DAG edge honored on the
+    card's windows."""
+    from _torch_eval import PORT, run_case
+    from repro_torch.core.evaluate import verify_dag_order
+    assert _scenario_on_card_and_cpu("moldesign") >= 1
+    _, windows = run_case(PORT, "moldesign", "lookahead_mhra",
+                          where={"device": None}, return_windows=True)
+    assert verify_dag_order(windows) > 0
+
+
+@pytest.mark.gpu
+def test_paper_eval_synthetic_scenario_on_card_matches_cpu(cuda_device, capsys):
+    """The synthetic scenario the same way; its windows hold two-input io
+    tasks, so they go to the host SoA engine: the launch count is printed."""
+    launches = _scenario_on_card_and_cpu("synthetic")
+    with capsys.disabled():
+        print(f"\nsynthetic scenario (tiny): {launches} greedy_window launches")

@@ -316,11 +316,14 @@ def test_churn_stragglers_warm_pool_monitored(fault_aware):
 
 
 def test_smoke_churn_script_matches_the_reference_generator():
-    """``chip_smoke.py`` builds its armed stream's churn with a copy of
-    the reference's ``churn_fault_trace`` (the smoke imports nothing of
-    the reference): the same down intervals, seed for seed."""
+    """``chip_smoke.py`` builds its armed stream's churn with the port's
+    ``workloads/faults.py::churn_fault_trace`` (the smoke imports nothing of
+    the reference): the same down intervals as the reference's generator,
+    seed for seed, and the armed stream's fault script is that trace."""
     import importlib.util
     import pathlib
+
+    from repro_torch.workloads.faults import churn_fault_trace as port_churn
 
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -331,6 +334,13 @@ def test_smoke_churn_script_matches_the_reference_generator():
         protect = {names[0], names[16]}
         ref = churn_fault_trace(names, 300.0, churn=0.15, mttr_s=30.0,
                                 seed=seed, protect=protect)
-        port = PortTrace(down=cs.churn_down(names, 300.0, 0.15, 30.0, seed,
-                                            protect))
+        port = port_churn(names, 300.0, churn=0.15, mttr_s=30.0, seed=seed,
+                          protect=protect)
         assert port.down == ref.down
+    eng, _ = cs.build_stream("armed", "cpu")
+    ref = churn_fault_trace(names, cs.ARMED_HORIZON_S, churn=0.15, mttr_s=30.0,
+                            seed=0, protect=(names[0], names[16]),
+                            straggler_p=0.05, straggler_factor=3.0)
+    assert eng.faults.down == ref.down
+    assert (eng.faults.straggler_p, eng.faults.straggler_factor, eng.faults.seed) == (
+        ref.straggler_p, ref.straggler_factor, ref.seed)
