@@ -144,6 +144,33 @@ The falcon-mamba-7b loss forward and serving paths (the third slice):
     gen_tokens=128, seed=0)``: 64 fused-scan launches, all in the
     prefill; a trace of a prefill and 4 decode steps (64 and 0 launches).
 
+The dense family (the sixth slice): granite-3-2b, the reference's
+serving default, at full width; starcoder2-7b and qwen3-14b through the
+same two kernels:
+
+14. Flash attention and flash-decode against their plain versions at each
+    dense config's serving shapes: flash at b=8, s=2048 (granite 32 heads
+    of 64 over 8 kv heads, GQA group 4; starcoder2 36 of 128 over 4, group
+    9; qwen3 40 of 128 over 8, group 5), bf16, causal; decode against a
+    2,176-entry cache with ragged lengths (1, around the planned split,
+    the whole cache), then with a NaN tail past them, which must change
+    nothing; bf16 tolerance 2e-2.  Each timed by CUDA events beside its
+    plain version and SDPA (``enable_gqa=True``), with the bound from the
+    shapes (``attention_bound``).
+15. The reduced granite, starcoder2 and qwen3 slices on the card against
+    the CPU (prefill at 128 and 4 decode steps): logits within the CPU
+    tests' bounds (0.11, 0.17, 0.09).
+16. Main path: ``serve_batch("granite-3-2b", batch=8, prompt_len=2048,
+    gen_tokens=128, seed=0)`` at full width and depth; counts zeroed just
+    before and read just after (40 flash launches in the prefill, 40
+    decode launches in each of the 127 decode steps, no other kernel);
+    every logit finite; prefill seconds, decode tokens/s, peak memory;
+    a trace of a prefill and 4 decode steps (40 and 160 launches).
+17. starcoder2-7b and qwen3-14b the same way at b=8, prompt 2048, 16 new
+    tokens, each after the previous model is freed: every logit finite,
+    the launches (32 / 40 a prefill, as many a decode step), prefill
+    seconds and peak memory.
+
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -243,6 +270,16 @@ FUSED_TOL = (1e-4, 1e-4 + 2.0 ** -7)
 # places, as the port and the reference without excess precision do, so
 # the bounds of that comparison (tests/test_torch_falcon_mamba.py, (c))
 FM_LOSS_TOL, FM_LOGIT_TOL, FM_LOGIT_MEAN = 4e-4, 0.125, 2e-3
+
+# the dense family (the sixth slice): granite-3-2b, the reference's serving
+# default (src/repro/launch/serve.py:21-24), served at full width with 128
+# new tokens; starcoder2-7b (GQA group 9, d=128, GELU) and qwen3-14b (group 5,
+# d=128, qk_norm) at full width with DENSE_OTHER_GEN new tokens
+DENSE_ARCHS = ("granite-3-2b", "starcoder2-7b", "qwen3-14b")
+DENSE_OTHER_GEN = 16
+# the reduced slices, card against CPU: the CPU tests' bounds, twice the
+# reference's own xla-vs-Pallas spread (tests/test_torch_dense.py)
+DENSE_SLICE_TOL = {"granite-3-2b": 0.11, "starcoder2-7b": 0.17, "qwen3-14b": 0.09}
 
 
 def card_line() -> str:
@@ -625,13 +662,14 @@ def zamba2_kernel_checks(dev, card, fk, fr, dk, dr, sk, sr) -> dict:
     return errs
 
 
-def zamba2_slice_check(dev, card, get_api) -> float:
-    """Phase 6: the reduced serving path on the card (the kernels) against
-    the same path on the CPU (their plain versions): same weights, tokens
-    fed from one array, prefill at 128 then 4 decode steps."""
+def slice_check(dev, card, get_api, arch, tol) -> float:
+    """Phases 6 and 15: a reduced serving path on the card (the kernels)
+    against the same path on the CPU (their plain versions): same weights,
+    tokens fed from one array, prefill at 128 then 4 decode steps; every
+    logit within ``tol``."""
     import numpy as np
     import torch
-    api = get_api(ARCH, reduced=True)
+    api = get_api(arch, reduced=True)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, api.cfg.vocab, (2, 132)))
     outs = []
@@ -646,10 +684,10 @@ def zamba2_slice_check(dev, card, get_api) -> float:
         outs.append(got)
     errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
     err = max(errs)
-    if not all(bool(torch.isfinite(b).all()) for b in outs[1]) or err >= SLICE_TOL:
-        raise AssertionError(f"reduced zamba2 on the card differs from the CPU by {err}")
-    print(f"slice reduced {ARCH} b=2 prefill 128 + 4 decode steps: card vs CPU "
-          f"max |logit err| {err:.6g} < {SLICE_TOL} (prefill {errs[0]:.6g}, decode "
+    if not all(bool(torch.isfinite(b).all()) for b in outs[1]) or err >= tol:
+        raise AssertionError(f"reduced {arch} on the card differs from the CPU by {err}")
+    print(f"slice reduced {arch} b=2 prefill 128 + 4 decode steps: card vs CPU "
+          f"max |logit err| {err:.6g} < {tol} (prefill {errs[0]:.6g}, decode "
           f"steps {', '.join(f'{e:.6g}' for e in errs[1:])}) [{card}]", flush=True)
     return err
 
@@ -841,8 +879,11 @@ def trace(label, fn, card, top_n=6) -> dict:
 def serving_profile(dev, card, serve, api, counts=None, top_n=6) -> dict:
     """The device's busy share of the serving path: a trace of one prefill
     at the serving shapes (b=8, prompt 2048) and of 4 decode steps after
-    it.  ``counts`` (a kernel's LAUNCHES) is read per window."""
+    it.  ``counts`` (a kernel's LAUNCHES, or a tuple of them) is read per
+    window."""
     import torch
+    tables = () if counts is None else (counts,) if isinstance(counts, dict) \
+        else tuple(counts)
     params, prompts = serve.make_inputs(api, SERVE_BATCH, PROMPT_LEN, 0, dev)
     serve.generate(api, params, prompts[:, :256], 3)    # warm-up
     state = {}
@@ -860,10 +901,11 @@ def serving_profile(dev, card, serve, api, counts=None, top_n=6) -> dict:
 
     out = {}
     for phase, fn in (("prefill", prefill), ("decode", decode)):
-        before = dict(counts) if counts is not None else None
+        before = [dict(c) for c in tables]
         out[phase] = trace(f"{api.cfg.name} {phase} (b={SERVE_BATCH})", fn, card, top_n)
-        if counts is not None:
-            out[phase]["launches"] = {k: counts[k] - before[k] for k in counts}
+        if tables:
+            out[phase]["launches"] = {k: c[k] - b[k] for c, b in zip(tables, before)
+                                      for k in c}
     return out
 
 
@@ -1239,6 +1281,171 @@ def falcon_serving(dev, card, serve, api, scan_counts, zero_counts, others) -> d
             "mamba1_scan_fused_launches": launches,
             "launches_by_window": {k: v["launches"] for k, v in prof.items()},
             "profile": prof, "card": card}
+
+
+# ---------------------------------------------------------------------------
+# the dense family: granite-3-2b served at full width, starcoder2-7b and
+# qwen3-14b through the same two kernels
+# ---------------------------------------------------------------------------
+
+
+def attention_bound(b, sq, live, h, kv, d, esize, causal) -> tuple[int, int]:
+    """(bytes, FLOP) of one attention call: q and the output of (b, sq, h,
+    d), k and v of (b, live, kv, d) read once (decode: the live entries
+    and ``cache_len``); QK^T and PV over the pairs it attends (causal:
+    aligned bottom-right, query i sees keys <= i + live - sq)."""
+    pairs = sq * (live - sq) + sq * (sq + 1) // 2 if causal else sq * live
+    nbytes = 2 * b * sq * h * d * esize + 2 * b * live * kv * d * esize
+    if sq == 1:
+        nbytes += 4 * b
+    return nbytes, 4 * b * h * d * pairs
+
+
+def dense_kernel_checks(dev, card, fk, fr, dk, dr, get_api) -> dict:
+    """Phase 14: flash and decode at each dense config's serving shapes
+    (b=8, prompt 2048; decode against a 2,176-entry cache), each against
+    its plain version (bf16 2e-2; decode with ragged lengths and a NaN
+    tail past them), then timed by CUDA events beside the plain version
+    and SDPA (``enable_gqa=True``) with the bound from the shapes."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, s, S = SERVE_BATCH, PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
+    live = PROMPT_LEN + GEN_TOKENS // 2
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_api(arch).cfg
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        rows = out[arch] = {}
+        tag = f"{arch} (h={h}, kv={kv}, group {h // kv}, d={d})"
+
+        q = randn(gen, (b, s, h, d), "bfloat16", dev)
+        k = randn(gen, (b, s, kv, d), "bfloat16", dev)
+        v = randn(gen, (b, s, kv, d), "bfloat16", dev)
+        got = fk.flash_attention(q, k, v, causal=True)
+        plain = {}
+        plain_ms = event_ms(lambda: plain.setdefault(
+            "p", fr.attention_plain(q, k, v, causal=True)))
+        err = check_close(f"flash_attention {tag} b={b} s={s} causal bf16", got,
+                          plain.pop("p"), TOLS["bfloat16"], card)
+        del got
+        ms = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=True), reps=10)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+        nbytes, flops = attention_bound(b, s, s, h, kv, d, 2, True)
+        rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err,
+                                       nbytes=nbytes, flops=flops,
+                                       shape=[b, s, s, h, kv, d])
+        del q, k, v, qt, kt, vt
+
+        q = randn(gen, (b, 1, h, d), "bfloat16", dev)
+        kc = randn(gen, (b, S, kv, d), "bfloat16", dev)
+        vc = randn(gen, (b, S, kv, d), "bfloat16", dev)
+        split = dk.plan_splits(b, S, h, kv, d)["split"]
+        lens = torch.tensor([S, live, 1, split - 1, split, split + 1, 700, 1500],
+                            dtype=torch.int32, device=dev)
+        got = dk.decode_attention(q, kc, vc, lens)
+        err = check_close(f"decode_attention {tag} b={b} S={S} cache_len="
+                          f"{lens.tolist()} bf16", got,
+                          dr.decode_attention_plain(q, kc, vc, lens),
+                          TOLS["bfloat16"], card)
+        kc2, vc2 = kc.clone(), vc.clone()
+        for i, n in enumerate(lens.tolist()):
+            kc2[i, n:] = 1e4
+            vc2[i, n:] = float("nan")
+        stale = dk.decode_attention(q, kc2, vc2, lens)
+        torch.cuda.synchronize()
+        if not torch.equal(stale, got):
+            raise AssertionError(f"decode_attention {tag} read the cache past cache_len")
+        del kc2, vc2, stale
+        lens = torch.full((b,), live, dtype=torch.int32, device=dev)
+        got = dk.decode_attention(q, kc, vc, lens)
+        plain_ms = event_ms(lambda: plain.setdefault(
+            "p", dr.decode_attention_plain(q, kc, vc, lens)))
+        err = max(err, check_close(f"decode_attention {tag} at {live} live entries",
+                                   got, plain.pop("p"), TOLS["bfloat16"], card))
+        ms = cuda_ms(lambda: dk.decode_attention(q, kc, vc, lens), reps=50)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
+        nbytes, flops = attention_bound(b, 1, live, h, kv, d, 2, False)
+        rows["decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err,
+                                        nbytes=nbytes, flops=flops,
+                                        shape=[b, S, live, h, kv, d], split=split)
+        del q, kc, vc, qt, kt, vt, mask, got
+        torch.cuda.empty_cache()
+        for name, r in rows.items():
+            t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+            t_ops = r["flops"] / BF16_FLOPS * 1e3
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"time {name} {tag} shape {r['shape']}: kernel {r['ms']:.6g} ms, plain "
+                  f"version {r['plain_ms']:.6g} ms, SDPA {r['library_ms']:.6g} ms, bound "
+                  f"{r['bound_ms']:.6g} ms by {r['bound_by']} ({r['nbytes']} B, "
+                  f"{r['flops']} FLOP); {r['bound_ms'] / r['ms']:.4f} of the bound, "
+                  f"{r['flops'] / r['ms'] / 1e9:.6g} TFLOP/s, "
+                  f"{r['nbytes'] / r['ms'] / 1e6:.6g} GB/s, SDPA "
+                  f"{r['library_ms'] / r['ms']:.4g}x the kernel's speed [{card}]",
+                  flush=True)
+    return out
+
+
+def dense_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
+                  zero_counts, others, profile) -> dict:
+    """Phases 16-17: ``serve_batch(arch)`` at full width and depth, b=8,
+    prompt 2048, ``gen_tokens`` new tokens, seed 0, on the card; counts
+    zeroed just before and read just after: one flash launch a layer in the
+    prefill, one decode launch a layer in each decode step, no other
+    kernel.  With ``profile``, a trace of a prefill and 4 decode steps."""
+    import gc
+
+    import torch
+    api = get_api(arch)
+    cfg = api.cfg
+    flash_c, dec_c = attn_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens, t_prefill, t_decode = serve.serve_batch(
+        arch, reduced=False, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+        gen_tokens=gen_tokens, seed=0)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_c["flash_attention"],
+                "decode_attention": dec_c["decode_attention"]}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (gen_tokens - 1)}
+    stray = {k: v for c in others for k, v in c.items() if v}
+    if launches != want or stray:
+        raise AssertionError(f"serving {arch} launched {launches} (and {stray}), "
+                             f"expected {want} and no other kernel")
+    if tokens.shape != (SERVE_BATCH, gen_tokens) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"bad generated tokens {tokens.shape} from {arch}")
+    tps = SERVE_BATCH * (gen_tokens - 1) / t_decode
+    print(f"serve {arch} ({api.n_params()} parameters) b={SERVE_BATCH} prompt "
+          f"{PROMPT_LEN} gen {gen_tokens}: every logit finite; prefill {t_prefill:.6g} s, "
+          f"decode {t_decode:.6g} s ({tps:.6g} tok/s), peak memory {peak} B, launches "
+          f"{launches} (expected {want}) [{card}]", flush=True)
+    res = {"arch": arch, "params": api.n_params(), "batch": SERVE_BATCH,
+           "prompt_len": PROMPT_LEN, "gen_tokens": gen_tokens, "prefill_s": t_prefill,
+           "decode_s": t_decode, "decode_tok_per_s": tps, "serve_batch_wall_s": wall,
+           "peak_mem_bytes": peak, "launches": launches, "card": card}
+    if profile:
+        prof = serving_profile(dev, card, serve, api, attn_counts, top_n=8)
+        by_window = {k: v["launches"] for k, v in prof.items()}
+        if by_window != {"prefill": {"flash_attention": cfg.n_layers, "decode_attention": 0},
+                         "decode": {"flash_attention": 0,
+                                    "decode_attention": 4 * cfg.n_layers}}:
+            raise AssertionError(f"{arch} launches by window: {by_window}")
+        res.update(launches_by_window=by_window, profile=prof)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
@@ -2402,7 +2609,7 @@ def main() -> int:
     errs = zamba2_kernel_checks(dev, card, *mods)
 
     # ---- 6. the reduced slice, card against CPU ---------------------------
-    slice_err = zamba2_slice_check(dev, card, get_api)
+    slice_err = slice_check(dev, card, get_api, ARCH, SLICE_TOL)
 
     # ---- 7. main path: serve zamba2-2.7b at full width --------------------
     cfg = get_api(ARCH).cfg
@@ -2503,6 +2710,45 @@ def main() -> int:
         "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
         "library_ms": None}]}), flush=True)
+
+    # ---- 14. the dense family's shapes: flash and decode against plain -----
+    torch.cuda.empty_cache()
+    dense_rows = dense_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
+                                     dec_ref, get_api)
+
+    # ---- 15. the reduced dense slices, card against CPU ---------------------
+    dense_slice = {arch: slice_check(dev, card, get_api, arch, DENSE_SLICE_TOL[arch])
+                   for arch in DENSE_ARCHS}
+
+    # ---- 16. main path: serve granite-3-2b at full width and depth ----------
+    attn_counts = (flash_kernel.LAUNCHES, dec_kernel.LAUNCHES)
+    dense_others = (kernel.LAUNCHES, ssd_kernel.LAUNCHES, scan_kernel.LAUNCHES)
+    dense = {DENSE_ARCHS[0]: dense_serving(dev, card, serve, get_api, DENSE_ARCHS[0],
+                                           GEN_TOKENS, attn_counts, zero_counts,
+                                           dense_others, profile=True)}
+
+    # ---- 17. starcoder2-7b and qwen3-14b at full width and depth -------------
+    for arch in DENSE_ARCHS[1:]:
+        dense[arch] = dense_serving(dev, card, serve, get_api, arch, DENSE_OTHER_GEN,
+                                    attn_counts, zero_counts, dense_others,
+                                    profile=False)
+    for arch, res in dense.items():
+        res["slice_max_logit_err"] = dense_slice[arch]
+        res["kernels"] = dense_rows[arch]
+    print(json.dumps({"dense": dense}), flush=True)
+    for arch in DENSE_ARCHS:
+        for name, source, line in (
+                ("flash_attention", FLASH_SOURCE,
+                 "src/repro/kernels/flash_attention/kernel.py:23"),
+                ("decode_attention", DECODE_SOURCE,
+                 "src/repro/kernels/decode_attention/kernel.py:21")):
+            r = dense_rows[arch][name]
+            kernels.append({
+                "name": f"{name}/{arch}", "route": "cuda", "source": source,
+                "replaces": line, "model": arch, "shape": r["shape"],
+                "launches": dense[arch]["launches"][name], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

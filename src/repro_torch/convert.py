@@ -214,9 +214,12 @@ def _tensor(arr, device) -> torch.Tensor:
 def lm_params_from_numpy(tree, cfg, device="cpu", dtype=None):
     """The port's parameter tables from the reference's parameter tree
     (nested dicts of numpy arrays, ``tree["layers"]`` stacked along a
-    leading layers axis), for either family the port serves.  Weights the model casts at use are stored in
-    ``dtype`` (default float32, the reference's masters); the float32
-    leaves stay float32.  Every shape is checked against the port's specs.
+    leading layers axis), for every family the port serves: dense layers
+    hold ``ln1``/``attn``/``ln2``/``mlp`` (and ``attn.q_norm``/``k_norm``
+    with qk_norm), Mamba layers ``ln``/``mamba``.  Weights the model casts
+    at use are stored in ``dtype`` (default float32, the reference's
+    masters); the float32 leaves stay float32.  Every shape is checked
+    against the port's specs.
     """
     dtype = dtype or torch.float32
 
@@ -264,7 +267,8 @@ def _stack(per: list):
 
 
 def lm_cache_from_numpy(cache, device="cpu") -> dict:
-    """The reference's serving cache (dict of numpy arrays: zamba2's conv,
-    h and shared k/v, or falcon-mamba's conv and h) as tensors, dtypes
-    kept (bfloat16 buffers stay bfloat16)."""
+    """The reference's serving cache (dict of numpy arrays: the dense
+    family's k and v, zamba2's conv, h and shared k/v, or falcon-mamba's
+    conv and h) as tensors, dtypes kept (bfloat16 buffers stay
+    bfloat16)."""
     return {k: _tensor(v, device) for k, v in cache.items()}

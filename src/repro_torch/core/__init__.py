@@ -13,6 +13,10 @@ in batches and as a stream:
 - engine:     online engine: arrival windows over one live ``SoAState``
 - region:     the region router above the endpoint fleet
 - testbed:    discrete-event simulator of the paper's Table-I testbed
+- monitor, counters, power_model: the measurement layer (§III-C/D):
+              energy monitors, counter and power samples, the linear
+              power model and per-task attribution, per sample
+              (``EnergyAttributor``) and vectorized (``attribute_window``)
 - database, report: the task/energy DB and its energy reports (§III-G)
 - evaluate:   one workload trace replayed per policy: EDP, GPS-UP, gCO2
 """

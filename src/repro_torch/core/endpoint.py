@@ -1,5 +1,7 @@
-"""Endpoints: the machines GreenFaaS schedules onto (paper Table I) and
-the federated replicas the scale runs use."""
+"""Endpoints: the machines GreenFaaS schedules onto (paper Table I), the
+federated replicas the scale runs use, and the accelerator fleet the
+fleet manager places LLM jobs on (``tpu_fleet``: configuration data, the
+reference's v5e constants)."""
 from __future__ import annotations
 
 import dataclasses
@@ -105,4 +107,42 @@ def scaled_testbed(replicas: int) -> list[EndpointSpec]:
                 perf_scale=e.perf_scale * (1.0 + 0.02 * k),
                 hops={},
             ))
+    return eps
+
+
+# ---------------------------------------------------------------------------
+# TPU fleet endpoints (v5e constants per brief; power figures are config)
+# ---------------------------------------------------------------------------
+
+V5E_PEAK_FLOPS = 197e12
+V5E_HBM_BW = 819e9
+V5E_ICI_BW = 50e9
+V5E_IDLE_W = 80.0
+V5E_PEAK_W = 250.0
+
+
+def tpu_fleet(pods: int = 2, chips_per_pod: int = 256) -> list[EndpointSpec]:
+    """A heterogeneous fleet: big pods + an always-on small slice (the
+    'desktop' analogue) + an older-generation pod (the 'theta' analogue)."""
+    eps = []
+    for i in range(pods):
+        eps.append(EndpointSpec(
+            f"pod{i}", cores=chips_per_pod, idle_power_w=V5E_IDLE_W * chips_per_pod,
+            tdp_w=V5E_PEAK_W * chips_per_pod, queue_delay_s=120.0,
+            chips=chips_per_pod, peak_flops=V5E_PEAK_FLOPS,
+            hbm_bw=V5E_HBM_BW, ici_bw=V5E_ICI_BW,
+            hops={f"pod{j}": 4 for j in range(pods) if j != i} | {"slice0": 6, "oldpod": 8},
+        ))
+    eps.append(EndpointSpec(
+        "slice0", cores=16, idle_power_w=V5E_IDLE_W * 16,
+        tdp_w=V5E_PEAK_W * 16, queue_delay_s=0.0, has_batch_scheduler=False,
+        chips=16, peak_flops=V5E_PEAK_FLOPS, hbm_bw=V5E_HBM_BW, ici_bw=V5E_ICI_BW,
+        hops={f"pod{j}": 6 for j in range(pods)} | {"oldpod": 8},
+    ))
+    eps.append(EndpointSpec(
+        "oldpod", cores=128, idle_power_w=100.0 * 128, tdp_w=320.0 * 128,
+        queue_delay_s=300.0, chips=128, peak_flops=123e12, hbm_bw=409e9,
+        ici_bw=25e9, perf_scale=0.6,
+        hops={f"pod{j}": 8 for j in range(pods)} | {"slice0": 8},
+    ))
     return eps

@@ -44,6 +44,9 @@ class BatchResult:
     def edp(self) -> float:
         return self.measured_energy_j * self.makespan_s
 
+    def w_ed2p(self) -> float:
+        return self.measured_energy_j * self.makespan_s ** 2
+
 
 def attribute_window(
     sim: SimResult,

@@ -17,7 +17,7 @@ import zlib
 
 import numpy as np
 
-from repro_torch.core.counters import TaskRecord
+from repro_torch.core.counters import CounterSample, PowerSample, TaskRecord
 from repro_torch.core.endpoint import EndpointSpec, table1_testbed
 from repro_torch.core.faults import FaultTrace
 from repro_torch.core.monitor import CallbackMonitor
@@ -69,7 +69,9 @@ class NodeTrace:
     """One node's monitor streams for a window, in matrix form.
 
     ``rates[i, j]`` is pid ``pids[j]``'s counter-rate vector at ``ts[i]``
-    (zero rows while the process is idle).
+    (zero rows while the process is idle).  The attribution pipeline
+    consumes the matrices directly; the per-tick sample-object views of
+    the per-sample path are derived on demand.
     """
     endpoint: str
     alloc_span: tuple[float, float]  # (alloc_t, release_t)
@@ -78,6 +80,22 @@ class NodeTrace:
     watts: np.ndarray                # (n,) measured node power
     pids: list[int]                  # column order of `rates`
     rates: np.ndarray                # (n, P, k) per-process counter rates
+
+    @property
+    def power_samples(self) -> list[PowerSample]:
+        return [PowerSample(t=float(t), watts=float(w))
+                for t, w in zip(self.ts, self.watts)]
+
+    @property
+    def counter_samples(self) -> list[CounterSample]:
+        active = self.rates.any(axis=2)
+        return [
+            CounterSample(t=float(t), procs={
+                pid: self.rates[i, j]
+                for j, pid in enumerate(self.pids) if active[i, j]
+            })
+            for i, t in enumerate(self.ts)
+        ]
 
 
 @dataclasses.dataclass
@@ -133,7 +151,7 @@ class TestbedSim:
         consume the generators in per-tick order."""
         tgrid = np.arange(t_lo, release_t + SAMPLE_PERIOD_S, SAMPLE_PERIOD_S)
         n = len(tgrid)
-        mon = CallbackMonitor(seed=seed)
+        mon = CallbackMonitor(lambda t: 0.0, seed=seed)
         if not intervals:
             watts = mon.read_noisy(np.full(n, float(ep.idle_power_w)))
             return tgrid, watts, [], np.zeros((n, 0, 0))

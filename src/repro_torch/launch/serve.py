@@ -1,8 +1,12 @@
 """Batched serving: prefill a prompt batch, decode greedily, for the
-families the port serves: zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
+families the port serves: the dense family (granite-3-2b, the default,
+starcoder2-7b, qwen3-14b; deepseek-67b needs more than one 80 GB card at
+full width), zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --batch 8 --prompt-len 2048 --gen 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --reduced --device cpu
 
@@ -40,8 +44,16 @@ def make_inputs(api: ModelAPI, batch: int, prompt_len: int, seed: int, device):
 def generate(api: ModelAPI, params, prompts, gen_tokens: int):
     """Prefill ``prompts``, then ``gen_tokens - 1`` greedy decode steps.
     Returns (tokens (b, gen_tokens) int32 numpy, prefill s, decode s).
-    Raises ``FloatingPointError`` if any logit was not finite."""
+    Raises ``FloatingPointError`` if any logit was not finite.
+
+    The greedy token is the first maximum over the true vocabulary: the
+    logits' padded columns (``pad_vocab``; their unembedding columns are
+    random weights like the rest) are never a token.  The reference's
+    serving loop takes its argmax over the padded row, so where a padded
+    column leads it emits an id past the vocabulary; everywhere else the
+    two pick the same token."""
     dev = prompts.device
+    vocab = api.cfg.vocab
     b, prompt_len = prompts.shape
     _sync(dev)
     t0 = time.perf_counter()
@@ -50,14 +62,14 @@ def generate(api: ModelAPI, params, prompts, gen_tokens: int):
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
-    tok = torch.argmax(logits, dim=-1)[:, None]
+    tok = torch.argmax(logits[:, :vocab], dim=-1)[:, None]
     out_tokens = [tok]
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(gen_tokens - 1):
         logits, cache = api.decode_step(params, tok, cache, prompt_len + i)
         finite &= torch.isfinite(logits).all()
-        tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        tok = torch.argmax(logits[:, 0, :vocab], dim=-1)[:, None]
         out_tokens.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0
@@ -68,7 +80,7 @@ def generate(api: ModelAPI, params, prompts, gen_tokens: int):
 
 
 def serve_batch(
-    arch: str = "zamba2-2.7b",
+    arch: str = "granite-3-2b",
     reduced: bool = False,
     batch: int = 8,
     prompt_len: int = 2048,
@@ -92,7 +104,7 @@ def serve_batch(
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-2.7b")
+    ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=2048)

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the hybrid (zamba2) and ssm (falcon-mamba)
-families, inference only.
+"""Decoder-only LM assembly for the dense (granite, starcoder2, qwen3,
+deepseek), hybrid (zamba2) and ssm (falcon-mamba) families, inference only.
 
 Entry points:
   lm_forward     — forward over a sequence -> logits (b, s, V)
@@ -7,14 +7,16 @@ Entry points:
   lm_prefill     — forward over a prompt -> (last logits, caches)
   lm_decode_step — single-token step against the caches
 
-Zamba2 runs its layers in groups: the shared attention block (input
-concat(x, x0) at width 2d, output back to d) once per group, then
+A dense layer is pre-norm GQA attention (flash attention over the
+sequence, flash-decode against the k/v cache) and a pre-norm MLP.  Zamba2
+runs its layers in groups: the shared attention block (input concat(x,
+x0) at width 2d, output back to d) once per group, then
 ``shared_attn_every`` Mamba2 layers.  Falcon-mamba runs its Mamba1
 layers one after the other.  The layers are an ``nn.ModuleList`` of
 per-layer parameter tables (the reference scans a stacked tree).  The
-other families, gradients, remat and sharding (the reference's
-``remat=`` and ``shd=``) belong to later slices of the port and raise
-``NotImplementedError``.
+MoE, VLM and enc-dec families, gradients, remat and sharding (the
+reference's ``remat=`` and ``shd=``) belong to later slices of the port
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
@@ -39,16 +42,16 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 #: The families the port serves.
-FAMILIES = ("hybrid", "ssm")
+FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def require_served(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
-            "serves the hybrid (zamba2) and ssm (falcon-mamba) families.  The "
-            "dense family is the next slice, then the MoE, VLM and enc-dec "
-            "families"
+            "serves the dense (granite, starcoder2, qwen3, deepseek), hybrid "
+            "(zamba2) and ssm (falcon-mamba) families.  The MoE family is the "
+            "next slice, then the VLM and enc-dec families"
         )
 
 
@@ -65,6 +68,14 @@ def _norm_spec(d):
 
 def _layer_specs(cfg: ArchConfig) -> dict[str, Any]:
     require_served(cfg)
+    if cfg.family == "dense":
+        d = cfg.d_model
+        return {
+            "ln1": _norm_spec(d),
+            "attn": attn.attn_specs(cfg),
+            "ln2": _norm_spec(d),
+            "mlp": mlp_specs(cfg),
+        }
     mamba = ssm_mod.mamba1_specs if cfg.family == "ssm" else ssm_mod.mamba2_specs
     return {"ln": _norm_spec(cfg.d_model), "mamba": mamba(cfg)}
 
@@ -114,6 +125,20 @@ def n_shared_apps(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _attn_block(pl, x, cfg, positions, collect):
+    h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+    q, k, v = attn.project_qkv(pl["attn"], h, cfg, positions)
+    o = attn.chunked_attention(q, k, v, causal=True)
+    x = x + attn.attn_output(pl["attn"], o, x.dtype)
+    return x, ((k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE)) if collect else None)
+
+
+def _dense_layer(pl, x, cfg, positions, collect):
+    x, kv = _attn_block(pl, x, cfg, positions, collect)
+    h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+    return x + mlp_apply(pl["mlp"], h, cfg), kv
+
+
 def _ssm_layer(pl, x, cfg, collect):
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
     out, state = ssm_mod.mamba1_apply(pl["mamba"], h, cfg, return_cache=collect)
@@ -151,12 +176,21 @@ def _logits(params, cfg, x):
 
 def _backbone(params, cfg: ArchConfig, tokens, cache=None):
     """Embed and run every layer (zamba2: every group); with ``cache``
-    (from ``init_cache``), write each layer's conv tail and state and each
-    shared application's k/v into it.  Returns the last hidden states
-    (b, s, d)."""
+    (from ``init_cache``), write each dense layer's k/v, each Mamba layer's
+    conv tail and state and each shared application's k/v into it.
+    Returns the last hidden states (b, s, d)."""
     require_served(cfg)
     x = embed_tokens(params, tokens)
     collect = cache is not None
+    s = tokens.shape[1]
+    if cfg.family == "dense":
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        for li in range(cfg.n_layers):
+            x, kv = _dense_layer(params["layers"][li], x, cfg, positions, collect)
+            if collect:
+                cache["k"][li, :, :s] = kv[0]
+                cache["v"][li, :, :s] = kv[1]
+        return x
     if not cfg.shared_attn_every:
         for li in range(cfg.n_layers):
             x, entry = _ssm_layer(params["layers"][li], x, cfg, collect)
@@ -164,7 +198,6 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None):
                 cache["conv"][li] = entry["conv"]
                 cache["h"][li] = entry["h"]
         return x
-    s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
     x0 = x
     every = cfg.shared_attn_every
@@ -210,11 +243,17 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=COMPUTE_DTYPE,
-               device="cpu"):
-    """Per layer the conv tail and the state; zamba2 adds the shared
-    block's k/v at ``max_len``, which falcon-mamba does not use."""
+               device=None):
+    """Zeroed serving caches on ``device`` (None: the CUDA card).  Dense:
+    per layer the k/v at ``max_len``, ``(L, b, max_len, kv, hd)``.  Mamba:
+    per layer the conv tail and the state; zamba2 adds the shared block's
+    k/v at ``max_len``, which falcon-mamba does not use."""
     require_served(cfg)
+    device = resolve_device(device)
     L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "dense":
+        return {name: torch.zeros((L, batch, max_len, kv, hd), dtype=dtype,
+                                  device=device) for name in ("k", "v")}
     init = ssm_mod.mamba1_init_cache if cfg.family == "ssm" else ssm_mod.mamba2_init_cache
     c = init(cfg, batch, dtype, device)
     base = {k: torch.zeros((L,) + tuple(v.shape), dtype=v.dtype, device=device)
@@ -266,8 +305,8 @@ def _decode_attn(p_attn, x_norm, kc, vc, pos, positions, cache_len, qk_cfg):
 def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None):
     """tokens: (b, 1); pos: the position being written -> (logits (b, 1, V),
     cache).  The cache is updated in place (the same dict is returned):
-    every layer's conv tail and state, and (zamba2) the token's k/v at
-    ``pos``."""
+    every dense layer's k/v at ``pos``; every Mamba layer's conv tail and
+    state, and (zamba2) the shared block's k/v at ``pos``."""
     require_served(cfg)
     _mesh_free(shd)
     x = embed_tokens(params, tokens)
@@ -286,6 +325,15 @@ def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None
     x0 = x
     positions = torch.full((1, 1), pos, device=tokens.device)
     cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=tokens.device)
+    if cfg.family == "dense":
+        for li in range(cfg.n_layers):
+            pl = params["layers"][li]
+            h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+            x = x + _decode_attn(pl["attn"], h, cache["k"][li], cache["v"][li], pos,
+                                 positions, cache_len, cfg)
+            h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+            x = x + mlp_apply(pl["mlp"], h, cfg)
+        return _logits(params, cfg, x), cache
     every = cfg.shared_attn_every
     ps = params["shared"]
     for g in range(n_shared_apps(cfg)):

@@ -1,11 +1,11 @@
-"""Model API over the families the port serves (hybrid and ssm).
+"""Model API over the families the port serves (dense, hybrid and ssm).
 
 ``get_config`` reads an architecture whose config the port keeps
-(``repro_torch/configs/``: zamba2-2.7b, falcon-mamba-7b, and granite-3-2b
-of the dense family); each later slice adds the configs of the family it
-serves.
+(``repro_torch/configs/``: granite-3-2b, starcoder2-7b, qwen3-14b and
+deepseek-67b of the dense family, zamba2-2.7b, falcon-mamba-7b); each
+later slice adds the configs of the family it serves.
 ``get_api`` raises ``NotImplementedError``, naming the later slice, for a
-family the port does not serve yet.
+family the port does not serve yet (MoE, VLM, enc-dec).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ class ModelAPI:
         return lm.lm_decode_step(params, self.cfg, tokens, cache, pos, shd=shd)
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        return lm.init_cache(self.cfg, batch, max_len, device=resolve_device(device))
+        return lm.init_cache(self.cfg, batch, max_len, device=device)
 
     def loss(self, params, batch: dict, *, shd=None):
         """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``),

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.selective_scan.kernel import mamba1_scan_fused
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.models.common import ParamSpec, rms_norm, silu
@@ -87,7 +88,9 @@ def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
     return out, {"conv": xin[:, -(w - 1):].to(dt_), "h": h}
 
 
-def mamba1_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device="cpu"):
+def mamba1_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None):
+    """Zeroed conv tail and state on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     return {
         "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.inner), dtype=dtype,
                             device=device),
@@ -190,7 +193,9 @@ def mamba2_apply(p, x, cfg: ArchConfig, chunk: int = 128, return_cache: bool = F
     return out, {"conv": xbc_tail, "h": S}
 
 
-def mamba2_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device="cpu"):
+def mamba2_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None):
+    """Zeroed conv tail and state on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     nh = cfg.inner // cfg.ssm_head_dim
     st = cfg.ssm_state
     return {

@@ -247,3 +247,24 @@ def test_ptxas_and_sass_reports_are_read_per_kernel():
         "HMMA": 2, "HGMMA": 0, "LDGSTS": 2, "UTMALDG": 0, "LDSM": 1}
     assert counts["decode_bf16_kernel<80>"] == {
         "HMMA": 0, "HGMMA": 1, "LDGSTS": 0, "UTMALDG": 1, "LDSM": 0}
+
+
+@pytest.mark.parametrize("b,sq,live,h,kv,d,causal", [
+    (8, 2048, 2048, 32, 8, 64, True),      # granite-3-2b's prefill
+    (8, 2048, 2048, 36, 4, 128, True),     # starcoder2-7b's
+    (2, 7, 7, 4, 4, 16, True),
+    (2, 5, 9, 4, 2, 16, False),
+    (2, 5, 9, 4, 2, 16, True),             # sq < sk, bottom-right
+    (8, 1, 2112, 40, 8, 128, False),       # qwen3-14b's decode, 2,112 live
+])
+def test_attention_bound_counts_the_call(b, sq, live, h, kv, d, causal):
+    """Bytes: q and the output once each, k and v once each (decode: the
+    live entries, and cache_len); FLOP: 2d each for QK^T and PV over the
+    (query, key) pairs the call attends (causal bottom-right), listed one
+    by one."""
+    nbytes, flops = _chip_smoke().attention_bound(b, sq, live, h, kv, d, 2, causal)
+    pairs = sum(1 for i in range(sq) for j in range(live)
+                if not causal or j <= i + live - sq)
+    assert flops == b * h * pairs * 2 * 2 * d
+    want = 2 * (b * sq * h * d) * 2 + 2 * (b * live * kv * d) * 2
+    assert nbytes == want + (4 * b if sq == 1 else 0)

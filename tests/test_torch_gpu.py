@@ -178,6 +178,14 @@ def _randn(gen, shape, dtype, device):
     (1, 160, 300, 32, 4, 128, True, torch.bfloat16),   # GQA group 8, sq < sk
     (2, 90, 333, 8, 1, 16, False, torch.bfloat16),     # non-causal, ragged keys
     (8, 2048, 2048, 32, 32, 80, True, torch.bfloat16),  # zamba2's prefill shape
+    # the dense family: GQA groups 5 (qwen3) and 9 (starcoder2) at head_dim
+    # 128, ragged tiles; then each config's prefill heads at s=1024
+    (2, 200, 200, 10, 2, 128, True, torch.bfloat16),
+    (1, 130, 333, 18, 2, 128, True, torch.bfloat16),
+    (2, 257, 257, 9, 1, 128, False, torch.bfloat16),
+    (2, 1024, 1024, 32, 8, 64, True, torch.bfloat16),    # granite-3-2b
+    (1, 1024, 1024, 36, 4, 128, True, torch.bfloat16),   # starcoder2-7b
+    (1, 1024, 1024, 40, 8, 128, True, torch.bfloat16),   # qwen3-14b
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
                                               causal, dtype):
@@ -204,6 +212,15 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
     (2, 1000, 16, 1, 80, torch.bfloat16),    # a GQA group of 16 at d=80
     (4, 777, 8, 2, 64, torch.bfloat16),      # S not a multiple of the 64-key tile
     (3, 200, 4, 4, 16, torch.bfloat16),      # the reduced config's head_dim
+    # the dense family: granite's serving shape (group 4 at d=64), then
+    # groups 5 (qwen3) and 9 (starcoder2) at d=128, which leave 11 and 7
+    # of the 16 rows of the tensor-core tile as padding
+    (8, 2176, 32, 8, 64, torch.bfloat16),
+    (8, 2176, 40, 8, 128, torch.bfloat16),
+    (8, 2176, 36, 4, 128, torch.bfloat16),
+    (3, 777, 10, 2, 128, torch.bfloat16),
+    (3, 300, 9, 1, 128, torch.bfloat16),
+    (2, 300, 9, 1, 128, torch.float32),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, b, S, h, kv, d, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + h)
@@ -354,6 +371,36 @@ def test_reduced_zamba2_on_card_matches_cpu(cuda_device):
     for a, b_ in zip(*outs):
         assert torch.isfinite(b_).all()
         assert float((a - b_).abs().max()) < 0.15
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-7b", "qwen3-14b"])
+def test_reduced_dense_on_card_matches_cpu(cuda_device, arch):
+    """The dense serving path on the card (flash on every layer of the
+    prefill, decode on every layer of each step) against the same path on
+    the CPU, same weights and teacher-forced tokens: logits within the
+    CPU tests' bound for the config (tests/test_torch_dense.py)."""
+    tol = {"granite-3-2b": 0.11, "starcoder2-7b": 0.17, "qwen3-14b": 0.09}[arch]
+    api = get_api(arch, reduced=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, api.cfg.vocab, (2, 132)))
+    counts = [dict(m.LAUNCHES) for m in (flash_kernel, dec_kernel)]
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params = api.init(0, "cpu").to(dev)
+        t = toks.to(dev)
+        lg, cache = api.prefill(params, {"tokens": t[:, :128]}, max_len=136)
+        got = [lg.float().cpu()]
+        for i in range(4):
+            lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+            got.append(lg[:, 0].float().cpu())
+        outs.append(got)
+    L = api.cfg.n_layers
+    assert flash_kernel.LAUNCHES["flash_attention"] == counts[0]["flash_attention"] + L
+    assert dec_kernel.LAUNCHES["decode_attention"] == counts[1]["decode_attention"] + 4 * L
+    for a, b_ in zip(*outs):
+        assert torch.isfinite(b_).all()
+        assert float((a - b_).abs().max()) < tol
 
 
 # ---------------------------------------------------------------------------

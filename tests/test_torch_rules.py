@@ -18,6 +18,7 @@ from repro_torch.core.executor import GreenFaaSExecutor
 from repro_torch.core.testbed import TestbedSim as PortSim
 from repro_torch.kernels.placement import ops
 from repro_torch.launch.serve import serve_batch
+from repro_torch.models import lm, ssm
 from repro_torch.models.registry import get_api
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -79,3 +80,20 @@ def test_serving_default_device_raises_without_cuda(monkeypatch):
                     gen_tokens=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         get_api("zamba2-2.7b", reduced=True).init(0)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-2.7b", "falcon-mamba-7b"])
+def test_init_cache_default_device_raises_without_cuda(arch, monkeypatch):
+    """lm.init_cache, and the Mamba cache helpers under it, take
+    device=None as the CUDA card: on a machine without CUDA they raise,
+    and the CPU runs only when named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_api(arch, reduced=True).cfg
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(cfg, 1, 8)
+    init = ssm.mamba1_init_cache if cfg.family == "ssm" else ssm.mamba2_init_cache
+    if cfg.family != "dense":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(cfg, 1)
+        assert init(cfg, 1, device="cpu")["h"].device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in lm.init_cache(cfg, 1, 8, device="cpu").values())
