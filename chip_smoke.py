@@ -171,6 +171,34 @@ same two kernels:
     the launches (32 / 40 a prefill, as many a decode step), prefill
     seconds and peak memory.
 
+The MoE and VLM families (the seventh slice): moonshot-v1-16b-a3b and
+internvl2-26b at full width, llama4-scout-17b-a16e reduced, through the
+same two kernels:
+
+18. Flash attention and flash-decode against their plain versions at
+    moonshot's (16 heads of 128 over 16, group 1) and internvl2's (48 over
+    8, group 6) serving shapes, as in phase 14: bf16, ragged lengths and
+    a NaN tail; each timed beside its plain version, SDPA and its bound.
+19. The reduced moonshot, llama4-scout and internvl2 slices on the card
+    against the CPU (internvl2 with its 8 vision embeddings): the largest
+    logit error and each output's mean error within the CPU tests'
+    bounds (moonshot 0.33 and 0.051, llama4-scout 5.5 and 0.129: a token
+    routed to another near-equal expert moves its logits, as between the
+    reference's own backends; internvl2 0.09 and 0.018); flash and decode
+    launched on every layer; and a reduced MoE prefill on the card drops
+    a token at capacity (each MoE layer's routing counted by
+    ``moe.dropped`` on its input).
+20. Main path: ``serve_batch("moonshot-v1-16b-a3b", batch=8,
+    prompt_len=2048, gen_tokens=16, seed=0)`` at full width and depth,
+    after the dense models are freed: 48 flash launches in the prefill,
+    48 decode launches a step, no other kernel; every logit finite; peak
+    memory under the card's; a trace of a prefill and 4 decode steps in
+    which the MoE's four parts (router, dispatch loop, expert products,
+    combine) are ranges of ``torch.profiler.record_function``, with their
+    device ms and the idle share.
+21. ``serve_batch("internvl2-26b")`` the same way, its 256 vision
+    embeddings drawn by ``make_inputs`` (48 and 48 launches), with a trace.
+
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -280,6 +308,17 @@ DENSE_OTHER_GEN = 16
 # the reduced slices, card against CPU: the CPU tests' bounds, twice the
 # reference's own xla-vs-Pallas spread (tests/test_torch_dense.py)
 DENSE_SLICE_TOL = {"granite-3-2b": 0.11, "starcoder2-7b": 0.17, "qwen3-14b": 0.09}
+
+# the MoE and VLM families (the seventh slice): moonshot-v1-16b-a3b (52.3 GiB
+# in bf16) and internvl2-26b (37.0 GiB) served at full width with
+# DENSE_OTHER_GEN new tokens; llama4-scout-17b-a16e (189.5 GiB) reduced only
+MOE_VLM_ARCHS = ("moonshot-v1-16b-a3b", "internvl2-26b")
+# the reduced slices, card against CPU: the CPU tests' bounds
+# (tests/test_torch_moe.py, tests/test_torch_vlm.py), (largest logit error,
+# mean logit error of each output)
+MOE_VLM_SLICE_TOL = {"moonshot-v1-16b-a3b": (0.33, 0.051),
+                     "llama4-scout-17b-a16e": (5.5, 0.129),
+                     "internvl2-26b": (0.09, 0.018)}
 
 
 def card_line() -> str:
@@ -836,11 +875,13 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     return rows
 
 
-def trace(label, fn, card, top_n=6) -> dict:
+def trace(label, fn, card, top_n=6, ranges=()) -> dict:
     """A ``torch.profiler`` trace of ``fn()`` (ended by a synchronise): the
     CUDA kernels' summed time over the host clock, the launches, and the
     kernels that take the most device time.  Where the trace holds no
-    device time it says so (None)."""
+    device time it says so (None).  ``ranges``: names of
+    ``record_function`` ranges inside ``fn``, each reported with its calls
+    and the device time of the kernels launched inside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -850,11 +891,18 @@ def trace(label, fn, card, top_n=6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    # a range's own span on the device timeline is not a kernel
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in ranges]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0.0)
+
+    def total_us(e):
+        return getattr(e, "device_time_total", None) or \
+            getattr(e, "cuda_time_total", 0.0)
 
     busy_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
@@ -873,24 +921,40 @@ def trace(label, fn, card, top_n=6) -> dict:
           f"{out['kernel_launches']} kernel launches [{card}]", flush=True)
     for e in top:
         print(f"  {dev_us(e) / 1e3:10.4f} ms x{e.count:5d}  {e.key[:90]}", flush=True)
+    if ranges:
+        out["ranges"] = {}
+        for name in ranges:
+            cpu = [e for e in events if e.key == name and e.device_type == DeviceType.CPU]
+            ms = sum(total_us(e) for e in cpu) / 1e3
+            share = ms * 1e3 / busy_us if busy_us else None
+            out["ranges"][name] = {"calls": sum(e.count for e in cpu), "device_ms": ms,
+                                   "busy_share": share}
+            print(f"  range {name}: {out['ranges'][name]['calls']} calls, kernels "
+                  f"{ms:.6g} ms on the device"
+                  f"{'' if share is None else f', {share:.4f} of the busy time'}",
+                  flush=True)
     return out
 
 
-def serving_profile(dev, card, serve, api, counts=None, top_n=6) -> dict:
+def serving_profile(dev, card, serve, api, counts=None, top_n=6, ranges=None) -> dict:
     """The device's busy share of the serving path: a trace of one prefill
-    at the serving shapes (b=8, prompt 2048) and of 4 decode steps after
-    it.  ``counts`` (a kernel's LAUNCHES, or a tuple of them) is read per
-    window."""
+    at the serving shapes (b=8, prompt 2048; a VLM's vision embeddings from
+    ``make_inputs``) and of 4 decode steps after it.  ``counts`` (a
+    kernel's LAUNCHES, or a tuple of them) is read per window.
+    ``ranges``: {name: (module, function name)}, each function wrapped in a
+    ``record_function`` range of that name for the traces."""
     import torch
     tables = () if counts is None else (counts,) if isinstance(counts, dict) \
         else tuple(counts)
-    params, prompts = serve.make_inputs(api, SERVE_BATCH, PROMPT_LEN, 0, dev)
-    serve.generate(api, params, prompts[:, :256], 3)    # warm-up
+    params, prompts, vision = serve.make_inputs(api, SERVE_BATCH, PROMPT_LEN, 0, dev)
+    serve.generate(api, params, prompts[:, :256], 3, vision)    # warm-up
+    batch = {"tokens": prompts}
+    if vision is not None:
+        batch["vision_embeds"] = vision
     state = {}
 
     def prefill():
-        logits, state["cache"] = api.prefill(params, {"tokens": prompts},
-                                             max_len=PROMPT_LEN + 8)
+        logits, state["cache"] = api.prefill(params, batch, max_len=PROMPT_LEN + 8)
         state["tok"] = torch.argmax(logits, dim=-1)[:, None]
 
     def decode():
@@ -899,13 +963,59 @@ def serving_profile(dev, card, serve, api, counts=None, top_n=6) -> dict:
                                                      state["cache"], PROMPT_LEN + i)
             state["tok"] = torch.argmax(logits[:, 0], dim=-1)[:, None]
 
+    ranges = ranges or {}
+    saved = {name: getattr(mod, fn) for name, (mod, fn) in ranges.items()}
+
+    def in_range(name, f):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(name):
+                return f(*a, **kw)
+        return wrapped
+
     out = {}
-    for phase, fn in (("prefill", prefill), ("decode", decode)):
-        before = [dict(c) for c in tables]
-        out[phase] = trace(f"{api.cfg.name} {phase} (b={SERVE_BATCH})", fn, card, top_n)
-        if tables:
-            out[phase]["launches"] = {k: c[k] - b[k] for c, b in zip(tables, before)
-                                      for k in c}
+    try:
+        for name, (mod, fn) in ranges.items():
+            setattr(mod, fn, in_range(name, saved[name]))
+        for phase, fn in (("prefill", prefill), ("decode", decode)):
+            before = [dict(c) for c in tables]
+            out[phase] = trace(f"{api.cfg.name} {phase} (b={SERVE_BATCH})", fn, card,
+                               top_n, tuple(ranges))
+            if tables:
+                out[phase]["launches"] = {k: c[k] - b[k] for c, b in zip(tables, before)
+                                          for k in c}
+        if ranges:
+            # the ranges again by CUDA events around each call, on one more
+            # prefill (the card is busy through a prefill, so a call's span
+            # on the stream is its kernels' time): a check of the trace's
+            # attribution
+            spans = {name: [] for name in ranges}
+
+            def in_events(name, f):
+                def wrapped(*a, **kw):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    res = f(*a, **kw)
+                    e1.record()
+                    spans[name].append((e0, e1))
+                    return res
+                return wrapped
+
+            for name, (mod, fn) in ranges.items():
+                setattr(mod, fn, in_events(name, saved[name]))
+            prefill()
+            torch.cuda.synchronize()
+            pre = out["prefill"]
+            pre["range_event_ms"] = {name: sum(a.elapsed_time(b) for a, b in pairs)
+                                     for name, pairs in spans.items()}
+            inside = sum(r["device_ms"] for r in pre["ranges"].values())
+            print(f"  prefill ranges by CUDA events: "
+                  f"{', '.join(f'{k} {v:.6g} ms' for k, v in pre['range_event_ms'].items())}"
+                  f"; the trace's ranges {inside:.6g} ms of {pre['device_busy_ms']} ms "
+                  f"busy [{card}]", flush=True)
+    finally:
+        for name, (mod, fn) in ranges.items():
+            setattr(mod, fn, saved[name])
     return out
 
 
@@ -1301,8 +1411,8 @@ def attention_bound(b, sq, live, h, kv, d, esize, causal) -> tuple[int, int]:
     return nbytes, 4 * b * h * d * pairs
 
 
-def dense_kernel_checks(dev, card, fk, fr, dk, dr, get_api) -> dict:
-    """Phase 14: flash and decode at each dense config's serving shapes
+def attention_kernel_checks(dev, card, fk, fr, dk, dr, get_api, archs) -> dict:
+    """Phases 14 and 18: flash and decode at each config's serving shapes
     (b=8, prompt 2048; decode against a 2,176-entry cache), each against
     its plain version (bf16 2e-2; decode with ragged lengths and a NaN
     tail past them), then timed by CUDA events beside the plain version
@@ -1313,7 +1423,7 @@ def dense_kernel_checks(dev, card, fk, fr, dk, dr, get_api) -> dict:
     b, s, S = SERVE_BATCH, PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
     live = PROMPT_LEN + GEN_TOKENS // 2
     out = {}
-    for arch in DENSE_ARCHS:
+    for arch in archs:
         cfg = get_api(arch).cfg
         h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         rows = out[arch] = {}
@@ -1392,13 +1502,15 @@ def dense_kernel_checks(dev, card, fk, fr, dk, dr, get_api) -> dict:
     return out
 
 
-def dense_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
-                  zero_counts, others, profile) -> dict:
-    """Phases 16-17: ``serve_batch(arch)`` at full width and depth, b=8,
-    prompt 2048, ``gen_tokens`` new tokens, seed 0, on the card; counts
-    zeroed just before and read just after: one flash launch a layer in the
-    prefill, one decode launch a layer in each decode step, no other
-    kernel.  With ``profile``, a trace of a prefill and 4 decode steps."""
+def attention_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
+                      zero_counts, others, profile, ranges=None) -> dict:
+    """Phases 16-17 and 20-21: ``serve_batch(arch)`` at full width and
+    depth, b=8, prompt 2048, ``gen_tokens`` new tokens, seed 0, on the card
+    (a VLM's vision embeddings drawn by ``make_inputs``); counts zeroed just
+    before and read just after: one flash launch a layer in the prefill,
+    one decode launch a layer in each decode step, no other kernel; peak
+    memory under the card's.  With ``profile``, a trace of a prefill and 4
+    decode steps (``ranges``: see ``serving_profile``)."""
     import gc
 
     import torch
@@ -1426,6 +1538,10 @@ def dense_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
     if tokens.shape != (SERVE_BATCH, gen_tokens) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab:
         raise AssertionError(f"bad generated tokens {tokens.shape} from {arch}")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    if peak >= card_bytes:
+        raise AssertionError(f"serving {arch} peaked at {peak} B, the card holds "
+                             f"{card_bytes} B")
     tps = SERVE_BATCH * (gen_tokens - 1) / t_decode
     print(f"serve {arch} ({api.n_params()} parameters) b={SERVE_BATCH} prompt "
           f"{PROMPT_LEN} gen {gen_tokens}: every logit finite; prefill {t_prefill:.6g} s, "
@@ -1436,7 +1552,8 @@ def dense_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
            "decode_s": t_decode, "decode_tok_per_s": tps, "serve_batch_wall_s": wall,
            "peak_mem_bytes": peak, "launches": launches, "card": card}
     if profile:
-        prof = serving_profile(dev, card, serve, api, attn_counts, top_n=8)
+        prof = serving_profile(dev, card, serve, api, attn_counts, top_n=8,
+                               ranges=ranges)
         by_window = {k: v["launches"] for k, v in prof.items()}
         if by_window != {"prefill": {"flash_attention": cfg.n_layers, "decode_attention": 0},
                          "decode": {"flash_attention": 0,
@@ -1446,6 +1563,72 @@ def dense_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def moe_vlm_slice_check(dev, card, get_api, moe, arch, tol, attn_counts) -> dict:
+    """Phase 19: a reduced MoE or VLM serving path on the card against the
+    same path on the CPU: same weights, tokens (and a VLM's vision
+    embeddings) from one numpy generator, prefill at 128 then 4 decode
+    steps; the largest logit error and each output's mean error within
+    ``tol``; one flash launch a layer in the prefill and one decode launch
+    a layer a step.  Each MoE layer's routing on the card is counted by
+    ``moe.dropped`` on its input (a second ``route``, outside the counts)."""
+    import numpy as np
+    import torch
+    api = get_api(arch, reduced=True)
+    cfg = api.cfg
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 132)))
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    flash_c, dec_c = attn_counts
+    drops = []
+    apply = moe.moe_apply
+
+    def counted(p, x, cfg_, group_size=None):
+        if x.device.type == dev.type and x.shape[1] > 1:
+            drops.append(moe.dropped(moe.route(p, x, cfg_, group_size)))
+        return apply(p, x, cfg_, group_size)
+
+    outs = []
+    moe.moe_apply = counted
+    try:
+        for where in ("cpu", dev):
+            params = api.init(0, "cpu").to(where)
+            t = toks.to(where)
+            batch = {"tokens": t[:, :128]}
+            if vision is not None:
+                batch["vision_embeds"] = vision.to(where)
+            before = (flash_c["flash_attention"], dec_c["decode_attention"])
+            lg, cache = api.prefill(params, batch, max_len=136)
+            got = [lg.float().cpu()]
+            for i in range(4):
+                lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+                got.append(lg[:, 0].float().cpu())
+            outs.append(got)
+            launched = (flash_c["flash_attention"] - before[0],
+                        dec_c["decode_attention"] - before[1])
+    finally:
+        moe.moe_apply = apply
+    if launched != (cfg.n_layers, 4 * cfg.n_layers):
+        raise AssertionError(f"reduced {arch} on the card launched {launched} (flash, "
+                             f"decode), expected {(cfg.n_layers, 4 * cfg.n_layers)}")
+    errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
+    means = [float((a - b).abs().mean()) for a, b in zip(*outs)]
+    max_tol, mean_tol = tol
+    if not all(bool(torch.isfinite(b).all()) for b in outs[1]) or max(errs) >= max_tol \
+            or max(means) >= mean_tol:
+        raise AssertionError(f"reduced {arch} on the card differs from the CPU: max "
+                             f"{errs}, mean {means}")
+    print(f"slice reduced {arch} b=2 prefill 128 + 4 decode steps: card vs CPU max "
+          f"|logit err| {max(errs):.6g} < {max_tol}, largest mean {max(means):.6g} < "
+          f"{mean_tol} (prefill {errs[0]:.6g}, decode steps "
+          f"{', '.join(f'{e:.6g}' for e in errs[1:])}); tokens dropped at capacity "
+          f"by each MoE layer of the card's prefill: {drops} [{card}]", flush=True)
+    return {"max_logit_err": max(errs), "mean_logit_err": max(means),
+            "prefill_drops": drops}
 
 
 def default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
@@ -2713,8 +2896,8 @@ def main() -> int:
 
     # ---- 14. the dense family's shapes: flash and decode against plain -----
     torch.cuda.empty_cache()
-    dense_rows = dense_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
-                                     dec_ref, get_api)
+    dense_rows = attention_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
+                                         dec_ref, get_api, DENSE_ARCHS)
 
     # ---- 15. the reduced dense slices, card against CPU ---------------------
     dense_slice = {arch: slice_check(dev, card, get_api, arch, DENSE_SLICE_TOL[arch])
@@ -2723,20 +2906,48 @@ def main() -> int:
     # ---- 16. main path: serve granite-3-2b at full width and depth ----------
     attn_counts = (flash_kernel.LAUNCHES, dec_kernel.LAUNCHES)
     dense_others = (kernel.LAUNCHES, ssd_kernel.LAUNCHES, scan_kernel.LAUNCHES)
-    dense = {DENSE_ARCHS[0]: dense_serving(dev, card, serve, get_api, DENSE_ARCHS[0],
-                                           GEN_TOKENS, attn_counts, zero_counts,
-                                           dense_others, profile=True)}
+    dense = {DENSE_ARCHS[0]: attention_serving(dev, card, serve, get_api,
+                                               DENSE_ARCHS[0], GEN_TOKENS, attn_counts,
+                                               zero_counts, dense_others, profile=True)}
 
     # ---- 17. starcoder2-7b and qwen3-14b at full width and depth -------------
     for arch in DENSE_ARCHS[1:]:
-        dense[arch] = dense_serving(dev, card, serve, get_api, arch, DENSE_OTHER_GEN,
-                                    attn_counts, zero_counts, dense_others,
-                                    profile=False)
+        dense[arch] = attention_serving(dev, card, serve, get_api, arch,
+                                        DENSE_OTHER_GEN, attn_counts, zero_counts,
+                                        dense_others, profile=False)
     for arch, res in dense.items():
         res["slice_max_logit_err"] = dense_slice[arch]
         res["kernels"] = dense_rows[arch]
     print(json.dumps({"dense": dense}), flush=True)
-    for arch in DENSE_ARCHS:
+
+    # ---- 18. the MoE and VLM shapes: flash and decode against plain ---------
+    from repro_torch.models import moe
+    torch.cuda.empty_cache()
+    mv_rows = attention_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
+                                      dec_ref, get_api, MOE_VLM_ARCHS)
+    dense_rows.update(mv_rows)
+
+    # ---- 19. the reduced MoE and VLM slices, card against CPU ---------------
+    mv_slice = {arch: moe_vlm_slice_check(dev, card, get_api, moe, arch, tol,
+                                          attn_counts)
+                for arch, tol in MOE_VLM_SLICE_TOL.items()}
+    if not sum(sum(r["prefill_drops"]) for r in mv_slice.values()):
+        raise AssertionError("no reduced MoE prefill dropped a token on the card: "
+                             "the capacity path did not run there")
+
+    # ---- 20-21. main path: moonshot-v1-16b-a3b and internvl2-26b at full width
+    moe_ranges = {"moe.router": (moe, "_router"), "moe.dispatch": (moe, "_dispatch"),
+                  "moe.experts": (moe, "_experts"), "moe.combine": (moe, "_combine")}
+    mv = {arch: {"slice": res} for arch, res in mv_slice.items()}
+    for arch in MOE_VLM_ARCHS:
+        moe_family = get_api(arch).cfg.family == "moe"
+        mv[arch].update(attention_serving(
+            dev, card, serve, get_api, arch, DENSE_OTHER_GEN, attn_counts, zero_counts,
+            dense_others, profile=True, ranges=moe_ranges if moe_family else None),
+            kernels=mv_rows[arch])
+    print(json.dumps({"moe_vlm": mv}), flush=True)
+    served = {**dense, **mv}
+    for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
         for name, source, line in (
                 ("flash_attention", FLASH_SOURCE,
                  "src/repro/kernels/flash_attention/kernel.py:23"),
@@ -2746,7 +2957,7 @@ def main() -> int:
             kernels.append({
                 "name": f"{name}/{arch}", "route": "cuda", "source": source,
                 "replaces": line, "model": arch, "shape": r["shape"],
-                "launches": dense[arch]["launches"][name], "max_abs_err": r["err"],
+                "launches": served[arch]["launches"][name], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)

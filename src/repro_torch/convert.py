@@ -214,11 +214,14 @@ def _tensor(arr, device) -> torch.Tensor:
 def lm_params_from_numpy(tree, cfg, device="cpu", dtype=None):
     """The port's parameter tables from the reference's parameter tree
     (nested dicts of numpy arrays, ``tree["layers"]`` stacked along a
-    leading layers axis), for every family the port serves: dense layers
-    hold ``ln1``/``attn``/``ln2``/``mlp`` (and ``attn.q_norm``/``k_norm``
-    with qk_norm), Mamba layers ``ln``/``mamba``.  Weights the model casts
-    at use are stored in ``dtype`` (default float32, the reference's
-    masters); the float32 leaves stay float32.  Every shape is checked
+    leading layers axis), for every family the port serves: dense and VLM
+    layers hold ``ln1``/``attn``/``ln2``/``mlp`` (and
+    ``attn.q_norm``/``k_norm`` with qk_norm), MoE layers ``ln1``/``attn``/
+    ``ln2``/``moe`` (``router`` (d, e), ``wi``/``wg`` (e, d, f), ``wo``
+    (e, f, d), each stacked over the layers as the rest), Mamba layers
+    ``ln``/``mamba``.  Weights the model casts at use are stored in
+    ``dtype`` (default float32, the reference's masters); the float32
+    leaves stay float32.  Every shape is checked
     against the port's specs.
     """
     dtype = dtype or torch.float32

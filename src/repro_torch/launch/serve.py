@@ -1,18 +1,25 @@
 """Batched serving: prefill a prompt batch, decode greedily, for the
 families the port serves: the dense family (granite-3-2b, the default,
 starcoder2-7b, qwen3-14b; deepseek-67b needs more than one 80 GB card at
-full width), zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
+full width), the MoE family (moonshot-v1-16b-a3b; llama4-scout-17b-a16e
+needs more than one card at full width), the VLM internvl2-26b (its
+vision-token prefix drawn as random embeddings, the reference's stub),
+zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --batch 8 --prompt-len 2048 --gen 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \
+        --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --reduced --device cpu
 
 Mesh-free: one card (``device=None``) or, when asked by name, the CPU.
-Weights and prompts are drawn from one ``torch.Generator`` seeded with
-``seed``.  The caches are allocated at ``prompt_len + gen_tokens``.
+Weights, prompts and a VLM's vision embeddings are drawn from one
+``torch.Generator`` seeded with ``seed``.  The caches are allocated at
+``prompt_len + gen_tokens``.
 """
 from __future__ import annotations
 
@@ -32,17 +39,26 @@ def _sync(dev: torch.device) -> None:
 
 
 def make_inputs(api: ModelAPI, batch: int, prompt_len: int, seed: int, device):
-    """The weights and the (batch, prompt_len) prompt tokens of a serving
-    run, both drawn from one generator seeded with ``seed``."""
+    """(weights, prompt tokens (batch, prompt_len), vision embeddings) of a
+    serving run, drawn in that order from one generator seeded with
+    ``seed``.  The vision embeddings, (batch, n_vision_tokens, d) standard
+    normal in bf16 as the reference's serving draws them, are None but
+    for a VLM."""
+    cfg = api.cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     params = api.init(gen, device)
-    prompts = torch.randint(0, api.cfg.vocab, (batch, prompt_len), generator=gen,
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                             device=device)
-    return params, prompts
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.randn((batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+                             device=device, dtype=torch.bfloat16)
+    return params, prompts, vision
 
 
-def generate(api: ModelAPI, params, prompts, gen_tokens: int):
-    """Prefill ``prompts``, then ``gen_tokens - 1`` greedy decode steps.
+def generate(api: ModelAPI, params, prompts, gen_tokens: int, vision_embeds=None):
+    """Prefill ``prompts`` (a VLM's ``vision_embeds`` taking their first
+    positions), then ``gen_tokens - 1`` greedy decode steps.
     Returns (tokens (b, gen_tokens) int32 numpy, prefill s, decode s).
     Raises ``FloatingPointError`` if any logit was not finite.
 
@@ -57,8 +73,10 @@ def generate(api: ModelAPI, params, prompts, gen_tokens: int):
     b, prompt_len = prompts.shape
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, {"tokens": prompts},
-                                max_len=prompt_len + gen_tokens)
+    batch = {"tokens": prompts}
+    if vision_embeds is not None:
+        batch["vision_embeds"] = vision_embeds
+    logits, cache = api.prefill(params, batch, max_len=prompt_len + gen_tokens)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
@@ -91,8 +109,8 @@ def serve_batch(
     """Serve one batch greedily; returns (tokens, prefill s, decode s)."""
     dev = resolve_device(device)
     api = get_api(arch, reduced=reduced)
-    params, prompts = make_inputs(api, batch, prompt_len, seed, dev)
-    gen, t_prefill, t_decode = generate(api, params, prompts, gen_tokens)
+    params, prompts, vision = make_inputs(api, batch, prompt_len, seed, dev)
+    gen, t_prefill, t_decode = generate(api, params, prompts, gen_tokens, vision)
     tps = batch * (gen_tokens - 1) / max(t_decode, 1e-9)
     print(
         f"[serve {arch} on {dev}] prefill {prompt_len} toks x{batch}: "

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly for the dense (granite, starcoder2, qwen3,
-deepseek), hybrid (zamba2) and ssm (falcon-mamba) families, inference only.
+deepseek), MoE (moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2)
+and ssm (falcon-mamba) families, inference only.
 
 Entry points:
   lm_forward     — forward over a sequence -> logits (b, s, V)
@@ -8,15 +9,19 @@ Entry points:
   lm_decode_step — single-token step against the caches
 
 A dense layer is pre-norm GQA attention (flash attention over the
-sequence, flash-decode against the k/v cache) and a pre-norm MLP.  Zamba2
+sequence, flash-decode against the k/v cache) and a pre-norm MLP; an MoE
+layer has the same attention and a pre-norm top-k MoE (``models/moe.py``)
+in place of the MLP, whose aux losses the loss sums; a VLM is the dense
+stack with its first ``n_vision_tokens`` positions taken by precomputed
+vision embeddings (``vision_embeds``; the reference stubs the ViT).  Zamba2
 runs its layers in groups: the shared attention block (input concat(x,
 x0) at width 2d, output back to d) once per group, then
 ``shared_attn_every`` Mamba2 layers.  Falcon-mamba runs its Mamba1
 layers one after the other.  The layers are an ``nn.ModuleList`` of
 per-layer parameter tables (the reference scans a stacked tree).  The
-MoE, VLM and enc-dec families, gradients, remat and sharding (the
-reference's ``remat=`` and ``shd=``) belong to later slices of the port
-and raise ``NotImplementedError``.
+enc-dec family, gradients, remat and sharding (the reference's
+``remat=`` and ``shd=``) belong to later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     ParamSpec,
@@ -42,16 +48,20 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 #: The families the port serves.
-FAMILIES = ("dense", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+#: The families whose layers are attention and a feed-forward block, with
+#: a k/v cache per layer.
+_ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 def require_served(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
-            "serves the dense (granite, starcoder2, qwen3, deepseek), hybrid "
-            "(zamba2) and ssm (falcon-mamba) families.  The MoE family is the "
-            "next slice, then the VLM and enc-dec families"
+            "serves the dense (granite, starcoder2, qwen3, deepseek), MoE "
+            "(moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2) and ssm "
+            "(falcon-mamba) families.  The enc-dec family (whisper) is the "
+            "next slice"
         )
 
 
@@ -68,14 +78,14 @@ def _norm_spec(d):
 
 def _layer_specs(cfg: ArchConfig) -> dict[str, Any]:
     require_served(cfg)
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         d = cfg.d_model
-        return {
-            "ln1": _norm_spec(d),
-            "attn": attn.attn_specs(cfg),
-            "ln2": _norm_spec(d),
-            "mlp": mlp_specs(cfg),
-        }
+        specs = {"ln1": _norm_spec(d), "attn": attn.attn_specs(cfg), "ln2": _norm_spec(d)}
+        if cfg.family == "moe":
+            specs["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            specs["mlp"] = mlp_specs(cfg)
+        return specs
     mamba = ssm_mod.mamba1_specs if cfg.family == "ssm" else ssm_mod.mamba2_specs
     return {"ln": _norm_spec(cfg.d_model), "mamba": mamba(cfg)}
 
@@ -139,6 +149,14 @@ def _dense_layer(pl, x, cfg, positions, collect):
     return x + mlp_apply(pl["mlp"], h, cfg), kv
 
 
+def _moe_layer(pl, x, cfg, positions, collect):
+    """Returns (x, aux, kv)."""
+    x, kv = _attn_block(pl, x, cfg, positions, collect)
+    h = rms_norm(x, pl["ln2"], cfg.norm_eps)
+    out, aux = moe_mod.moe_apply(pl["moe"], h, cfg)
+    return x + out, aux, kv
+
+
 def _ssm_layer(pl, x, cfg, collect):
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
     out, state = ssm_mod.mamba1_apply(pl["mamba"], h, cfg, return_cache=collect)
@@ -163,10 +181,16 @@ def _shared_block(ps, x, x0, cfg, positions, collect):
     return x, kv
 
 
-def embed_tokens(params, tokens):
+def embed_tokens(params, tokens, cfg=None, vision_embeds=None):
     """(b, s) token ids -> (b, s, d) in the compute dtype (the gathered
-    rows are cast, which gives the values of casting the table)."""
-    return params["embed"][tokens].to(COMPUTE_DTYPE)
+    rows are cast, which gives the values of casting the table).  For a
+    VLM config with ``vision_embeds`` (b, nv, d), the first nv positions
+    are the vision embeddings, cast to the compute dtype."""
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    if cfg is not None and cfg.family == "vlm" and vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(COMPUTE_DTYPE), x[:, nv:]], dim=1)
+    return x
 
 
 def _logits(params, cfg, x):
@@ -174,30 +198,37 @@ def _logits(params, cfg, x):
     return x @ params["unembed"].to(x.dtype)
 
 
-def _backbone(params, cfg: ArchConfig, tokens, cache=None):
+def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None):
     """Embed and run every layer (zamba2: every group); with ``cache``
-    (from ``init_cache``), write each dense layer's k/v, each Mamba layer's
-    conv tail and state and each shared application's k/v into it.
-    Returns the last hidden states (b, s, d)."""
+    (from ``init_cache``), write each attention layer's k/v, each Mamba
+    layer's conv tail and state and each shared application's k/v into it.
+    Returns the last hidden states (b, s, d) and the MoE layers' summed aux
+    loss (float32; 0 for the other families)."""
     require_served(cfg)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg, vision_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     collect = cache is not None
     s = tokens.shape[1]
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         positions = torch.arange(s, device=tokens.device)[None, :]
         for li in range(cfg.n_layers):
-            x, kv = _dense_layer(params["layers"][li], x, cfg, positions, collect)
+            pl = params["layers"][li]
+            if cfg.family == "moe":
+                x, aux_i, kv = _moe_layer(pl, x, cfg, positions, collect)
+                aux = aux + aux_i
+            else:
+                x, kv = _dense_layer(pl, x, cfg, positions, collect)
             if collect:
                 cache["k"][li, :, :s] = kv[0]
                 cache["v"][li, :, :s] = kv[1]
-        return x
+        return x, aux
     if not cfg.shared_attn_every:
         for li in range(cfg.n_layers):
             x, entry = _ssm_layer(params["layers"][li], x, cfg, collect)
             if collect:
                 cache["conv"][li] = entry["conv"]
                 cache["h"][li] = entry["h"]
-        return x
+        return x, aux
     positions = torch.arange(s, device=tokens.device)[None, :]
     x0 = x
     every = cfg.shared_attn_every
@@ -211,29 +242,33 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None):
             if collect:
                 cache["conv"][li] = entry["conv"]
                 cache["h"][li] = entry["h"]
-    return x
+    return x, aux
 
 
-def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False):
-    """tokens (b, s) -> logits (b, s, V)."""
+def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False,
+               vision_embeds=None):
+    """tokens (b, s) -> logits (b, s, V); a VLM's ``vision_embeds`` (b,
+    nv, d) take its first nv positions."""
     _mesh_free(shd, remat)
-    return _logits(params, cfg, _backbone(params, cfg, tokens))
+    x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds)
+    return _logits(params, cfg, x)
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
-    """The cache-free forward over ``batch["tokens"]``, then the mean
-    next-token CE over ``batch["labels"]`` (positions labelled -1 do not
-    count) plus 0.01 x the MoE aux loss, which is 0 for the families the
-    port serves.  Returns (loss, {"ce", "aux"}).  Forward only: parameters
-    that require a gradient raise (the trainer is a later slice)."""
+    """The cache-free forward over ``batch["tokens"]`` (and a VLM's
+    ``batch["vision_embeds"]``), then the mean next-token CE over
+    ``batch["labels"]`` (positions labelled -1 do not count) plus 0.01 x
+    the MoE layers' summed aux loss (0 for the other families).  Returns
+    (loss, {"ce", "aux"}).  Forward only: parameters that require a
+    gradient raise (the trainer is a later slice)."""
     _mesh_free(shd, remat)
     if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
         raise NotImplementedError(
             "gradients belong to the training slice, a later slice of the port: "
             "lm_loss runs the forward only")
-    logits = lm_forward(params, cfg, batch["tokens"])
-    ce = cross_entropy_loss(logits, batch["labels"], cfg.vocab)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    x, aux = _backbone(params, cfg, batch["tokens"],
+                       vision_embeds=batch.get("vision_embeds"))
+    ce = cross_entropy_loss(_logits(params, cfg, x), batch["labels"], cfg.vocab)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -242,29 +277,35 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
 # ---------------------------------------------------------------------------
 
 
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                 dtype=COMPUTE_DTYPE) -> dict:
+    """{name: (shape, dtype)} of the serving caches, the reference's
+    layout.  Attention families: per layer the k/v at ``max_len``, ``(L,
+    b, max_len, kv, hd)``.  Mamba: per layer the conv tail and the state;
+    zamba2 adds the shared block's k/v at ``max_len``, which falcon-mamba
+    does not use."""
+    require_served(cfg)
+    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    kv_shape = ((L, batch, max_len, kv, hd), dtype)
+    if cfg.family in _ATTN_FAMILIES:
+        return {"k": kv_shape, "v": kv_shape}
+    per = ssm_mod.mamba1_cache_shapes if cfg.family == "ssm" \
+        else ssm_mod.mamba2_cache_shapes
+    out = {k: ((L,) + shape, dt) for k, (shape, dt) in per(cfg, batch, dtype).items()}
+    if cfg.family == "hybrid":
+        napp = n_shared_apps(cfg)
+        out["shared_k"] = out["shared_v"] = ((napp, batch, max_len, kv, hd), dtype)
+    return out
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=COMPUTE_DTYPE,
                device=None):
-    """Zeroed serving caches on ``device`` (None: the CUDA card).  Dense:
-    per layer the k/v at ``max_len``, ``(L, b, max_len, kv, hd)``.  Mamba:
-    per layer the conv tail and the state; zamba2 adds the shared block's
-    k/v at ``max_len``, which falcon-mamba does not use."""
-    require_served(cfg)
+    """The zeroed serving caches of ``cache_shapes`` on ``device`` (None:
+    the CUDA card)."""
+    shapes = cache_shapes(cfg, batch, max_len, dtype)
     device = resolve_device(device)
-    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    if cfg.family == "dense":
-        return {name: torch.zeros((L, batch, max_len, kv, hd), dtype=dtype,
-                                  device=device) for name in ("k", "v")}
-    init = ssm_mod.mamba1_init_cache if cfg.family == "ssm" else ssm_mod.mamba2_init_cache
-    c = init(cfg, batch, dtype, device)
-    base = {k: torch.zeros((L,) + tuple(v.shape), dtype=v.dtype, device=device)
-            for k, v in c.items()}
-    if cfg.family == "ssm":
-        return base
-    napp = n_shared_apps(cfg)
-    for name in ("shared_k", "shared_v"):
-        base[name] = torch.zeros((napp, batch, max_len, kv, hd), dtype=dtype,
-                                 device=device)
-    return base
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in shapes.items()}
 
 
 def extend_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
@@ -280,8 +321,9 @@ def extend_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
 
 
 def lm_prefill(params, cfg: ArchConfig, tokens, *, max_len: int | None = None,
-               shd=None):
-    """Forward over a prompt; returns (last-position logits (b, V), cache).
+               shd=None, vision_embeds=None):
+    """Forward over a prompt (a VLM's ``vision_embeds`` taking its first
+    positions); returns (last-position logits (b, V), cache).
 
     The cache is allocated at ``max_len`` (default: the prompt length),
     with the seq-indexed buffers zero past the prompt, as the reference's
@@ -289,7 +331,7 @@ def lm_prefill(params, cfg: ArchConfig, tokens, *, max_len: int | None = None,
     _mesh_free(shd)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device)
-    x = _backbone(params, cfg, tokens, cache)
+    x, _ = _backbone(params, cfg, tokens, cache, vision_embeds)
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
@@ -305,8 +347,10 @@ def _decode_attn(p_attn, x_norm, kc, vc, pos, positions, cache_len, qk_cfg):
 def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None):
     """tokens: (b, 1); pos: the position being written -> (logits (b, 1, V),
     cache).  The cache is updated in place (the same dict is returned):
-    every dense layer's k/v at ``pos``; every Mamba layer's conv tail and
-    state, and (zamba2) the shared block's k/v at ``pos``."""
+    every attention layer's k/v at ``pos``; every Mamba layer's conv tail
+    and state, and (zamba2) the shared block's k/v at ``pos``.  An MoE
+    layer routes the step's b tokens as a group of one token each (capacity
+    ``top_k``), so it never drops a token; its aux loss is not kept."""
     require_served(cfg)
     _mesh_free(shd)
     x = embed_tokens(params, tokens)
@@ -325,14 +369,18 @@ def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None
     x0 = x
     positions = torch.full((1, 1), pos, device=tokens.device)
     cache_len = torch.full((b,), pos + 1, dtype=torch.int32, device=tokens.device)
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         for li in range(cfg.n_layers):
             pl = params["layers"][li]
             h = rms_norm(x, pl["ln1"], cfg.norm_eps)
             x = x + _decode_attn(pl["attn"], h, cache["k"][li], cache["v"][li], pos,
                                  positions, cache_len, cfg)
             h = rms_norm(x, pl["ln2"], cfg.norm_eps)
-            x = x + mlp_apply(pl["mlp"], h, cfg)
+            if cfg.family == "moe":
+                ff, _ = moe_mod.moe_apply(pl["moe"], h, cfg)
+            else:
+                ff = mlp_apply(pl["mlp"], h, cfg)
+            x = x + ff
         return _logits(params, cfg, x), cache
     every = cfg.shared_attn_every
     ps = params["shared"]

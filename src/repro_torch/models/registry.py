@@ -1,11 +1,15 @@
-"""Model API over the families the port serves (dense, hybrid and ssm).
+"""Model API over the families the port serves (dense, MoE, VLM, hybrid
+and ssm), and the reference's shape cells with their inputs.
 
 ``get_config`` reads an architecture whose config the port keeps
 (``repro_torch/configs/``: granite-3-2b, starcoder2-7b, qwen3-14b and
-deepseek-67b of the dense family, zamba2-2.7b, falcon-mamba-7b); each
-later slice adds the configs of the family it serves.
-``get_api`` raises ``NotImplementedError``, naming the later slice, for a
-family the port does not serve yet (MoE, VLM, enc-dec).
+deepseek-67b of the dense family, moonshot-v1-16b-a3b and
+llama4-scout-17b-a16e (MoE), internvl2-26b (VLM), zamba2-2.7b,
+falcon-mamba-7b); each later slice adds the configs of the family it
+serves.  ``get_api`` raises ``NotImplementedError``, naming the later
+slice, for a family the port does not serve yet (enc-dec).
+``input_specs`` gives a cell's inputs as ``meta`` tensors: their shapes
+and dtypes, no storage.
 """
 from __future__ import annotations
 
@@ -19,6 +23,14 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import Params, init_tree, param_count
 from repro_torch.models.config import ArchConfig
+
+# (seq_len, global_batch, kind), the reference's cells
+SHAPES: dict[str, tuple[int, int, str]] = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -49,8 +61,9 @@ class ModelAPI:
         return Params(init_tree(self.specs(), gen, dev, dtype))
 
     def prefill(self, params, batch: dict, *, max_len: int | None = None, shd=None):
+        """``batch``: ``tokens``, and a VLM's ``vision_embeds``."""
         return lm.lm_prefill(params, self.cfg, batch["tokens"], max_len=max_len,
-                             shd=shd)
+                             shd=shd, vision_embeds=batch.get("vision_embeds"))
 
     def decode_step(self, params, tokens, cache, pos: int, *, shd=None):
         return lm.lm_decode_step(params, self.cfg, tokens, cache, pos, shd=shd)
@@ -59,8 +72,8 @@ class ModelAPI:
         return lm.init_cache(self.cfg, batch, max_len, device=device)
 
     def loss(self, params, batch: dict, *, shd=None):
-        """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``),
-        forward only."""
+        """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``, and
+        a VLM's ``vision_embeds``), forward only."""
         return lm.lm_loss(params, self.cfg, batch, shd=shd)
 
 
@@ -74,3 +87,40 @@ def get_api(arch_id: str, reduced: bool = False) -> ModelAPI:
     if reduced:
         cfg = cfg.reduced()
     return build_api(cfg)
+
+
+def shape_cells(arch_id: str) -> list[str]:
+    """Shape cells that lower for this arch (long_500k only if sub-quadratic)."""
+    cfg = get_config(arch_id)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        cells.append("long_500k")
+    return cells
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> dict[str, Any]:
+    """A cell's inputs as ``meta`` tensors (shapes and dtypes, no storage).
+    Train: ``tokens`` and ``labels``; prefill: ``tokens``; a VLM adds its
+    ``vision_embeds`` (b, n_vision_tokens, d) in bf16 to both.  Decode: one
+    new token, the cache at the cell's length and ``pos``."""
+    lm.require_served(cfg)
+    seq, gb, kind = SHAPES[shape_name]
+    i32 = torch.int32
+    if kind == "decode":
+        return {
+            "tokens": _meta((gb, 1), i32),
+            "cache": {k: _meta(shape, dt)
+                      for k, (shape, dt) in lm.cache_shapes(cfg, gb, seq).items()},
+            "pos": _meta((), i32),
+        }
+    batch = {"tokens": _meta((gb, seq), i32)}
+    if kind == "train":
+        batch["labels"] = _meta((gb, seq), i32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = _meta((gb, cfg.n_vision_tokens, cfg.d_model),
+                                       torch.bfloat16)
+    return batch

@@ -88,15 +88,17 @@ def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
     return out, {"conv": xin[:, -(w - 1):].to(dt_), "h": h}
 
 
+def mamba1_cache_shapes(cfg: ArchConfig, batch: int, dtype=torch.float32) -> dict:
+    """{name: (shape, dtype)} of the conv tail and the state."""
+    return {"conv": ((batch, cfg.conv_width - 1, cfg.inner), dtype),
+            "h": ((batch, cfg.inner, cfg.ssm_state), torch.float32)}
+
+
 def mamba1_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None):
     """Zeroed conv tail and state on ``device`` (None: the CUDA card)."""
     device = resolve_device(device)
-    return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.inner), dtype=dtype,
-                            device=device),
-        "h": torch.zeros((batch, cfg.inner, cfg.ssm_state), dtype=torch.float32,
-                         device=device),
-    }
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in mamba1_cache_shapes(cfg, batch, dtype).items()}
 
 
 def mamba1_decode_step(p, x, cache, cfg: ArchConfig):
@@ -193,17 +195,19 @@ def mamba2_apply(p, x, cfg: ArchConfig, chunk: int = 128, return_cache: bool = F
     return out, {"conv": xbc_tail, "h": S}
 
 
+def mamba2_cache_shapes(cfg: ArchConfig, batch: int, dtype=torch.float32) -> dict:
+    """{name: (shape, dtype)} of the conv tail and the state."""
+    nh = cfg.inner // cfg.ssm_head_dim
+    st = cfg.ssm_state
+    return {"conv": ((batch, cfg.conv_width - 1, cfg.inner + 2 * st), dtype),
+            "h": ((batch, nh, st, cfg.ssm_head_dim), torch.float32)}
+
+
 def mamba2_init_cache(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None):
     """Zeroed conv tail and state on ``device`` (None: the CUDA card)."""
     device = resolve_device(device)
-    nh = cfg.inner // cfg.ssm_head_dim
-    st = cfg.ssm_state
-    return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.inner + 2 * st),
-                            dtype=dtype, device=device),
-        "h": torch.zeros((batch, nh, st, cfg.ssm_head_dim), dtype=torch.float32,
-                         device=device),
-    }
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in mamba2_cache_shapes(cfg, batch, dtype).items()}
 
 
 def mamba2_decode_step(p, x, cache, cfg: ArchConfig):

@@ -279,7 +279,7 @@ def test_serve_batch_cpu_matches_reference_loop(arch):
     assert gen.shape == (batch, gen_tokens) and gen.dtype == np.int32
     assert t_prefill > 0 and t_decode > 0
     papi = p_get_api(arch, reduced=True)
-    params, prompts = serve.make_inputs(papi, batch, prompt_len, seed,
+    params, prompts, _ = serve.make_inputs(papi, batch, prompt_len, seed,
                                         torch.device("cpu"))
     jparams = jax.tree.map(jnp.asarray, convert.lm_params_to_numpy(params))
     want = _reference_serve_loop(j_get_api(arch, reduced=True), jparams,
@@ -299,7 +299,7 @@ def test_padded_vocab_columns_are_never_a_token():
     j_cfg = dataclasses.replace(j_get_api("granite-3-2b", reduced=True).cfg, vocab=49155)
     papi, japi = p_build_api(p_cfg), j_build_api(j_cfg)
     assert p_lm.pad_vocab(49155) == j_common.pad_vocab(49155) == 49408
-    params, prompts = serve.make_inputs(papi, 2, 32, 1, torch.device("cpu"))
+    params, prompts, _ = serve.make_inputs(papi, 2, 32, 1, torch.device("cpu"))
     gen, _, _ = serve.generate(papi, params, prompts, 6)
     jparams = jax.tree.map(jnp.asarray, convert.lm_params_to_numpy(params))
     p_np = prompts.numpy().astype(np.int32)

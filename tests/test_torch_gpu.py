@@ -2,8 +2,9 @@
 PyTorch version on the same inputs (the placement kernels bitwise, the
 attention, SSD and selective-scan kernels within the reference's
 tolerances), placement on the card against the reference's SoA engine,
-and the reduced zamba2 and falcon-mamba slices on the card against the
-same slices on the CPU.  Marked ``gpu``;
+the reduced zamba2, falcon-mamba, dense, MoE and VLM slices on the card
+against the same slices on the CPU, and the MoE routing on the card
+against the CPU's.  Marked ``gpu``;
 every test skips where there is no CUDA device (decided in the
 ``cuda_device`` fixture).  This file imports no JAX, so it runs on a GPU
 machine without it::
@@ -34,7 +35,7 @@ from repro_torch.kernels.selective_scan import kernel as scan_kernel
 from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd import ref as ssd_ref
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.models.registry import get_api
 
 REGS = ("e_base", "nl", "g_base", "lk", "fw", "wt")
@@ -186,6 +187,10 @@ def _randn(gen, shape, dtype, device):
     (2, 1024, 1024, 32, 8, 64, True, torch.bfloat16),    # granite-3-2b
     (1, 1024, 1024, 36, 4, 128, True, torch.bfloat16),   # starcoder2-7b
     (1, 1024, 1024, 40, 8, 128, True, torch.bfloat16),   # qwen3-14b
+    # the MoE and VLM families: group 1 and group 6 at head_dim 128
+    (1, 1024, 1024, 16, 16, 128, True, torch.bfloat16),  # moonshot-v1-16b-a3b
+    (1, 1024, 1024, 48, 8, 128, True, torch.bfloat16),   # internvl2-26b
+    (2, 300, 300, 12, 2, 128, True, torch.bfloat16),     # group 6, ragged tiles
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
                                               causal, dtype):
@@ -221,6 +226,11 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
     (3, 777, 10, 2, 128, torch.bfloat16),
     (3, 300, 9, 1, 128, torch.bfloat16),
     (2, 300, 9, 1, 128, torch.float32),
+    # the MoE and VLM families: group 1 (15 padding rows of the tile) and
+    # group 6 (10) at d=128, at the serving cache
+    (8, 2176, 16, 16, 128, torch.bfloat16),
+    (8, 2176, 48, 8, 128, torch.bfloat16),
+    (3, 777, 6, 1, 128, torch.bfloat16),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, b, S, h, kv, d, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + h)
@@ -401,6 +411,73 @@ def test_reduced_dense_on_card_matches_cpu(cuda_device, arch):
     for a, b_ in zip(*outs):
         assert torch.isfinite(b_).all()
         assert float((a - b_).abs().max()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,max_tol,mean_tol", [
+    ("moonshot-v1-16b-a3b", 0.33, 0.051), ("llama4-scout-17b-a16e", 5.5, 0.129),
+    ("internvl2-26b", 0.09, 0.018)])
+def test_reduced_moe_and_vlm_on_card_match_cpu(cuda_device, arch, max_tol, mean_tol):
+    """The MoE and VLM serving paths on the card against the same paths on
+    the CPU, same weights, teacher-forced tokens and (internvl2) vision
+    embeddings: the largest logit error and each output's mean within the
+    CPU tests' bounds (tests/test_torch_moe.py, tests/test_torch_vlm.py);
+    flash on every layer of the prefill, decode on every layer a step."""
+    api = get_api(arch, reduced=True)
+    cfg = api.cfg
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 132)))
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32))
+    counts = [dict(m.LAUNCHES) for m in (flash_kernel, dec_kernel)]
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params = api.init(0, "cpu").to(dev)
+        t = toks.to(dev)
+        batch = {"tokens": t[:, :128]}
+        if vision is not None:
+            batch["vision_embeds"] = vision.to(dev)
+        lg, cache = api.prefill(params, batch, max_len=136)
+        got = [lg.float().cpu()]
+        for i in range(4):
+            lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+            got.append(lg[:, 0].float().cpu())
+        outs.append(got)
+    L = cfg.n_layers
+    assert flash_kernel.LAUNCHES["flash_attention"] == counts[0]["flash_attention"] + L
+    assert dec_kernel.LAUNCHES["decode_attention"] == counts[1]["decode_attention"] + 4 * L
+    for a, b_ in zip(*outs):
+        assert torch.isfinite(b_).all()
+        assert float((a - b_).abs().max()) < max_tol
+        assert float((a - b_).abs().mean()) < mean_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e"])
+def test_moe_routing_on_card_equals_cpu(cuda_device, arch):
+    """moe.route in float32 on the card and on the CPU (a router at scale
+    1, groups of 16 that drop tokens): the same experts, the same slots,
+    the same drops; the output within 1e-4."""
+    cfg = get_api(arch, reduced=True).cfg
+    gen = torch.Generator().manual_seed(5)
+    p = {"router": torch.randn((cfg.d_model, cfg.n_experts), generator=gen)}
+    for name, shape in (("wi", (cfg.n_experts, cfg.d_model, cfg.d_ff)),
+                        ("wg", (cfg.n_experts, cfg.d_model, cfg.d_ff)),
+                        ("wo", (cfg.n_experts, cfg.d_ff, cfg.d_model))):
+        p[name] = torch.randn(shape, generator=gen) / shape[1] ** 0.5
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    want = moe.route(p, x, cfg, 16)
+    got = moe.route(pc, x.to(cuda_device), cfg, 16)
+    assert torch.equal(got["topi"].cpu(), want["topi"])
+    assert torch.equal(got["dispatch"].cpu(), want["dispatch"])
+    assert moe.dropped(got) == moe.dropped(want) > 0
+    out_c, aux_c = moe.moe_apply(p, x, cfg, 16)
+    out_g, aux_g = moe.moe_apply(pc, x.to(cuda_device), cfg, 16)
+    torch.testing.assert_close(out_g.cpu(), out_c, atol=1e-4, rtol=1e-4)
+    assert abs(float(aux_g) - float(aux_c)) < 1e-6
 
 
 # ---------------------------------------------------------------------------
