@@ -199,6 +199,32 @@ same two kernels:
 21. ``serve_batch("internvl2-26b")`` the same way, its 256 vision
     embeddings drawn by ``make_inputs`` (48 and 48 launches), with a trace.
 
+The enc-dec family (the eighth slice): whisper-tiny at full width, its
+encoder, cross-attention and cross-decode through the same two kernels:
+
+22. Flash attention and flash-decode against their plain versions at
+    whisper-tiny's serving shapes (b=8, 6 heads of 64, MHA, bf16): flash
+    for the encoder (1,500 frames against themselves, non-causal: a
+    ragged 92-key last tile), the decoder's self-attention (the 384-token
+    prompt, causal) and cross-attention (the prompt against the frames,
+    non-causal); decode against the 448-entry self cache (ragged lengths,
+    then a NaN tail) and the 1,500-entry cross cache with every entry
+    live; each timed beside its plain version, SDPA and its bound.
+23. The reduced whisper slice on the card against the CPU at 32 frames
+    (the reduced config's) and at 256: logits within the CPU tests' bound
+    (0.44); 6 flash launches in the prefill, 16 decode launches in the 4
+    steps.
+24. Main path: ``serve_batch("whisper-tiny", batch=8, prompt_len=384,
+    gen_tokens=64, seed=0)`` at full width (random bf16 frames from
+    ``make_inputs``): 12 flash launches in the prefill (4 encoder, 4
+    self, 4 cross), 8 decode launches a step (4 self, 4 cross; 504 in
+    all), no other kernel; every logit finite; prefill seconds, decode
+    tokens/s, peak memory; a trace of a prefill and 4 decode steps.
+25. ``examples/torch_molecular_design.py`` (the paper's molecular-design
+    campaign through ``OnlineEngine`` with Cluster MHRA, the surrogate
+    trained by autograd) on the card and on the CPU: every window and the
+    summary equal; its window-kernel launches printed.
+
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -319,6 +345,20 @@ MOE_VLM_ARCHS = ("moonshot-v1-16b-a3b", "internvl2-26b")
 MOE_VLM_SLICE_TOL = {"moonshot-v1-16b-a3b": (0.33, 0.051),
                      "llama4-scout-17b-a16e": (5.5, 0.129),
                      "internvl2-26b": (0.09, 0.018)}
+
+# the enc-dec family (the eighth slice): whisper-tiny served at full width,
+# b=8, a 384-token prompt and 64 new tokens (448 in all, whisper's decoder
+# context) against 1,500 random frames (the reference's stubbed frontend)
+WHISPER = "whisper-tiny"
+WHISPER_PROMPT, WHISPER_GEN = 384, 64
+# the reduced slice, card against CPU, at the reduced config's 32 frames and
+# at 256: the CPU tests' bound, twice the reference's own xla-vs-Pallas
+# spread at 256 (tests/test_torch_encdec.py)
+WHISPER_ENC_LENS, WHISPER_SLICE_TOL = (32, 256), 0.44
+# the molecular-design surrogate's first-wave MSE, card against CPU: float32
+# autograd over 200 steps from one model on the same data (the CPU test holds
+# the CPU to the reference within 1e-7)
+MD_MSE_TOL = 1e-5
 
 
 def card_line() -> str:
@@ -936,31 +976,30 @@ def trace(label, fn, card, top_n=6, ranges=()) -> dict:
     return out
 
 
-def serving_profile(dev, card, serve, api, counts=None, top_n=6, ranges=None) -> dict:
+def serving_profile(dev, card, serve, api, counts=None, top_n=6, ranges=None,
+                    prompt_len=PROMPT_LEN) -> dict:
     """The device's busy share of the serving path: a trace of one prefill
-    at the serving shapes (b=8, prompt 2048; a VLM's vision embeddings from
-    ``make_inputs``) and of 4 decode steps after it.  ``counts`` (a
-    kernel's LAUNCHES, or a tuple of them) is read per window.
-    ``ranges``: {name: (module, function name)}, each function wrapped in a
-    ``record_function`` range of that name for the traces."""
+    at the serving shapes (b=8, ``prompt_len``; a VLM's vision embeddings
+    or an enc-dec's frames from ``make_inputs``) and of 4 decode steps
+    after it.  ``counts`` (a kernel's LAUNCHES, or a tuple of them) is read
+    per window.  ``ranges``: {name: (module, function name)}, each function
+    wrapped in a ``record_function`` range of that name for the traces."""
     import torch
     tables = () if counts is None else (counts,) if isinstance(counts, dict) \
         else tuple(counts)
-    params, prompts, vision = serve.make_inputs(api, SERVE_BATCH, PROMPT_LEN, 0, dev)
-    serve.generate(api, params, prompts[:, :256], 3, vision)    # warm-up
-    batch = {"tokens": prompts}
-    if vision is not None:
-        batch["vision_embeds"] = vision
+    params, prompts, frontend = serve.make_inputs(api, SERVE_BATCH, prompt_len, 0, dev)
+    serve.generate(api, params, prompts[:, :256], 3, frontend)    # warm-up
+    batch = serve.prefill_batch(api, prompts, frontend)
     state = {}
 
     def prefill():
-        logits, state["cache"] = api.prefill(params, batch, max_len=PROMPT_LEN + 8)
+        logits, state["cache"] = api.prefill(params, batch, max_len=prompt_len + 8)
         state["tok"] = torch.argmax(logits, dim=-1)[:, None]
 
     def decode():
         for i in range(4):
             logits, state["cache"] = api.decode_step(params, state["tok"],
-                                                     state["cache"], PROMPT_LEN + i)
+                                                     state["cache"], prompt_len + i)
             state["tok"] = torch.argmax(logits[:, 0], dim=-1)[:, None]
 
     ranges = ranges or {}
@@ -1411,50 +1450,50 @@ def attention_bound(b, sq, live, h, kv, d, esize, causal) -> tuple[int, int]:
     return nbytes, 4 * b * h * d * pairs
 
 
-def attention_kernel_checks(dev, card, fk, fr, dk, dr, get_api, archs) -> dict:
-    """Phases 14 and 18: flash and decode at each config's serving shapes
-    (b=8, prompt 2048; decode against a 2,176-entry cache), each against
-    its plain version (bf16 2e-2; decode with ragged lengths and a NaN
-    tail past them), then timed by CUDA events beside the plain version
-    and SDPA (``enable_gqa=True``) with the bound from the shapes."""
+def flash_row(dev, card, fk, fr, gen, b, sq, sk, h, kv, d, causal, tag) -> dict:
+    """Flash attention at (b, sq, sk, h, kv, d) in bf16 against its plain
+    version (2e-2), then timed by CUDA events beside the plain version and
+    SDPA (``enable_gqa=True``); the shapes' bytes and FLOP."""
     import torch
     import torch.nn.functional as F
-    gen = torch.Generator(device=dev).manual_seed(2)
-    b, s, S = SERVE_BATCH, PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
-    live = PROMPT_LEN + GEN_TOKENS // 2
-    out = {}
-    for arch in archs:
-        cfg = get_api(arch).cfg
-        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        rows = out[arch] = {}
-        tag = f"{arch} (h={h}, kv={kv}, group {h // kv}, d={d})"
+    q = randn(gen, (b, sq, h, d), "bfloat16", dev)
+    k = randn(gen, (b, sk, kv, d), "bfloat16", dev)
+    v = randn(gen, (b, sk, kv, d), "bfloat16", dev)
+    got = fk.flash_attention(q, k, v, causal=causal)
+    plain = {}
+    plain_ms = event_ms(lambda: plain.setdefault(
+        "p", fr.attention_plain(q, k, v, causal=causal)))
+    err = check_close(f"flash_attention {tag} b={b} sq={sq} sk={sk} "
+                      f"{'causal' if causal else 'non-causal'} bf16", got,
+                      plain.pop("p"), TOLS["bfloat16"], card)
+    del got
+    ms = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=causal), reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10)
+    nbytes, flops = attention_bound(b, sq, sk, h, kv, d, 2, causal)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err, nbytes=nbytes,
+                flops=flops, shape=[b, sq, sk, h, kv, d], causal=causal)
 
-        q = randn(gen, (b, s, h, d), "bfloat16", dev)
-        k = randn(gen, (b, s, kv, d), "bfloat16", dev)
-        v = randn(gen, (b, s, kv, d), "bfloat16", dev)
-        got = fk.flash_attention(q, k, v, causal=True)
-        plain = {}
-        plain_ms = event_ms(lambda: plain.setdefault(
-            "p", fr.attention_plain(q, k, v, causal=True)))
-        err = check_close(f"flash_attention {tag} b={b} s={s} causal bf16", got,
-                          plain.pop("p"), TOLS["bfloat16"], card)
-        del got
-        ms = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=True), reps=10)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
-        nbytes, flops = attention_bound(b, s, s, h, kv, d, 2, True)
-        rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err,
-                                       nbytes=nbytes, flops=flops,
-                                       shape=[b, s, s, h, kv, d])
-        del q, k, v, qt, kt, vt
 
-        q = randn(gen, (b, 1, h, d), "bfloat16", dev)
-        kc = randn(gen, (b, S, kv, d), "bfloat16", dev)
-        vc = randn(gen, (b, S, kv, d), "bfloat16", dev)
-        split = dk.plan_splits(b, S, h, kv, d)["split"]
-        lens = torch.tensor([S, live, 1, split - 1, split, split + 1, 700, 1500],
-                            dtype=torch.int32, device=dev)
+def decode_row(dev, card, dk, dr, gen, b, S, live, h, kv, d, tag, lens=None) -> dict:
+    """Flash-decode against a (b, S, kv, d) bf16 cache: with ``lens`` (ragged
+    ``cache_len`` per row) against its plain version (2e-2), then with a NaN
+    tail past them, which must change nothing; then at ``live`` entries on
+    every row, against the plain version and timed by CUDA events beside it
+    and SDPA (``enable_gqa=True``, with a ``cache_len`` mask where ``live``
+    is short of S)."""
+    import torch
+    import torch.nn.functional as F
+    q = randn(gen, (b, 1, h, d), "bfloat16", dev)
+    kc = randn(gen, (b, S, kv, d), "bfloat16", dev)
+    vc = randn(gen, (b, S, kv, d), "bfloat16", dev)
+    split = dk.plan_splits(b, S, h, kv, d)["split"]
+    err = 0.0
+    if lens is not None:
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = dk.decode_attention(q, kc, vc, lens)
         err = check_close(f"decode_attention {tag} b={b} S={S} cache_len="
                           f"{lens.tolist()} bf16", got,
@@ -1469,68 +1508,147 @@ def attention_kernel_checks(dev, card, fk, fr, dk, dr, get_api, archs) -> dict:
         if not torch.equal(stale, got):
             raise AssertionError(f"decode_attention {tag} read the cache past cache_len")
         del kc2, vc2, stale
-        lens = torch.full((b,), live, dtype=torch.int32, device=dev)
-        got = dk.decode_attention(q, kc, vc, lens)
-        plain_ms = event_ms(lambda: plain.setdefault(
-            "p", dr.decode_attention_plain(q, kc, vc, lens)))
-        err = max(err, check_close(f"decode_attention {tag} at {live} live entries",
-                                   got, plain.pop("p"), TOLS["bfloat16"], card))
-        ms = cuda_ms(lambda: dk.decode_attention(q, kc, vc, lens), reps=50)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+    lens = torch.full((b,), live, dtype=torch.int32, device=dev)
+    got = dk.decode_attention(q, kc, vc, lens)
+    plain = {}
+    plain_ms = event_ms(lambda: plain.setdefault(
+        "p", dr.decode_attention_plain(q, kc, vc, lens)))
+    err = max(err, check_close(f"decode_attention {tag} b={b} S={S} at {live} live "
+                               f"entries", got, plain.pop("p"), TOLS["bfloat16"], card))
+    ms = cuda_ms(lambda: dk.decode_attention(q, kc, vc, lens), reps=50)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+    mask = None
+    if live < S:
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
-        nbytes, flops = attention_bound(b, 1, live, h, kv, d, 2, False)
-        rows["decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err,
-                                        nbytes=nbytes, flops=flops,
-                                        shape=[b, S, live, h, kv, d], split=split)
-        del q, kc, vc, qt, kt, vt, mask, got
-        torch.cuda.empty_cache()
-        for name, r in rows.items():
-            t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = r["flops"] / BF16_FLOPS * 1e3
-            r["bound_ms"] = max(t_bytes, t_ops)
-            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            print(f"time {name} {tag} shape {r['shape']}: kernel {r['ms']:.6g} ms, plain "
-                  f"version {r['plain_ms']:.6g} ms, SDPA {r['library_ms']:.6g} ms, bound "
-                  f"{r['bound_ms']:.6g} ms by {r['bound_by']} ({r['nbytes']} B, "
-                  f"{r['flops']} FLOP); {r['bound_ms'] / r['ms']:.4f} of the bound, "
-                  f"{r['flops'] / r['ms'] / 1e9:.6g} TFLOP/s, "
-                  f"{r['nbytes'] / r['ms'] / 1e6:.6g} GB/s, SDPA "
-                  f"{r['library_ms'] / r['ms']:.4g}x the kernel's speed [{card}]",
-                  flush=True)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
+    nbytes, flops = attention_bound(b, 1, live, h, kv, d, 2, False)
+    del q, kc, vc, qt, kt, vt, mask, got
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err, nbytes=nbytes,
+                flops=flops, shape=[b, S, live, h, kv, d], split=split)
+
+
+def bound_rows(rows, tag, card) -> None:
+    """Each row's bound (the larger of its bytes at the memory rate and its
+    FLOP at the bf16 tensor-core rate), printed beside its times."""
+    for name, r in rows.items():
+        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / BF16_FLOPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"time {name} {tag} shape {r['shape']}: kernel {r['ms']:.6g} ms, plain "
+              f"version {r['plain_ms']:.6g} ms, SDPA {r['library_ms']:.6g} ms, bound "
+              f"{r['bound_ms']:.6g} ms by {r['bound_by']} ({r['nbytes']} B, "
+              f"{r['flops']} FLOP); {r['bound_ms'] / r['ms']:.4f} of the bound, "
+              f"{r['flops'] / r['ms'] / 1e9:.6g} TFLOP/s, "
+              f"{r['nbytes'] / r['ms'] / 1e6:.6g} GB/s, SDPA "
+              f"{r['library_ms'] / r['ms']:.4g}x the kernel's speed [{card}]",
+              flush=True)
+
+
+def attention_kernel_checks(dev, card, fk, fr, dk, dr, get_api, archs) -> dict:
+    """Phases 14 and 18: flash and decode at each config's serving shapes
+    (b=8, prompt 2048; decode against a 2,176-entry cache), each against
+    its plain version (bf16 2e-2; decode with ragged lengths and a NaN
+    tail past them), then timed by CUDA events beside the plain version
+    and SDPA (``enable_gqa=True``) with the bound from the shapes."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, s, S = SERVE_BATCH, PROMPT_LEN, PROMPT_LEN + GEN_TOKENS
+    live = PROMPT_LEN + GEN_TOKENS // 2
+    out = {}
+    for arch in archs:
+        cfg = get_api(arch).cfg
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        tag = f"{arch} (h={h}, kv={kv}, group {h // kv}, d={d})"
+        split = dk.plan_splits(b, S, h, kv, d)["split"]
+        rows = out[arch] = {
+            "flash_attention": flash_row(dev, card, fk, fr, gen, b, s, s, h, kv, d,
+                                         True, tag),
+            "decode_attention": decode_row(
+                dev, card, dk, dr, gen, b, S, live, h, kv, d, tag,
+                lens=[S, live, 1, split - 1, split, split + 1, 700, 1500])}
+        bound_rows(rows, tag, card)
     return out
 
 
+def whisper_kernel_checks(dev, card, fk, fr, dk, dr, cfg) -> dict:
+    """Phase 22: flash and decode at whisper-tiny's serving shapes (b=8, 6
+    heads of 64, MHA): flash for the encoder (1,500 frames against
+    themselves, non-causal), the decoder's self-attention (the 384-token
+    prompt, causal) and cross-attention (the prompt against the 1,500
+    frames, non-causal); decode against the self cache (448 entries,
+    ragged lengths and a NaN tail, timed at 416 live) and against the
+    cross cache (1,500 entries, every one live); each against its plain
+    version and timed beside it, SDPA and its bound."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, h, kv, d = SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    P, E = WHISPER_PROMPT, cfg.enc_len
+    S = P + WHISPER_GEN
+    live = P + WHISPER_GEN // 2
+    split = dk.plan_splits(b, S, h, kv, d)["split"]
+    lens = [min(max(n, 1), S) for n in (S, live, 1, split - 1, split, split + 1,
+                                        P + 1, S - 1)]
+    tag = f"{cfg.name} (h={h}, kv={kv}, d={d})"
+    rows = {
+        "flash_attention/encoder": flash_row(dev, card, fk, fr, gen, b, E, E, h, kv, d,
+                                             False, tag),
+        "flash_attention/self": flash_row(dev, card, fk, fr, gen, b, P, P, h, kv, d,
+                                          True, tag),
+        "flash_attention/cross": flash_row(dev, card, fk, fr, gen, b, P, E, h, kv, d,
+                                           False, tag),
+        "decode_attention/self": decode_row(dev, card, dk, dr, gen, b, S, live, h, kv,
+                                            d, tag, lens=lens),
+        "decode_attention/cross": decode_row(dev, card, dk, dr, gen, b, E, E, h, kv, d,
+                                             tag)}
+    bound_rows(rows, tag, card)
+    return rows
+
+
+def attention_launches(cfg) -> tuple[int, int]:
+    """(flash launches a prefill, decode launches a decode step) of a served
+    attention model: one of each a layer; an enc-dec adds a flash launch
+    for each encoder layer, and a flash launch in the prefill and a decode
+    launch in each step for each decoder layer's cross-attention."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
 def attention_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
-                      zero_counts, others, profile, ranges=None) -> dict:
-    """Phases 16-17 and 20-21: ``serve_batch(arch)`` at full width and
-    depth, b=8, prompt 2048, ``gen_tokens`` new tokens, seed 0, on the card
-    (a VLM's vision embeddings drawn by ``make_inputs``); counts zeroed just
-    before and read just after: one flash launch a layer in the prefill,
-    one decode launch a layer in each decode step, no other kernel; peak
-    memory under the card's.  With ``profile``, a trace of a prefill and 4
-    decode steps (``ranges``: see ``serving_profile``)."""
+                      zero_counts, others, profile, ranges=None,
+                      prompt_len=PROMPT_LEN) -> dict:
+    """Phases 16-17, 20-21 and 24: ``serve_batch(arch)`` at full width and
+    depth, b=8, ``prompt_len`` (2048), ``gen_tokens`` new tokens, seed 0, on
+    the card (a VLM's vision embeddings or an enc-dec's frames drawn by
+    ``make_inputs``); counts zeroed just before and read just after: the
+    flash launches of ``attention_launches`` in the prefill and its decode
+    launches in each decode step, no other kernel; peak memory under the
+    card's.  With ``profile``, a trace of a prefill and 4 decode steps
+    (``ranges``: see ``serving_profile``)."""
     import gc
 
     import torch
     api = get_api(arch)
     cfg = api.cfg
     flash_c, dec_c = attn_counts
+    per_prefill, per_step = attention_launches(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     t0 = time.perf_counter()
     tokens, t_prefill, t_decode = serve.serve_batch(
-        arch, reduced=False, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+        arch, reduced=False, batch=SERVE_BATCH, prompt_len=prompt_len,
         gen_tokens=gen_tokens, seed=0)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_c["flash_attention"],
                 "decode_attention": dec_c["decode_attention"]}
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (gen_tokens - 1)}
+    want = {"flash_attention": per_prefill,
+            "decode_attention": per_step * (gen_tokens - 1)}
     stray = {k: v for c in others for k, v in c.items() if v}
     if launches != want or stray:
         raise AssertionError(f"serving {arch} launched {launches} (and {stray}), "
@@ -1544,20 +1662,20 @@ def attention_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
                              f"{card_bytes} B")
     tps = SERVE_BATCH * (gen_tokens - 1) / t_decode
     print(f"serve {arch} ({api.n_params()} parameters) b={SERVE_BATCH} prompt "
-          f"{PROMPT_LEN} gen {gen_tokens}: every logit finite; prefill {t_prefill:.6g} s, "
+          f"{prompt_len} gen {gen_tokens}: every logit finite; prefill {t_prefill:.6g} s, "
           f"decode {t_decode:.6g} s ({tps:.6g} tok/s), peak memory {peak} B, launches "
           f"{launches} (expected {want}) [{card}]", flush=True)
     res = {"arch": arch, "params": api.n_params(), "batch": SERVE_BATCH,
-           "prompt_len": PROMPT_LEN, "gen_tokens": gen_tokens, "prefill_s": t_prefill,
+           "prompt_len": prompt_len, "gen_tokens": gen_tokens, "prefill_s": t_prefill,
            "decode_s": t_decode, "decode_tok_per_s": tps, "serve_batch_wall_s": wall,
            "peak_mem_bytes": peak, "launches": launches, "card": card}
     if profile:
         prof = serving_profile(dev, card, serve, api, attn_counts, top_n=8,
-                               ranges=ranges)
+                               ranges=ranges, prompt_len=prompt_len)
         by_window = {k: v["launches"] for k, v in prof.items()}
-        if by_window != {"prefill": {"flash_attention": cfg.n_layers, "decode_attention": 0},
+        if by_window != {"prefill": {"flash_attention": per_prefill, "decode_attention": 0},
                          "decode": {"flash_attention": 0,
-                                    "decode_attention": 4 * cfg.n_layers}}:
+                                    "decode_attention": 4 * per_step}}:
             raise AssertionError(f"{arch} launches by window: {by_window}")
         res.update(launches_by_window=by_window, profile=prof)
     gc.collect()
@@ -1629,6 +1747,110 @@ def moe_vlm_slice_check(dev, card, get_api, moe, arch, tol, attn_counts) -> dict
           f"by each MoE layer of the card's prefill: {drops} [{card}]", flush=True)
     return {"max_logit_err": max(errs), "mean_logit_err": max(means),
             "prefill_drops": drops}
+
+
+def whisper_slice_check(dev, card, get_api, build_api, attn_counts) -> dict:
+    """Phase 23: the reduced whisper serving path on the card against the
+    same path on the CPU, at the reduced config's 32 frames and at 256:
+    same weights, frames and tokens from one numpy generator, prefill at
+    128 then 4 decode steps; every logit within ``WHISPER_SLICE_TOL``;
+    the flash launches of the encoder, self- and cross-attention in the
+    prefill and a self and a cross decode launch a layer a step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    flash_c, dec_c = attn_counts
+    out = {}
+    for enc_len in WHISPER_ENC_LENS:
+        api = build_api(dataclasses.replace(get_api(WHISPER, reduced=True).cfg,
+                                            enc_len=enc_len))
+        cfg = api.cfg
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 132)))
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, enc_len, cfg.d_model)).astype(np.float32))
+        outs = []
+        for where in ("cpu", dev):
+            params = api.init(0, "cpu").to(where)
+            t = toks.to(where)
+            before = (flash_c["flash_attention"], dec_c["decode_attention"])
+            lg, cache = api.prefill(params, {"frames": frames.to(where),
+                                             "tokens": t[:, :128]}, max_len=136)
+            got = [lg.float().cpu()]
+            for i in range(4):
+                lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+                got.append(lg[:, 0].float().cpu())
+            outs.append(got)
+            launched = (flash_c["flash_attention"] - before[0],
+                        dec_c["decode_attention"] - before[1])
+        per_prefill, per_step = attention_launches(cfg)
+        if launched != (per_prefill, 4 * per_step):
+            raise AssertionError(f"reduced {WHISPER} (enc_len {enc_len}) on the card "
+                                 f"launched {launched} (flash, decode), expected "
+                                 f"{(per_prefill, 4 * per_step)}")
+        errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
+        if not all(bool(torch.isfinite(b).all()) for b in outs[1]) \
+                or max(errs) >= WHISPER_SLICE_TOL:
+            raise AssertionError(f"reduced {WHISPER} (enc_len {enc_len}) on the card "
+                                 f"differs from the CPU: {errs}")
+        print(f"slice reduced {WHISPER} enc_len {enc_len} b=2 prefill 128 + 4 decode "
+              f"steps: card vs CPU max |logit err| {max(errs):.6g} < "
+              f"{WHISPER_SLICE_TOL} (prefill {errs[0]:.6g}, decode steps "
+              f"{', '.join(f'{e:.6g}' for e in errs[1:])}); launches {launched} "
+              f"[{card}]", flush=True)
+        out[enc_len] = {"max_logit_err": max(errs), "errs": errs, "launches": launched}
+    return out
+
+
+def moldesign_phase(card, counters, zero_counts) -> dict:
+    """Phase 25: ``examples/torch_molecular_design.py`` (the paper's
+    molecular-design campaign, four waves of 48, through ``OnlineEngine``
+    with Cluster MHRA; the surrogate trained by autograd) on the card and
+    on the CPU: every window (``window_digest``) and the engine's summary
+    but its host clock equal; the window kernel's launches on the card's
+    run (counts zeroed just before, read just after), no model kernel."""
+    md = load_example("torch_molecular_design")
+    runs = {}
+    for where in (None, "cpu"):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = md.main(device=where)
+        wall = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.items() if v}
+        runs["card" if where is None else "cpu"] = (res, wall, launches)
+    (card_res, card_wall, launches), (cpu_res, cpu_wall, _) = runs["card"], runs["cpu"]
+    if set(launches) - {"greedy_window"}:
+        raise AssertionError(f"the molecular-design campaign launched {launches}")
+    got = bits([window_digest(w) for w in card_res.windows])
+    want = bits([window_digest(w) for w in cpu_res.windows])
+    if got != want:
+        raise AssertionError("molecular design: the card's windows differ from the CPU's "
+                             f"at {first_difference(got, want)}")
+    s_card = summary_without_clock(card_res.engine.summary())
+    if bits(s_card) != bits(summary_without_clock(cpu_res.engine.summary())):
+        raise AssertionError("molecular design: the card's summary differs from the CPU's")
+    # the surrogate starts from one model on both: its first wave trains on
+    # the same data, so the card's float32 autograd is held to the CPU's
+    mse_err = abs(card_res.waves[0][0] - cpu_res.waves[0][0])
+    if not mse_err < MD_MSE_TOL:
+        raise AssertionError(f"molecular design: the surrogate's first-wave MSE on the "
+                             f"card differs from the CPU's by {mse_err}")
+    n = launches.get("greedy_window", 0)
+    print(f"molecular design ({s_card['tasks']} tasks, {len(got)} windows, "
+          f"{card_res.edges} DAG edges): card == CPU on every window and the summary; "
+          f"{n} window launches; wall {card_wall:.6g} s (CPU {cpu_wall:.6g} s); "
+          f"surrogate mse by wave card {[round(m, 6) for m, _, _ in card_res.waves]}, "
+          f"CPU {[round(m, 6) for m, _, _ in cpu_res.waves]} (first wave within "
+          f"{MD_MSE_TOL}: {mse_err:.3g}); picks equal in "
+          f"{sum(bool((a == b).all()) for a, b in zip(card_res.picks, cpu_res.picks))} "
+          f"of {len(card_res.picks)} waves [{card}]", flush=True)
+    return {"tasks": s_card["tasks"], "windows": len(got), "dag_edges": card_res.edges,
+            "first_wave_mse_err": mse_err,
+            "window_launches": n, "wall_s": card_wall, "cpu_wall_s": cpu_wall,
+            "surrogate_mse": [m for m, _, _ in card_res.waves],
+            "surrogate_mse_cpu": [m for m, _, _ in cpu_res.waves],
+            "best": card_res.best, "placements": card_res.placements}
 
 
 def default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
@@ -2105,6 +2327,20 @@ def build_stream(name, device):
     return eng, script + [("drain",)]
 
 
+def window_digest(res) -> tuple:
+    """A ``WindowResult`` as compared between the card and the CPU: its
+    index, arrival, tasks and their floors, the whole ``Schedule``, the
+    attributed energy and the simulator's records."""
+    s = res.schedule
+    return (res.index, res.submitted_at, tuple(t.id for t in res.tasks),
+            tuple(t.not_before for t in res.tasks), s.assignments,
+            s.objective, s.energy_j, s.makespan_s, s.transfer_j,
+            s.heuristic, s.timeline, s.carbon_g, res.attributed_j,
+            None if res.sim is None else tuple(
+                (r.task_id, r.endpoint, r.worker_pid, r.t_start, r.t_end,
+                 r.energy_j, r.failed) for r in res.sim.records))
+
+
 def run_stream(eng, script, kernel, ops):
     """Drive one stream; return every window's digest (the whole
     ``Schedule``, the tasks placed, the simulator's records), the summary
@@ -2125,15 +2361,7 @@ def run_stream(eng, script, kernel, ops):
     def recorded():
         res = flush()
         if res is not None:
-            s = res.schedule
-            digests.append((
-                res.index, res.submitted_at, tuple(t.id for t in res.tasks),
-                tuple(t.not_before for t in res.tasks), s.assignments,
-                s.objective, s.energy_j, s.makespan_s, s.transfer_j,
-                s.heuristic, s.timeline, s.carbon_g, res.attributed_j,
-                None if res.sim is None else tuple(
-                    (r.task_id, r.endpoint, r.worker_pid, r.t_start, r.t_end,
-                     r.energy_j, r.failed) for r in res.sim.records)))
+            digests.append(window_digest(res))
             lat.extend([res.scheduling_s / len(res.tasks) * 1e3] * len(res.tasks))
             sched_s.append(res.scheduling_s)
         return res
@@ -2946,6 +3174,27 @@ def main() -> int:
             dense_others, profile=True, ranges=moe_ranges if moe_family else None),
             kernels=mv_rows[arch])
     print(json.dumps({"moe_vlm": mv}), flush=True)
+
+    # ---- 22. whisper-tiny's shapes: flash and decode against plain ----------
+    from repro_torch.models.registry import build_api
+    w_cfg = get_api(WHISPER).cfg
+    w_rows = whisper_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
+                                   dec_ref, w_cfg)
+
+    # ---- 23. the reduced whisper slice, card against CPU ---------------------
+    w_slice = whisper_slice_check(dev, card, get_api, build_api, attn_counts)
+
+    # ---- 24. main path: serve whisper-tiny at full width ---------------------
+    whisper = attention_serving(dev, card, serve, get_api, WHISPER, WHISPER_GEN,
+                                attn_counts, zero_counts, dense_others, profile=True,
+                                prompt_len=WHISPER_PROMPT)
+    whisper.update(slice=w_slice, kernels=w_rows)
+    print(json.dumps({"whisper": whisper}), flush=True)
+
+    # ---- 25. the molecular-design campaign on the card and the CPU -----------
+    moldesign = moldesign_phase(card, counters, zero_counts)
+    print(json.dumps({"moldesign": moldesign}), flush=True)
+
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
         for name, source, line in (
@@ -2960,6 +3209,27 @@ def main() -> int:
                 "launches": served[arch]["launches"][name], "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # whisper's rows: the largest shape of each kernel on the path (the
+    # encoder's flash, the cross-decode) at the top level, every shape in
+    # "shapes"
+    for name, source, line, main_shape in (
+            ("flash_attention", FLASH_SOURCE,
+             "src/repro/kernels/flash_attention/kernel.py:23", "encoder"),
+            ("decode_attention", DECODE_SOURCE,
+             "src/repro/kernels/decode_attention/kernel.py:21", "cross")):
+        shapes = {k.split("/", 1)[1]: v for k, v in w_rows.items()
+                  if k.startswith(name + "/")}
+        r = shapes[main_shape]
+        kernels.append({
+            "name": f"{name}/{WHISPER}", "route": "cuda", "source": source,
+            "replaces": line, "model": WHISPER, "shape": r["shape"],
+            "launches": whisper["launches"][name],
+            "max_abs_err": max(v["err"] for v in shapes.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shapes": {k: {f: v[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "err")}
+                       for k, v in shapes.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

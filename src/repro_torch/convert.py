@@ -28,7 +28,7 @@ from repro_torch.core.predictor import RunningStat, TaskProfileStore
 from repro_torch.core.region import RegionRouter, RegionSpec
 from repro_torch.core.scheduler import SoAState, TaskSpec
 from repro_torch.models.common import ParamSpec, Params
-from repro_torch.models.lm import lm_specs
+from repro_torch.models.registry import build_api
 from repro_torch.workloads.trace import WorkloadTrace
 
 
@@ -219,9 +219,13 @@ def lm_params_from_numpy(tree, cfg, device="cpu", dtype=None):
     ``attn.q_norm``/``k_norm`` with qk_norm), MoE layers ``ln1``/``attn``/
     ``ln2``/``moe`` (``router`` (d, e), ``wi``/``wg`` (e, d, f), ``wo``
     (e, f, d), each stacked over the layers as the rest), Mamba layers
-    ``ln``/``mamba``.  Weights the model casts at use are stored in
-    ``dtype`` (default float32, the reference's masters); the float32
-    leaves stay float32.  Every shape is checked
+    ``ln``/``mamba``.  An enc-dec tree holds ``embed``, ``enc_layers``
+    (``ln1``/``attn``/``ln2``/``mlp``), ``enc_ln``, ``dec_layers``
+    (``ln1``/``self_attn``/``ln2``/``cross_attn``/``ln3``/``mlp``),
+    ``dec_ln`` and ``unembed``, both layer stacks along a leading axis;
+    each LayerNorm is a ``scale`` and a ``bias``.  Weights the model casts
+    at use are stored in ``dtype`` (default float32, the reference's
+    masters); the float32 leaves stay float32.  Every shape is checked
     against the port's specs.
     """
     dtype = dtype or torch.float32
@@ -236,7 +240,7 @@ def lm_params_from_numpy(tree, cfg, device="cpu", dtype=None):
             return [build(_index(src, i), s) for i, s in enumerate(spec)]
         return {k: build(src[k], s) for k, s in spec.items()}
 
-    return Params(build(tree, lm_specs(cfg)))
+    return Params(build(tree, build_api(cfg).specs()))
 
 
 def _index(tree, i):
@@ -269,9 +273,22 @@ def _stack(per: list):
     return np.stack(per)
 
 
-def lm_cache_from_numpy(cache, device="cpu") -> dict:
+def lm_cache_from_numpy(cache, device="cpu", cfg=None) -> dict:
     """The reference's serving cache (dict of numpy arrays: the dense
-    family's k and v, zamba2's conv, h and shared k/v, or falcon-mamba's
-    conv and h) as tensors, dtypes kept (bfloat16 buffers stay
-    bfloat16)."""
-    return {k: _tensor(v, device) for k, v in cache.items()}
+    family's k and v, zamba2's conv, h and shared k/v, falcon-mamba's conv
+    and h, or the enc-dec family's k, v, cross_k and cross_v; or one
+    layer's entries) as tensors, dtypes kept (bfloat16 buffers stay
+    bfloat16).  With ``cfg``, the whole cache's buffer names and shapes are
+    checked against the port's layout (the length indexed by position is
+    read from the ``k`` or ``shared_k`` buffer)."""
+    out = {k: _tensor(v, device) for k, v in cache.items()}
+    if cfg is None:
+        return out
+    seq = [out[k].shape[2] for k in ("k", "shared_k") if k in out]
+    b = next(iter(out.values())).shape[1]
+    want = {k: shape for k, (shape, _) in
+            build_api(cfg).cache_shapes(b, seq[0] if seq else 0).items()}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        raise ValueError(f"cache {got} != the port's layout {want}")
+    return out

@@ -4,7 +4,8 @@ starcoder2-7b, qwen3-14b; deepseek-67b needs more than one 80 GB card at
 full width), the MoE family (moonshot-v1-16b-a3b; llama4-scout-17b-a16e
 needs more than one card at full width), the VLM internvl2-26b (its
 vision-token prefix drawn as random embeddings, the reference's stub),
-zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
+zamba2-2.7b (hybrid), falcon-mamba-7b (ssm) and the enc-dec whisper-tiny
+(its audio frames drawn as random embeddings, the reference's stub).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --batch 8 --prompt-len 2048 --gen 128
@@ -15,11 +16,15 @@ zamba2-2.7b (hybrid) and falcon-mamba-7b (ssm).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --batch 8 --prompt-len 384 --gen 64
 
 Mesh-free: one card (``device=None``) or, when asked by name, the CPU.
-Weights, prompts and a VLM's vision embeddings are drawn from one
-``torch.Generator`` seeded with ``seed``.  The caches are allocated at
-``prompt_len + gen_tokens``.
+Weights, prompts and the stubbed frontend's input (a VLM's vision
+embeddings, an enc-dec's frames) are drawn from one ``torch.Generator``
+seeded with ``seed``.  The caches indexed by position are allocated at
+``prompt_len + gen_tokens``; an enc-dec's cross caches hold its
+``enc_len`` frames.
 """
 from __future__ import annotations
 
@@ -38,27 +43,43 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+#: the batch key of each family's stubbed frontend input
+FRONTEND = {"vlm": "vision_embeds", "encdec": "frames"}
+
+
 def make_inputs(api: ModelAPI, batch: int, prompt_len: int, seed: int, device):
-    """(weights, prompt tokens (batch, prompt_len), vision embeddings) of a
+    """(weights, prompt tokens (batch, prompt_len), frontend input) of a
     serving run, drawn in that order from one generator seeded with
-    ``seed``.  The vision embeddings, (batch, n_vision_tokens, d) standard
-    normal in bf16 as the reference's serving draws them, are None but
-    for a VLM."""
+    ``seed``.  The frontend input, standard normal in bf16 as the
+    reference's serving draws it, is a VLM's vision embeddings (batch,
+    n_vision_tokens, d) or an enc-dec's audio frames (batch, enc_len, d),
+    and None for the other families."""
     cfg = api.cfg
     gen = torch.Generator(device=device).manual_seed(seed)
     params = api.init(gen, device)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                             device=device)
-    vision = None
-    if cfg.family == "vlm":
-        vision = torch.randn((batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
-                             device=device, dtype=torch.bfloat16)
-    return params, prompts, vision
+    frontend = None
+    if cfg.family in FRONTEND:
+        n = cfg.n_vision_tokens if cfg.family == "vlm" else cfg.enc_len
+        frontend = torch.randn((batch, n, cfg.d_model), generator=gen,
+                               device=device, dtype=torch.bfloat16)
+    return params, prompts, frontend
 
 
-def generate(api: ModelAPI, params, prompts, gen_tokens: int, vision_embeds=None):
-    """Prefill ``prompts`` (a VLM's ``vision_embeds`` taking their first
-    positions), then ``gen_tokens - 1`` greedy decode steps.
+def prefill_batch(api: ModelAPI, prompts, frontend=None) -> dict:
+    """The prefill's batch: ``tokens``, and the frontend input under its
+    family's key (``FRONTEND``)."""
+    batch = {"tokens": prompts}
+    if frontend is not None:
+        batch[FRONTEND[api.cfg.family]] = frontend
+    return batch
+
+
+def generate(api: ModelAPI, params, prompts, gen_tokens: int, frontend=None):
+    """Prefill ``prompts`` (with ``frontend``: a VLM's vision embeddings
+    taking their first positions, an enc-dec's frames for its encoder),
+    then ``gen_tokens - 1`` greedy decode steps.
     Returns (tokens (b, gen_tokens) int32 numpy, prefill s, decode s).
     Raises ``FloatingPointError`` if any logit was not finite.
 
@@ -73,10 +94,8 @@ def generate(api: ModelAPI, params, prompts, gen_tokens: int, vision_embeds=None
     b, prompt_len = prompts.shape
     _sync(dev)
     t0 = time.perf_counter()
-    batch = {"tokens": prompts}
-    if vision_embeds is not None:
-        batch["vision_embeds"] = vision_embeds
-    logits, cache = api.prefill(params, batch, max_len=prompt_len + gen_tokens)
+    logits, cache = api.prefill(params, prefill_batch(api, prompts, frontend),
+                                max_len=prompt_len + gen_tokens)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
@@ -109,8 +128,8 @@ def serve_batch(
     """Serve one batch greedily; returns (tokens, prefill s, decode s)."""
     dev = resolve_device(device)
     api = get_api(arch, reduced=reduced)
-    params, prompts, vision = make_inputs(api, batch, prompt_len, seed, dev)
-    gen, t_prefill, t_decode = generate(api, params, prompts, gen_tokens, vision)
+    params, prompts, frontend = make_inputs(api, batch, prompt_len, seed, dev)
+    gen, t_prefill, t_decode = generate(api, params, prompts, gen_tokens, frontend)
     tps = batch * (gen_tokens - 1) / max(t_decode, 1e-9)
     print(
         f"[serve {arch} on {dev}] prefill {prompt_len} toks x{batch}: "

@@ -1,5 +1,6 @@
 """Shared model substrate: the parameter spec table, initialisation,
-norms, RoPE, vocab padding and the cross-entropy loss.
+norms (RMSNorm, LayerNorm), RoPE, sinusoidal positions, vocab padding and
+the cross-entropy loss.
 
 A spec records what the port needs to make a parameter of its own:
 shape, init kind, fan-in and whether the weight is cast to the
@@ -127,6 +128,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (y * (1.0 + scale.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (the mean, the population variance, then
+    ``(x - mu) * rsqrt(var + eps) * scale + bias``), cast back to x's
+    dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """SiLU in the reference's steps: ``x * logistic(x)`` with the logistic
     expanded to ``1 / (1 + exp(-x))``, each step rounded to ``x``'s dtype,
@@ -147,6 +161,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(seq: int, dim: int, offset=0, device=None) -> torch.Tensor:
+    """(seq, dim) float32 table of positions ``offset .. offset + seq - 1``:
+    ``[sin, cos]`` of ``pos * exp(-log(10000) * i / half)``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device) + offset
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32, device=device) / half)
+    ang = pos[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:

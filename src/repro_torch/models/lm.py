@@ -19,9 +19,10 @@ x0) at width 2d, output back to d) once per group, then
 ``shared_attn_every`` Mamba2 layers.  Falcon-mamba runs its Mamba1
 layers one after the other.  The layers are an ``nn.ModuleList`` of
 per-layer parameter tables (the reference scans a stacked tree).  The
-enc-dec family, gradients, remat and sharding (the reference's
-``remat=`` and ``shd=``) belong to later slices of the port and raise
-``NotImplementedError``.
+enc-dec family (whisper) is served by ``models/encdec.py``, routed there
+by the registry; this module's entry points refuse it.  Gradients, remat
+and sharding (the reference's ``remat=`` and ``shd=``) belong to later
+slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,8 +48,8 @@ from repro_torch.models.mlp import mlp_apply, mlp_specs
 COMPUTE_DTYPE = torch.bfloat16
 
 
-#: The families the port serves.
-FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+#: The families the port serves (enc-dec through ``models/encdec.py``).
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 #: The families whose layers are attention and a feed-forward block, with
 #: a k/v cache per layer.
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
@@ -57,12 +58,30 @@ _ATTN_FAMILIES = ("dense", "moe", "vlm")
 def require_served(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port "
+            f"{cfg.name}: the {cfg.family!r} family is not ported; the port "
             "serves the dense (granite, starcoder2, qwen3, deepseek), MoE "
-            "(moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2) and ssm "
-            "(falcon-mamba) families.  The enc-dec family (whisper) is the "
-            "next slice"
+            "(moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2), ssm "
+            "(falcon-mamba) and enc-dec (whisper) families, inference only.  "
+            "The trainer is the next slice"
         )
+
+
+def _decoder_only(cfg: ArchConfig) -> None:
+    """Serve ``cfg`` here, or raise: the enc-dec family has its own module."""
+    require_served(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the enc-dec family is served by models/encdec.py "
+            "(get_api routes it there), not by the decoder-only models/lm.py")
+
+
+def refuse_gradients(params, name: str) -> None:
+    """Raise where a parameter requires a gradient: the port runs the
+    forward only (the trainer is a later slice)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+        raise NotImplementedError(
+            "gradients belong to the training slice, a later slice of the port: "
+            f"{name} runs the forward only")
 
 
 def _mesh_free(shd=None, remat=False) -> None:
@@ -77,7 +96,7 @@ def _norm_spec(d):
 
 
 def _layer_specs(cfg: ArchConfig) -> dict[str, Any]:
-    require_served(cfg)
+    _decoder_only(cfg)
     if cfg.family in _ATTN_FAMILIES:
         d = cfg.d_model
         specs = {"ln1": _norm_spec(d), "attn": attn.attn_specs(cfg), "ln2": _norm_spec(d)}
@@ -204,7 +223,7 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None):
     layer's conv tail and state and each shared application's k/v into it.
     Returns the last hidden states (b, s, d) and the MoE layers' summed aux
     loss (float32; 0 for the other families)."""
-    require_served(cfg)
+    _decoder_only(cfg)
     x = embed_tokens(params, tokens, cfg, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     collect = cache is not None
@@ -262,10 +281,7 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     (loss, {"ce", "aux"}).  Forward only: parameters that require a
     gradient raise (the trainer is a later slice)."""
     _mesh_free(shd, remat)
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
-        raise NotImplementedError(
-            "gradients belong to the training slice, a later slice of the port: "
-            "lm_loss runs the forward only")
+    refuse_gradients(params, "lm_loss")
     x, aux = _backbone(params, cfg, batch["tokens"],
                        vision_embeds=batch.get("vision_embeds"))
     ce = cross_entropy_loss(_logits(params, cfg, x), batch["labels"], cfg.vocab)
@@ -284,7 +300,7 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
     b, max_len, kv, hd)``.  Mamba: per layer the conv tail and the state;
     zamba2 adds the shared block's k/v at ``max_len``, which falcon-mamba
     does not use."""
-    require_served(cfg)
+    _decoder_only(cfg)
     L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     kv_shape = ((L, batch, max_len, kv, hd), dtype)
     if cfg.family in _ATTN_FAMILIES:
@@ -351,7 +367,7 @@ def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None
     and state, and (zamba2) the shared block's k/v at ``pos``.  An MoE
     layer routes the step's b tokens as a group of one token each (capacity
     ``top_k``), so it never drops a token; its aux loss is not kept."""
-    require_served(cfg)
+    _decoder_only(cfg)
     _mesh_free(shd)
     x = embed_tokens(params, tokens)
     if cfg.family == "ssm":

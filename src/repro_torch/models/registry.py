@@ -1,15 +1,15 @@
-"""Model API over the families the port serves (dense, MoE, VLM, hybrid
-and ssm), and the reference's shape cells with their inputs.
+"""Model API over the families the port serves (dense, MoE, VLM, hybrid,
+ssm and enc-dec), and the reference's shape cells with their inputs.
 
 ``get_config`` reads an architecture whose config the port keeps
 (``repro_torch/configs/``: granite-3-2b, starcoder2-7b, qwen3-14b and
 deepseek-67b of the dense family, moonshot-v1-16b-a3b and
 llama4-scout-17b-a16e (MoE), internvl2-26b (VLM), zamba2-2.7b,
-falcon-mamba-7b); each later slice adds the configs of the family it
-serves.  ``get_api`` raises ``NotImplementedError``, naming the later
-slice, for a family the port does not serve yet (enc-dec).
-``input_specs`` gives a cell's inputs as ``meta`` tensors: their shapes
-and dtypes, no storage.
+falcon-mamba-7b and whisper-tiny (enc-dec): every architecture of the
+reference).  ``build_api`` routes the enc-dec family to
+``models/encdec.py`` and the others to ``models/lm.py``.  ``input_specs``
+gives a cell's inputs as ``meta`` tensors: their shapes and dtypes, no
+storage.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.common import Params, init_tree, param_count
 from repro_torch.models.config import ArchConfig
 
@@ -71,15 +71,47 @@ class ModelAPI:
     def init_cache(self, batch: int, max_len: int, device=None):
         return lm.init_cache(self.cfg, batch, max_len, device=device)
 
+    def cache_shapes(self, batch: int, max_len: int) -> dict:
+        """{name: (shape, dtype)} of the serving caches."""
+        return lm.cache_shapes(self.cfg, batch, max_len)
+
     def loss(self, params, batch: dict, *, shd=None):
         """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``, and
         a VLM's ``vision_embeds``), forward only."""
         return lm.lm_loss(params, self.cfg, batch, shd=shd)
 
 
+@dataclasses.dataclass(frozen=True)
+class EncDecAPI(ModelAPI):
+    """The enc-dec family's API: the same methods over ``models/encdec.py``;
+    ``prefill`` and ``loss`` read the audio frames from ``batch["frames"]``."""
+
+    def specs(self) -> dict[str, Any]:
+        return encdec.encdec_specs(self.cfg)
+
+    def prefill(self, params, batch: dict, *, max_len: int | None = None, shd=None):
+        """``batch``: ``frames`` (b, enc_len, d) and ``tokens``."""
+        return encdec.encdec_prefill(params, self.cfg, batch["frames"], batch["tokens"],
+                                     max_len=max_len, shd=shd)
+
+    def decode_step(self, params, tokens, cache, pos: int, *, shd=None):
+        return encdec.encdec_decode_step(params, self.cfg, tokens, cache, pos, shd=shd)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return encdec.init_cache(self.cfg, batch, max_len, device=device)
+
+    def cache_shapes(self, batch: int, max_len: int) -> dict:
+        return encdec.cache_shapes(self.cfg, batch, max_len)
+
+    def loss(self, params, batch: dict, *, shd=None):
+        """(loss, {"ce", "aux"}) of ``batch`` (``frames``, ``tokens`` and
+        ``labels``), forward only."""
+        return encdec.encdec_loss(params, self.cfg, batch, shd=shd)
+
+
 def build_api(cfg: ArchConfig) -> ModelAPI:
     lm.require_served(cfg)
-    return ModelAPI(cfg)
+    return EncDecAPI(cfg) if cfg.family == "encdec" else ModelAPI(cfg)
 
 
 def get_api(arch_id: str, reduced: bool = False) -> ModelAPI:
@@ -105,8 +137,10 @@ def _meta(shape, dtype) -> torch.Tensor:
 def input_specs(cfg: ArchConfig, shape_name: str) -> dict[str, Any]:
     """A cell's inputs as ``meta`` tensors (shapes and dtypes, no storage).
     Train: ``tokens`` and ``labels``; prefill: ``tokens``; a VLM adds its
-    ``vision_embeds`` (b, n_vision_tokens, d) in bf16 to both.  Decode: one
-    new token, the cache at the cell's length and ``pos``."""
+    ``vision_embeds`` (b, n_vision_tokens, d) and an enc-dec its ``frames``
+    (b, enc_len, d), in bf16, to both.  Decode: one new token, the cache at
+    the cell's length (an enc-dec's cross caches at ``enc_len``) and
+    ``pos``."""
     lm.require_served(cfg)
     seq, gb, kind = SHAPES[shape_name]
     i32 = torch.int32
@@ -114,12 +148,14 @@ def input_specs(cfg: ArchConfig, shape_name: str) -> dict[str, Any]:
         return {
             "tokens": _meta((gb, 1), i32),
             "cache": {k: _meta(shape, dt)
-                      for k, (shape, dt) in lm.cache_shapes(cfg, gb, seq).items()},
+                      for k, (shape, dt) in build_api(cfg).cache_shapes(gb, seq).items()},
             "pos": _meta((), i32),
         }
     batch = {"tokens": _meta((gb, seq), i32)}
     if kind == "train":
         batch["labels"] = _meta((gb, seq), i32)
+    if cfg.family == "encdec":
+        batch["frames"] = _meta((gb, cfg.enc_len, cfg.d_model), torch.bfloat16)
     if cfg.family == "vlm":
         batch["vision_embeds"] = _meta((gb, cfg.n_vision_tokens, cfg.d_model),
                                        torch.bfloat16)

@@ -191,6 +191,13 @@ def _randn(gen, shape, dtype, device):
     (1, 1024, 1024, 16, 16, 128, True, torch.bfloat16),  # moonshot-v1-16b-a3b
     (1, 1024, 1024, 48, 8, 128, True, torch.bfloat16),   # internvl2-26b
     (2, 300, 300, 12, 2, 128, True, torch.bfloat16),     # group 6, ragged tiles
+    # the enc-dec family (whisper-tiny, 6 heads of 64, MHA): the encoder's
+    # 1,500 frames against themselves (a ragged 92-key last tile, no
+    # diagonal), the decoder's causal self-attention, then cross-attention
+    # of the 384-token prompt against the 1,500 frames
+    (8, 1500, 1500, 6, 6, 64, False, torch.bfloat16),
+    (8, 384, 384, 6, 6, 64, True, torch.bfloat16),
+    (8, 384, 1500, 6, 6, 64, False, torch.bfloat16),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
                                               causal, dtype):
@@ -231,6 +238,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
     (8, 2176, 16, 16, 128, torch.bfloat16),
     (8, 2176, 48, 8, 128, torch.bfloat16),
     (3, 777, 6, 1, 128, torch.bfloat16),
+    # the enc-dec family: whisper's self cache (prompt 384 + 64 new tokens)
+    # with ragged live lengths
+    (8, 448, 6, 6, 64, torch.bfloat16),
 ])
 def test_decode_attention_kernel_matches_plain(cuda_device, b, S, h, kv, d, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + h)
@@ -245,6 +255,26 @@ def test_decode_attention_kernel_matches_plain(cuda_device, b, S, h, kv, d, dtyp
     want = dec_ref.decode_attention_plain(q, kc, vc, lens)
     torch.cuda.synchronize()
     assert dec_kernel.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_on_a_fully_live_cache(cuda_device, dtype):
+    """whisper's cross-decode: every row's ``cache_len`` is the whole cache,
+    S = 1,500 frames (not a multiple of the 64-key tile), b=8, 6 heads of
+    64 over 6; the wrapper's split plan for b·kv = 48."""
+    b, S, h, kv, d = 8, 1500, 6, 6, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(1500)
+    q = _randn(gen, (b, 1, h, d), dtype, cuda_device)
+    kc = _randn(gen, (b, S, kv, d), dtype, cuda_device)
+    vc = _randn(gen, (b, S, kv, d), dtype, cuda_device)
+    lens = torch.full((b,), S, dtype=torch.int32, device=cuda_device)
+    plan = dec_kernel.plan_splits(b, S, h, kv, d)
+    assert plan["split"] >= 1
+    got = dec_kernel.decode_attention(q, kc, vc, lens)
+    want = dec_ref.decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
@@ -452,6 +482,49 @@ def test_reduced_moe_and_vlm_on_card_match_cpu(cuda_device, arch, max_tol, mean_
         assert torch.isfinite(b_).all()
         assert float((a - b_).abs().max()) < max_tol
         assert float((a - b_).abs().mean()) < mean_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc_len", [32, 256])
+def test_reduced_whisper_on_card_matches_cpu(cuda_device, enc_len):
+    """The enc-dec serving path on the card (flash for the encoder, the
+    decoder's self-attention and cross-attention on every layer of the
+    prefill; decode against the self and the cross caches on every layer
+    of each step) against the same path on the CPU, same weights, frames
+    and teacher-forced tokens: logits within the CPU tests' bound, 0.44
+    (tests/test_torch_encdec.py), at the reduced config's 32 frames and at
+    256."""
+    import dataclasses
+
+    from repro_torch.models.registry import build_api
+
+    api = build_api(dataclasses.replace(get_api("whisper-tiny", reduced=True).cfg,
+                                        enc_len=enc_len))
+    cfg = api.cfg
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 132)))
+    frames = torch.from_numpy(rng.standard_normal((2, enc_len, cfg.d_model)).astype(
+        np.float32))
+    counts = [dict(m.LAUNCHES) for m in (flash_kernel, dec_kernel)]
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params = api.init(0, "cpu").to(dev)
+        t = toks.to(dev)
+        lg, cache = api.prefill(params, {"frames": frames.to(dev), "tokens": t[:, :128]},
+                                max_len=136)
+        got = [lg.float().cpu()]
+        for i in range(4):
+            lg, cache = api.decode_step(params, t[:, 128 + i:129 + i], cache, 128 + i)
+            got.append(lg[:, 0].float().cpu())
+        outs.append(got)
+    n_enc, L = cfg.n_enc_layers, cfg.n_layers
+    assert flash_kernel.LAUNCHES["flash_attention"] == counts[0]["flash_attention"] \
+        + n_enc + 2 * L
+    assert dec_kernel.LAUNCHES["decode_attention"] == counts[1]["decode_attention"] \
+        + 4 * 2 * L
+    for a, b_ in zip(*outs):
+        assert torch.isfinite(b_).all()
+        assert float((a - b_).abs().max()) < 0.44
 
 
 @pytest.mark.gpu

@@ -2,8 +2,8 @@
 against the reference's: every ported architecture at every cell it
 lowers, each input's shape and dtype (``meta`` tensors on the port's
 side, ``ShapeDtypeStruct`` on the reference's), the decode cells' caches
-included; the enc-dec family (whisper-tiny) is the next slice and
-raises."""
+included (the enc-dec family's frames and cross caches too); the enc-dec
+family's loss runs forward only, as the others'."""
 import dataclasses
 import pathlib
 
@@ -17,8 +17,8 @@ from repro_torch.models.config import ArchConfig
 
 CONFIG_FILES = [p for p in (pathlib.Path(p_reg.__file__).parents[1] / "configs").glob("*.py")
                 if p.stem != "__init__"]
-#: every architecture of the reference but the enc-dec whisper-tiny
-ARCHS = [a for a in j_reg.ARCH_IDS if a != "whisper-tiny"]
+#: every architecture of the reference
+ARCHS = list(j_reg.ARCH_IDS)
 
 
 def _tree(specs):
@@ -36,7 +36,7 @@ def _tree(specs):
 
 
 def test_every_config_the_port_keeps_is_covered():
-    assert len(ARCHS) == len(CONFIG_FILES) == 9
+    assert len(ARCHS) == len(CONFIG_FILES) == 10
 
 
 def test_shapes_are_the_reference_cells():
@@ -53,7 +53,15 @@ def test_input_specs_match_reference(arch):
 
 
 def test_vlm_train_cell_carries_the_vision_embeds():
-    """tests/test_endpoints.py::test_frontend_stubs_in_specs on the port."""
+    """tests/test_endpoints.py::test_frontend_stubs_in_specs on the port:
+    whisper's precomputed frames and internvl2's patch embeddings; then the
+    decode cells' caches (whisper's cross caches at its 1,500 frames)."""
+    whisper = p_reg.input_specs(p_reg.get_config("whisper-tiny"), "train_4k")
+    assert whisper["frames"].shape == (256, 1500, 384)
+    assert whisper["frames"].dtype == torch.bfloat16
+    cache = p_reg.input_specs(p_reg.get_config("whisper-tiny"), "decode_32k")["cache"]
+    assert cache["cross_k"].shape == cache["cross_v"].shape == (4, 128, 1500, 6, 64)
+    assert cache["k"].shape == (4, 128, 32768, 6, 64)
     vlm = p_reg.input_specs(p_reg.get_config("internvl2-26b"), "train_4k")
     assert vlm["vision_embeds"].shape == (256, 256, 6144)
     assert vlm["vision_embeds"].dtype == torch.bfloat16
@@ -62,8 +70,19 @@ def test_vlm_train_cell_carries_the_vision_embeds():
 
 
 def test_encdec_cells_are_the_next_slice():
+    """The enc-dec cells lower on the port as on the reference; what the
+    port does not run yet is the trainer: gradients through the enc-dec
+    loss raise, naming the training slice."""
     cfg = ArchConfig(**dataclasses.asdict(j_reg.get_config("whisper-tiny")))
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        p_reg.input_specs(cfg, "train_4k")
+    assert set(p_reg.input_specs(cfg, "train_4k")) == set(
+        j_reg.input_specs(j_reg.get_config("whisper-tiny"), "train_4k"))
+    api = p_reg.build_api(cfg.reduced())
+    params = api.init(0, "cpu")
+    params["embed"].requires_grad_(True)
+    batch = {"frames": torch.zeros((1, 32, 64)),
+             "tokens": torch.zeros((1, 4), dtype=torch.long),
+             "labels": torch.zeros((1, 4), dtype=torch.long)}
+    with pytest.raises(NotImplementedError, match="training slice"):
+        api.loss(params, batch)
     assert jax.tree.leaves(j_reg.input_specs(j_reg.get_config("whisper-tiny"),
                                              "train_4k"))

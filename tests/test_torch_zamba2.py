@@ -329,13 +329,17 @@ def test_param_count_and_layout_match_reference(reduced):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_other_families_raise_not_implemented(arch):
-    # the port keeps the configs of the families it serves; the other
-    # family's config comes from the reference (the enc-dec family is
-    # next; the MoE ids moved to test_torch_moe.py::
+    # the enc-dec family is served since its slice (tests/test_torch_encdec.py):
+    # the registry builds it through models/encdec.py, and the decoder-only
+    # entry points this file's model runs through refuse it, naming that
+    # module (the MoE ids moved to test_torch_moe.py::
     # test_full_config_builds_and_counts when that family was ported)
     cfg = p_config.ArchConfig(**dataclasses.asdict(j_get_config(arch)))
-    with pytest.raises(NotImplementedError, match="not ported yet.*enc-dec"):
-        p_build_api(cfg)
+    assert p_build_api(cfg).n_params() == j_get_api(arch).n_params()
+    with pytest.raises(NotImplementedError, match="models/encdec.py"):
+        p_lm.lm_specs(cfg)
+    with pytest.raises(NotImplementedError, match="models/encdec.py"):
+        p_lm.cache_shapes(cfg, 1, 8)
 
 
 def test_training_remat_and_sharding_are_a_later_slice():
