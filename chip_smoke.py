@@ -225,6 +225,47 @@ encoder, cross-attention and cross-decode through the same two kernels:
     trained by autograd) on the card and on the CPU: every window and the
     summary equal; its window-kernel launches printed.
 
+The trainer for the dense family (the ninth slice): granite-3-2b trained
+at full width, through flash attention's backward kernel:
+
+26. Flash attention's forward with its log-sum-exp and its backward
+    kernel against their plain versions (``attention_plain_lse``,
+    ``attention_plain_bwd``) on ``BWD_CASES``: head dims 16, 64, 80 and
+    128, GQA groups 1, 4 and 5, causal with sq = sk and sq < sk and not,
+    ragged lengths, one query row, bf16 and f32; o within 2e-2 (f32
+    2e-5), the lse within 1e-4 (bf16 route; f32 2e-5), each gradient
+    element within 2e-2 (f32 2e-5) of |want| plus its row's RMS plus a
+    tenth of the gradient's RMS, the relative Frobenius error within 1e-2
+    (f32 1e-5), and a second call bitwise the same.  At the two timed
+    shapes the check must also reject dk and dv with their later half of keys
+    planted 1.5 times too large.  Then timed at
+    granite's microbatch (b=2, 4,096, 32 heads of 64 over 8, causal) and
+    at qwen3's head_dim 128 (40 over 8): the forward with and without the
+    lse, the backward beside the plain backward, SDPA's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` on a retained graph) and the bound
+    (2.5 times the forward's products).
+27. The reduced granite train slice on the card against the CPU: 4 steps
+    of ``build_train_step`` from one float32 state on b=4 x 128 tokens
+    (numpy seed 0), the step-1 gradients, every step's loss and grad norm
+    and the state after the steps within the CPU tests' bounds (twice the
+    reference's own spread, ``tests/test_torch_train.py``); 4 flash
+    launches and 2 backward calls a step (remat).
+28. Main path: ``train("granite-3-2b", reduced=False, steps=4, batch=8,
+    seq=4096, microbatches=4, seed=0)`` at full width and depth (f32
+    masters, bf16 compute, remat per layer, AdamW, the synthetic
+    structured stream): 320 flash launches and 160 backward calls a step
+    (counts zeroed just before, read after each step), no other kernel;
+    every loss and grad norm finite, the peak under 80 GB; each step's
+    loss, grad norm, lr, seconds and tokens/s; a trace of one more step
+    (the idle share, the top kernels).  Then the same run stopped at step
+    2 with a checkpoint (preempted: ``on_step`` raises after the step-2
+    checkpoint) and resumed from it to step 4: the
+    first run's losses, then the resumed steps' losses, grad norms and
+    final state (every parameter's bits) equal the uninterrupted run's.
+29. The reduced granite trainer on the card for 30 steps (b=8 x 64, lr
+    5e-3): the loss falls by more than 0.3, the twin of the CPU test.
+
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -238,11 +279,13 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU_SOURCE = "src/repro_torch/kernels/placement/csrc/placement.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+BWD_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu"
@@ -360,6 +403,51 @@ WHISPER_ENC_LENS, WHISPER_SLICE_TOL = (32, 256), 0.44
 # the CPU to the reference within 1e-7)
 MD_MSE_TOL = 1e-5
 
+# the trainer for the dense family (the ninth slice): granite-3-2b, the
+# reference's training default (src/repro/launch/train.py:30), trained at full
+# width and depth at the reference's train_4k length: a global batch of 8 in 4
+# microbatches of 2, 4 steps; stopped at step 2 with a checkpoint and resumed
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_STOP = 8, 4096, 4, 4, 2
+TRAIN_PEAK_LIMIT = 80e9     # bytes: the state and activations fit one card
+# the checkpoints of the resumed run (gitignored; removed after the phase)
+TRAIN_CKPT = ROOT / "_train_ckpt"
+# (b, sq, sk, h, kv, d, causal, dtype name): head dims 16, 64, 80 and 128,
+# GQA groups 1, 4 and 5, causal sq = sk and sq < sk, non-causal, ragged
+# lengths, one query row; the f32 route
+BWD_CASES = [
+    (2, 128, 128, 4, 4, 16, True, "bfloat16"),
+    (2, 200, 200, 8, 2, 64, True, "bfloat16"),
+    (1, 100, 229, 10, 2, 128, True, "bfloat16"),
+    (2, 257, 257, 5, 1, 128, False, "bfloat16"),
+    (1, 130, 333, 4, 1, 80, True, "bfloat16"),
+    (2, 1, 300, 8, 2, 64, True, "bfloat16"),
+    (1, 65, 65, 4, 4, 16, True, "float32"),
+    (2, 100, 229, 8, 2, 64, True, "float32"),
+    (1, 90, 90, 10, 2, 128, False, "float32"),
+]
+# a gradient against its plain version, element by element (bf16: P^T and
+# dS rounded to bf16 for their products): |err| <= BWD_TOL * (|want| + the
+# RMS of its row (the d entries of one position and head) + BWD_FLOOR x the
+# RMS of the whole gradient).  The gradients fall off with the position (a
+# causal softmax row of length i weights each key about 1/i), so a bound
+# from the largest element would pass any error on the late tiles; a row's
+# RMS is the size of its products' terms, and the floor covers the rows
+# whose terms cancel (the first query's dq).  And the error's Frobenius
+# norm relative to the gradient's, within BWD_FRO_TOL.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+BWD_FLOOR = 0.1
+BWD_FRO_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+LSE_TOL = {"bfloat16": (1e-4, 1e-5), "float32": (2e-5, 2e-5)}
+# the timed shapes: granite's microbatch, and qwen3-14b's head_dim 128
+BWD_TIMED = {"granite-3-2b": (2, 4096, 32, 8, 64), "qwen3-14b": (2, 4096, 40, 8, 128)}
+# the reduced granite train slice, card against CPU: the CPU tests' bounds,
+# twice the reference's own spread (tests/test_torch_train.py): the loss and
+# the grad norm (relative) pooled over the steps; the step-1 gradients'
+# relative Frobenius norm and largest error; the state's largest errors
+TRAIN_SLICE_TOL = {"loss": 3.46e-3, "grad_norm": 0.12, "grads_rel": 0.0914,
+                   "grads_max": 0.021, "params": 0.0106, "m": 8.6e-3, "v": 8.8e-4}
+
 
 def card_line() -> str:
     res = subprocess.run(
@@ -435,8 +523,8 @@ def sass_counts(sass: str) -> dict:
 
 
 def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict:
-    """After a verbose build: each kernel of the two attention libraries
-    and of the SSD with its registers, static shared memory and spills
+    """After a verbose build: each kernel of the attention libraries (flash
+    forward and backward, decode) and of the SSD with its registers, static shared memory and spills
     (``-Xptxas -v``) and its SASS counts (``cuobjdump -sass``), and the
     dynamic shared memory each route asks at head_dim 80 (the SSD's at
     zamba2's serving widths).  Raises unless every bf16 flash kernel and
@@ -445,14 +533,16 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict
     (LDGSTS or UTMALDG)."""
     cuobjdump = pathlib.Path(kbuild.nvcc()).parent / "cuobjdump"
     fl, dl, sl = flash_kernel.lib(), dec_kernel.lib(), ssd_kernel.lib()
-    dyn = {flash_kernel: f"at d=80 {fl.gf_flash_smem(80, 1)} B (bf16 route), "
-                         f"{fl.gf_flash_smem(80, 0)} B (f32 route)",
-           dec_kernel: f"at d=80 {dl.gf_decode_smem(1, 80, 1)} B (bf16 route), "
-                       f"{dl.gf_decode_smem(1, 80, 0)} B (f32 route)",
-           ssd_kernel: f"at chunk 128, n=hd=64 {sl.gf_ssd_smem(128, 64, 64)} B, at "
-                       f"n=hd=128 {sl.gf_ssd_smem(128, 128, 128)} B"}
+    bwd = types.SimpleNamespace(SOURCE=flash_kernel.BWD_SOURCE)
+    dyn = [(flash_kernel, f"at d=80 {fl.gf_flash_smem(80, 1)} B (bf16 route), "
+                          f"{fl.gf_flash_smem(80, 0)} B (f32 route)"),
+           (bwd, "set per launch (the source's *_smem functions)"),
+           (dec_kernel, f"at d=80 {dl.gf_decode_smem(1, 80, 1)} B (bf16 route), "
+                        f"{dl.gf_decode_smem(1, 80, 0)} B (f32 route)"),
+           (ssd_kernel, f"at chunk 128, n=hd=64 {sl.gf_ssd_smem(128, 64, 64)} B, at "
+                        f"n=hd=128 {sl.gf_ssd_smem(128, 128, 128)} B")]
     out = {}
-    for mod, smem in dyn.items():
+    for mod, smem in dyn:
         sass = subprocess.run([str(cuobjdump), "-sass", str(kbuild.library_path(mod.SOURCE))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         counts = sass_counts(sass)
@@ -1650,6 +1740,8 @@ def attention_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
     want = {"flash_attention": per_prefill,
             "decode_attention": per_step * (gen_tokens - 1)}
     stray = {k: v for c in others for k, v in c.items() if v}
+    if flash_c["flash_attention_bwd"]:
+        stray["flash_attention_bwd"] = flash_c["flash_attention_bwd"]
     if launches != want or stray:
         raise AssertionError(f"serving {arch} launched {launches} (and {stray}), "
                              f"expected {want} and no other kernel")
@@ -1673,8 +1765,10 @@ def attention_serving(dev, card, serve, get_api, arch, gen_tokens, attn_counts,
         prof = serving_profile(dev, card, serve, api, attn_counts, top_n=8,
                                ranges=ranges, prompt_len=prompt_len)
         by_window = {k: v["launches"] for k, v in prof.items()}
-        if by_window != {"prefill": {"flash_attention": per_prefill, "decode_attention": 0},
-                         "decode": {"flash_attention": 0,
+        # serving takes no gradient: no backward call in either window
+        if by_window != {"prefill": {"flash_attention": per_prefill,
+                                     "flash_attention_bwd": 0, "decode_attention": 0},
+                         "decode": {"flash_attention": 0, "flash_attention_bwd": 0,
                                     "decode_attention": 4 * per_step}}:
             raise AssertionError(f"{arch} launches by window: {by_window}")
         res.update(launches_by_window=by_window, profile=prof)
@@ -2670,6 +2764,368 @@ def evaluation_phase(card, sched, kernel, ops, counters, zero_counts) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the trainer: flash attention's backward, the reduced slice, granite at
+# full width, the loss drop
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_bound(b, sq, sk, h, kv, d, esize, causal) -> tuple[int, int]:
+    """(bytes, FLOP) of one backward call: q, o, dO, dQ (b, sq, h, d), k, v,
+    dK, dV (b, sk, kv, d) moved once and the f32 lse read; the products
+    are 2.5 times the forward's (S and dP recomputed, dV, dK and dQ)."""
+    _, fwd_flops = attention_bound(b, sq, sk, h, kv, d, esize, causal)
+    nbytes = (4 * b * sq * h * d + 4 * b * sk * kv * d) * esize + 4 * b * h * sq
+    return nbytes, int(2.5 * fwd_flops)
+
+
+def grad_errors(got, want, dt) -> dict:
+    """A gradient against its plain version by the rule of ``BWD_TOL``: the
+    largest |err|, the largest |err| over its element's allowance (<= 1
+    passes), the elements past it, and the relative Frobenius norm."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    floor = BWD_FLOOR * float(w.pow(2).mean().sqrt())
+    allowed = BWD_TOL[dt] * (w.abs() + w.pow(2).mean(-1, keepdim=True).sqrt() + floor)
+    return {"max_abs": float(err.max()),
+            "ratio": float((err / allowed.clamp_min(1e-30)).max()),
+            "past": int((err > allowed).sum()),
+            "fro": float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def grad_ok(e, dt) -> bool:
+    return e["finite"] and e["past"] == 0 and e["fro"] <= BWD_FRO_TOL[dt]
+
+
+def bwd_check(fk, fr, q, k, v, do, causal, tag, card, plant=False) -> tuple[float, float]:
+    """The forward's o and lse, then the backward (from the kernel
+    forward's o and lse), against their plain versions on the same inputs;
+    a second backward call bitwise the same.  With ``plant``, also shows
+    that the check rejects dk and dv with their second half of keys 1.5
+    times too large.  Returns the forward's and the backward's largest
+    errors."""
+    import torch
+    dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    o, lse = fk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want_o, want_lse = fr.attention_plain_lse(q, k, v, causal=causal)
+    fwd_err = max(check_close(f"flash_attention o {tag}", o, want_o, TOLS[dt], card),
+                  check_close(f"flash_attention lse {tag}", lse, want_lse, LSE_TOL[dt], card))
+    del want_o, want_lse
+    got = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fr.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(g, g2):
+            raise AssertionError(f"flash_attention_bwd {tag}: {name} differs between calls")
+        e = grad_errors(g, w, dt)
+        if not grad_ok(e, dt):
+            raise AssertionError(f"flash_attention_bwd {tag}: {name} disagrees with its "
+                                 f"plain version: {e}")
+        err = max(err, e["max_abs"])
+        print(f"kernel flash_attention_bwd {tag} {name}: max |err| {e['max_abs']:.6g}, "
+              f"at most {e['ratio']:.4g} of its allowance ({BWD_TOL[dt]} x (|want| + "
+              f"row RMS + {BWD_FLOOR} x RMS)), relative Frobenius {e['fro']:.4g} <= "
+              f"{BWD_FRO_TOL[dt]}, bitwise equal on a second call [{card}]", flush=True)
+        if plant and name != "dq":
+            bad = g.clone()
+            bad[:, bad.shape[1] // 2:] *= 1.5
+            e = grad_errors(bad, w, dt)
+            if grad_ok(e, dt):
+                raise AssertionError(f"flash_attention_bwd {tag}: the check passed {name} "
+                                     f"with its later keys planted 1.5x: {e}")
+            print(f"check flash_attention_bwd {tag} {name}: the later half of the keys "
+                  f"planted 1.5x is rejected ({e['past']} elements past their allowance, "
+                  f"relative Frobenius {e['fro']:.4g}) [{card}]", flush=True)
+            del bad
+    return fwd_err, err
+
+
+def flash_bwd_checks(dev, card, fk, fr) -> tuple[float, float]:
+    """Phase 26a: the lse and the backward on every case of BWD_CASES."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(4)
+    fwd_err = err = 0.0
+    for b, sq, sk, h, kv, d, causal, dt in BWD_CASES:
+        q, do = (randn(gen, (b, sq, h, d), dt, dev) for _ in range(2))
+        k, v = (randn(gen, (b, sk, kv, d), dt, dev) for _ in range(2))
+        tag = (f"b={b} sq={sq} sk={sk} h={h} kv={kv} d={d} "
+               f"{'causal' if causal else 'non-causal'} {dt}")
+        f, e = bwd_check(fk, fr, q, k, v, do, causal, tag, card)
+        fwd_err, err = max(fwd_err, f), max(err, e)
+    return fwd_err, err
+
+
+def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag) -> dict:
+    """Phase 26b: at (b, s, h, kv, d), causal, bf16: the checks of
+    ``bwd_check``, then CUDA-event times of the forward with and without
+    the lse and of the backward, beside the plain versions (one call each)
+    and SDPA (its forward; its backward by ``torch.autograd.grad`` on a
+    retained graph); the bounds of both."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, do = (randn(gen, (b, s, h, d), "bfloat16", dev) for _ in range(2))
+    k, v = (randn(gen, (b, s, kv, d), "bfloat16", dev) for _ in range(2))
+    fwd_err, err = bwd_check(fk, fr, q, k, v, do, True, f"{tag} b={b} s={s} bf16", card,
+                             plant=True)
+    o, lse = fk.flash_attention(q, k, v, causal=True, return_lse=True)
+    plain = {}
+    plain_fwd = event_ms(lambda: plain.setdefault(
+        "f", fr.attention_plain_lse(q, k, v, causal=True)))
+    plain.clear()
+    plain_bwd = event_ms(lambda: plain.setdefault(
+        "b", fr.attention_plain_bwd(q, k, v, o, lse, do, causal=True)))
+    plain.clear()
+    torch.cuda.empty_cache()
+    fwd_lse = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=True, return_lse=True),
+                      reps=10)
+    fwd = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=True), reps=10)
+    ms = cuda_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, causal=True), reps=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), is_causal=True, enable_gqa=True), reps=10)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                  reps=10)
+    nbytes, flops = flash_bwd_bound(b, s, s, h, kv, d, 2, True)
+    f_bytes, f_flops = attention_bound(b, s, s, h, kv, d, 2, True)
+    f_bytes += 4 * b * h * s     # the lse written
+    del q, k, v, do, o, lse, qt, kt, vt, dot, out
+    torch.cuda.empty_cache()
+    rows = {"flash_attention_bwd": dict(ms=ms, plain_ms=plain_bwd, library_ms=lib, err=err,
+                                        nbytes=nbytes, flops=flops, shape=[b, s, s, h, kv, d]),
+            "flash_attention (lse)": dict(ms=fwd_lse, ms_without_lse=fwd, plain_ms=plain_fwd,
+                                          library_ms=lib_fwd, err=fwd_err, nbytes=f_bytes,
+                                          flops=f_flops, shape=[b, s, s, h, kv, d])}
+    bound_rows(rows, tag, card)
+    print(f"time flash_attention {tag}: forward with the lse {fwd_lse:.6g} ms, without "
+          f"{fwd:.6g} ms [{card}]", flush=True)
+    return rows
+
+
+def fingerprint(params) -> list:
+    """Per parameter: its bits summed as integers and its values summed in
+    float64: equal states give equal lists, and a changed bit changes the
+    first."""
+    import torch
+    with torch.no_grad():
+        return [(int(p.view(torch.int32).long().sum()), float(p.double().sum()))
+                for p in params.parameters()]
+
+
+def train_slice_check(dev, card, get_api, flash_counts) -> dict:
+    """Phase 27: the reduced granite train slice, card against CPU, from
+    one float32 state: the step-1 gradients, 4 steps' losses and grad
+    norms, and the state after them, within ``TRAIN_SLICE_TOL``; on the
+    card 2 flash launches a layer and one backward call a layer a step."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    api = get_api(TRAIN_ARCH, reduced=True)
+    n_steps, L = 4, api.cfg.n_layers
+    toks = np.random.default_rng(0).integers(0, api.cfg.vocab, (n_steps, 4, 129))
+    runs = {}
+    for run, where in (("cpu", "cpu"), ("card", dev)):
+        params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
+        state = {"params": params, "opt": init_opt_state(params)}
+        data = [{"tokens": torch.from_numpy(t[:, :-1]).to(where),
+                 "labels": torch.from_numpy(t[:, 1:]).to(where)} for t in toks]
+        loss, _ = api.loss(params, data[0], remat=True)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        step = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))
+        metrics = []
+        for b in data:
+            before = dict(flash_counts)
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if run == "card":
+                got = (flash_counts["flash_attention"] - before["flash_attention"],
+                       flash_counts["flash_attention_bwd"] - before["flash_attention_bwd"])
+                if got != (2 * L, L):
+                    raise AssertionError(f"a reduced train step launched {got} flash "
+                                         f"forward / backward, expected {(2 * L, L)}")
+        runs[run] = {
+            "grads": grads, "metrics": metrics,
+            "params": {n: p.detach().cpu() for n, p in state["params"].named_parameters()},
+            "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+            "v": {n: t.cpu() for n, t in state["opt"]["v"].items()}}
+    cpu, card_run = runs["cpu"], runs["card"]
+
+    def largest(what):
+        return max(float((card_run[what][n] - cpu[what][n]).abs().max()) for n in cpu[what])
+
+    num = sum(float(((card_run["grads"][n] - cpu["grads"][n]) ** 2).sum()) for n in cpu["grads"])
+    den = sum(float((cpu["grads"][n] ** 2).sum()) for n in cpu["grads"])
+    errs = {
+        "loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(card_run["metrics"],
+                                                               cpu["metrics"])),
+        "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                         for a, b in zip(card_run["metrics"], cpu["metrics"])),
+        "grads_rel": (num / den) ** 0.5, "grads_max": largest("grads"),
+        "params": largest("params"), "m": largest("m"), "v": largest("v")}
+    finite = all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in card_run["metrics"])
+    bad = {k: (e, TRAIN_SLICE_TOL[k]) for k, e in errs.items() if not e <= TRAIN_SLICE_TOL[k]}
+    if bad or not finite:
+        raise AssertionError(f"reduced {TRAIN_ARCH} training on the card differs from the "
+                             f"CPU: {bad} (finite {finite})")
+    print(f"slice reduced {TRAIN_ARCH} train b=4 x 128, {n_steps} steps: card vs CPU "
+          + ", ".join(f"{k} {e:.6g} (bound {TRAIN_SLICE_TOL[k]})" for k, e in errs.items())
+          + f"; losses card {[round(m['loss'], 6) for m in card_run['metrics']]} [{card}]",
+          flush=True)
+    return {"errors": errs, "card_losses": [m["loss"] for m in card_run["metrics"]],
+            "cpu_losses": [m["loss"] for m in cpu["metrics"]]}
+
+
+class Preempted(Exception):
+    """Raised by a training run's ``on_step`` hook to stop it (phase 28)."""
+
+
+def granite_training(dev, card, p_train, steps_mod, adamw, flash_counts, others,
+                     zero_counts) -> dict:
+    """Phase 28: granite-3-2b trained at full width (see the module
+    docstring); returns the run's numbers."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.registry import get_api
+    kw = dict(arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, seed=0, log_every=1, device=None)
+    api = get_api(TRAIN_ARCH)
+    n_layers = api.cfg.n_layers
+    # the forward twice a layer (remat's recompute), the backward once, in
+    # each microbatch: (320, 160) a step
+    want = (2 * n_layers * TRAIN_MICRO, n_layers * TRAIN_MICRO)
+    per_step = []
+
+    def count_step(i, loss, dt):
+        per_step.append((flash_counts["flash_attention"], flash_counts["flash_attention_bwd"]))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, losses, run = p_train.train(on_step=count_step, **kw)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_counts["flash_attention"],
+                "flash_attention_bwd": flash_counts["flash_attention_bwd"]}
+    steps, peak = run["steps"], run["peak_mem_bytes"]
+    deltas = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(per_step, [(0, 0)] + per_step)]
+    if any(d != want for d in deltas) or any(v for c in others for v in c.values()):
+        raise AssertionError(f"training launched {deltas} flash forward / backward a "
+                             f"step (expected {want}), others "
+                             f"{[dict(c) for c in others]}")
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
+        raise AssertionError(f"a non-finite loss or grad norm: {steps}")
+    if peak >= TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"training peaked at {peak} B")
+    for r in steps:
+        print(f"train {TRAIN_ARCH} full width step {r['step']}: loss {r['loss']:.6g}, grad "
+              f"norm {r['grad_norm']:.6g}, lr {r['lr']:.6g}, {r['seconds']:.6g} s, "
+              f"{r['tokens_per_s']:.6g} tokens/s [{card}]", flush=True)
+    print(f"train {TRAIN_ARCH} b={TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches, "
+          f"{TRAIN_STEPS} steps: wall {wall:.6g} s, peak memory {peak} B, launches "
+          f"{launches} ({want} a step) [{card}]", flush=True)
+    prints = fingerprint(state["params"])
+
+    # one more step, traced
+    step_fn = steps_mod.build_train_step(api, adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=min(20, TRAIN_STEPS // 5 + 1), total_steps=TRAIN_STEPS),
+        microbatches=TRAIN_MICRO)
+    data = SyntheticTokens(api.cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in data.batch_at(TRAIN_STEPS).items()}
+    holder = {"state": state}
+    del state
+
+    def one_step():
+        holder["state"], _ = step_fn(holder["state"], batch)
+
+    profile = trace(f"{TRAIN_ARCH} train step (b={TRAIN_BATCH} x {TRAIN_SEQ}, "
+                    f"{TRAIN_MICRO} microbatches)", one_step, card, top_n=12)
+    holder.clear()
+    del step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # preempted after step TRAIN_STOP and its checkpoint, then resumed
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    first = []
+
+    def preempt(i, loss, dt):
+        first.append(loss)
+        if i + 1 == TRAIN_STOP:
+            raise Preempted
+
+    t0 = time.perf_counter()
+    # (the stopped run's state goes with the exception: two states do not fit)
+    try:
+        p_train.train(checkpoint_dir=str(TRAIN_CKPT), checkpoint_every=TRAIN_STOP,
+                      on_step=preempt, **kw)
+        raise AssertionError("the run meant to be preempted ran to its end")
+    except Preempted:
+        pass
+    stop_wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if first != losses[:TRAIN_STOP]:
+        raise AssertionError(f"the interrupted run's losses {first} differ from "
+                             f"{losses[:TRAIN_STOP]}")
+
+    def drop_old(i, loss, dt):
+        # one checkpoint on the disk at a time: the step-2 file has been read
+        if i == TRAIN_STOP:
+            for f in TRAIN_CKPT.glob(f"step_{TRAIN_STOP:08d}.*"):
+                f.unlink()
+
+    t0 = time.perf_counter()
+    resumed, rest, r_run = p_train.train(checkpoint_dir=str(TRAIN_CKPT), resume=True,
+                                         on_step=drop_old, **kw)
+    resume_wall = time.perf_counter() - t0
+    r_steps = r_run["steps"]
+    same = (rest == losses[TRAIN_STOP:]
+            and [r["grad_norm"] for r in r_steps] == [r["grad_norm"] for r in steps[TRAIN_STOP:]]
+            and fingerprint(resumed["params"]) == prints)
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    if not same:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: losses "
+                             f"{rest} against {losses[TRAIN_STOP:]}")
+    print(f"train {TRAIN_ARCH} stopped at step {TRAIN_STOP} with a checkpoint ({stop_wall:.6g} "
+          f"s) and resumed to step {TRAIN_STEPS} ({resume_wall:.6g} s): losses, grad norms "
+          f"and every parameter's bits equal the uninterrupted run's [{card}]", flush=True)
+    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "microbatches": TRAIN_MICRO, "steps": steps, "wall_s": wall,
+            "peak_mem_bytes": peak, "launches": launches, "launches_per_step": want,
+            "profile": profile, "stopped_run_wall_s": stop_wall,
+            "resumed_run_wall_s": resume_wall, "resume_equal": same, "card": card}
+
+
+def train_loss_drop(card, p_train) -> dict:
+    """Phase 29: the reduced trainer on the card, 30 steps at b=8 x 64, lr
+    5e-3: the loss falls by more than 0.3 (``test_loss_decreases_training``)."""
+    _, losses, _ = p_train.train(arch=TRAIN_ARCH, reduced=True, steps=30, batch=8,
+                                 seq=64, lr=5e-3, log_every=1000, device=None)
+    if not losses[-1] < losses[0] - 0.3:
+        raise AssertionError(f"reduced training on the card: loss {losses[0]} -> {losses[-1]}")
+    print(f"train reduced {TRAIN_ARCH} 30 steps on the card: loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g} [{card}]", flush=True)
+    return {"first": losses[0], "last": losses[-1]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2718,10 +3174,11 @@ def main() -> int:
     # ---- 1. build: one nvcc per source, all started together ----------
     t0 = time.perf_counter()
     kbuild.build_all([(build.SOURCE, build.NVCC_FLAGS)] + [
-        (m.SOURCE, kbuild.NVCC_FLAGS)
-        for m in (flash_kernel, dec_kernel, ssd_kernel, scan_kernel)], verbose=True)
-    for lib in (build.lib, flash_kernel.lib, dec_kernel.lib, ssd_kernel.lib,
-                scan_kernel.lib):
+        (src, kbuild.NVCC_FLAGS)
+        for src in (flash_kernel.SOURCE, flash_kernel.BWD_SOURCE, dec_kernel.SOURCE,
+                    ssd_kernel.SOURCE, scan_kernel.SOURCE)], verbose=True)
+    for lib in (build.lib, flash_kernel.lib, flash_kernel.bwd_lib, dec_kernel.lib,
+                ssd_kernel.lib, scan_kernel.lib):
         lib()
     for name, st in kbuild.BUILD_STATS.items():
         print(f"build {name}: nvcc {st['builds']} build(s), {st['seconds']:.2f} s "
@@ -3042,7 +3499,7 @@ def main() -> int:
     want = {"flash_attention": napp, "ssd": cfg.n_layers,
             "decode_attention": napp * (GEN_TOKENS - 1)}
     if zlaunches != want or any(kernel.LAUNCHES.values()) or \
-            any(scan_kernel.LAUNCHES.values()):
+            any(scan_kernel.LAUNCHES.values()) or flash_kernel.LAUNCHES["flash_attention_bwd"]:
         raise AssertionError(f"serving launched {zlaunches} (placement "
                              f"{dict(kernel.LAUNCHES)}, scan {scan_kernel.LAUNCHES}), "
                              f"expected {want}")
@@ -3195,6 +3652,30 @@ def main() -> int:
     moldesign = moldesign_phase(card, counters, zero_counts)
     print(json.dumps({"moldesign": moldesign}), flush=True)
 
+    # ---- 26. flash attention's lse and backward against their plain versions
+    from repro_torch.distributed import steps as train_steps
+    from repro_torch.launch import train as p_train
+    from repro_torch.optim import adamw
+    torch.cuda.empty_cache()
+    fwd_lse_err, bwd_err = flash_bwd_checks(dev, card, flash_kernel, flash_ref)
+    bwd_rows = {arch: flash_bwd_row(dev, card, flash_kernel, flash_ref, *shape,
+                                    f"{arch} (h={shape[2]}, kv={shape[3]}, d={shape[4]})")
+                for arch, shape in BWD_TIMED.items()}
+
+    # ---- 27. the reduced granite train slice, card against CPU ---------------
+    train_slice = train_slice_check(dev, card, get_api, flash_kernel.LAUNCHES)
+
+    # ---- 28. main path: granite-3-2b trained at full width and depth ---------
+    others = [c for c in counters if c is not flash_kernel.LAUNCHES]
+    training = granite_training(dev, card, p_train, train_steps, adamw,
+                                flash_kernel.LAUNCHES, others, zero_counts)
+    training["slice"] = train_slice
+
+    # ---- 29. the reduced trainer's loss drop on the card ----------------------
+    training["loss_drop"] = train_loss_drop(card, p_train)
+    training["kernels"] = bwd_rows
+    print(json.dumps({"training": training}), flush=True)
+
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
         for name, source, line in (
@@ -3230,6 +3711,31 @@ def main() -> int:
             "shapes": {k: {f: v[f] for f in ("shape", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "err")}
                        for k, v in shapes.items()}})
+    # the trainer's rows: the backward at granite's microbatch (the main
+    # path) and at qwen3's head_dim 128 (not on a path), and the forward
+    # with the lse at granite's microbatch
+    for arch, rows in bwd_rows.items():
+        r = rows["flash_attention_bwd"]
+        kernels.append({
+            "name": f"flash_attention_bwd/{arch}", "route": "cuda",
+            "source": BWD_FLASH_SOURCE,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
+            "model": arch, "shape": r["shape"],
+            "launches": training["launches"]["flash_attention_bwd"]
+            if arch == TRAIN_ARCH else 0,
+            "max_abs_err": max(bwd_err, r["err"]), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    r = bwd_rows[TRAIN_ARCH]["flash_attention (lse)"]
+    kernels.append({
+        "name": f"flash_attention/{TRAIN_ARCH}-train", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
+        "model": TRAIN_ARCH, "shape": r["shape"],
+        "launches": training["launches"]["flash_attention"],
+        "max_abs_err": max(fwd_lse_err, r["err"]),
+        "ms": r["ms"], "ms_without_lse": r["ms_without_lse"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -250,21 +250,59 @@ def _index(tree, i):
     return np.asarray(tree)[i]
 
 
-def lm_params_to_numpy(params) -> dict:
-    """The reverse of ``lm_params_from_numpy``: the reference's tree
-    layout (layers stacked), every leaf as a float32 numpy array."""
-    def tree(mod):
-        out = {name: p.detach().float().cpu().numpy()
+def stacked_tree(params, leaf) -> dict:
+    """The reference's tree layout of ``params`` (layers stacked), each
+    leaf ``leaf(name, parameter)`` as a float32 numpy array; ``name`` is
+    the parameter's dotted name in ``params``."""
+    def tree(mod, prefix):
+        out = {name: leaf(prefix + name, p).detach().float().cpu().numpy()
                for name, p in mod.named_parameters(recurse=False)}
         for name, child in mod.named_children():
             if isinstance(child, nn.ModuleList):
-                per = [tree(c) for c in child]
-                out[name] = _stack(per)
+                out[name] = _stack([tree(c, f"{prefix}{name}.{i}.")
+                                    for i, c in enumerate(child)])
             else:
-                out[name] = tree(child)
+                out[name] = tree(child, f"{prefix}{name}.")
         return out
 
-    return tree(params)
+    return tree(params, "")
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The reverse of ``lm_params_from_numpy``: the reference's tree
+    layout (layers stacked), every leaf as a float32 numpy array."""
+    return stacked_tree(params, lambda name, p: p)
+
+
+def train_state_from_numpy(tree, cfg, device="cpu") -> dict:
+    """The port's train state (``distributed.steps.init_train_state``'s
+    layout) from the reference's ``{"params", "opt": {"m", "v", "step"}}``
+    (numpy leaves, the layer stacks split as ``lm_params_from_numpy``
+    does): float32 parameters that require a gradient, float32 moments
+    keyed by the parameters' names, an int32 step."""
+    params = lm_params_from_numpy(tree["params"], cfg, device, torch.float32)
+    for p in params.parameters():
+        p.requires_grad_(True)
+
+    def moments(t):
+        return {n: p.detach().clone() for n, p in
+                lm_params_from_numpy(t, cfg, device, torch.float32).named_parameters()}
+
+    opt = tree["opt"]
+    return {"params": params, "opt": {
+        "m": moments(opt["m"]), "v": moments(opt["v"]),
+        "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                             device=device)}}
+
+
+def train_state_to_numpy(state) -> dict:
+    """The reverse of ``train_state_from_numpy``: the reference's tree
+    layout, float32 numpy leaves and an int32 step."""
+    params, opt = state["params"], state["opt"]
+    return {"params": lm_params_to_numpy(params), "opt": {
+        "m": stacked_tree(params, lambda name, p: opt["m"][name]),
+        "v": stacked_tree(params, lambda name, p: opt["v"][name]),
+        "step": np.int32(int(opt["step"]))}}
 
 
 def _stack(per: list):

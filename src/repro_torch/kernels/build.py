@@ -3,7 +3,8 @@
 Each kernel package keeps its source under ``csrc/``.  ``nvcc`` compiles
 one source into a shared library with a plain C interface, at first use,
 under ``build/`` beside ``csrc/`` (listed in ``.gitignore``), keyed by a
-hash of the source and the flags; ``ctypes`` loads it.  Nothing is built
+hash of the source, the headers beside it and the flags; ``ctypes``
+loads it.  Nothing is built
 when a module is imported.  ``build_all`` starts one nvcc per source and
 waits for them together.  Every C entry returns ``cudaGetLastError()``
 after its launches, and ``check`` raises on a non-zero code.
@@ -56,8 +57,11 @@ def nvcc() -> str:
 
 
 def library_path(source: pathlib.Path, flags=NVCC_FLAGS) -> pathlib.Path:
+    """The library of ``source`` under ``build/``, named by a hash of the
+    source, the headers (``*.cuh``) beside it and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha1(
-        source.read_bytes() + " ".join(flags).encode()
+        source.read_bytes() + headers + " ".join(flags).encode()
     ).hexdigest()[:16]
     return source.parent.parent / "build" / f"lib{source.stem}_{digest}.so"
 

@@ -48,16 +48,17 @@
 //   threads per 64-query tile, K and V staged as f32; bf16 or TF32 products
 //   cannot meet the f32 tolerance of 2e-5, and no main path runs attention
 //   in f32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+// Both routes take an optional lse buffer, f32 (b, h, sq): when the wrapper
+//   passes one (a gradient will be taken), each row's log-sum-exp of the
+//   scaled scores is written there in natural log, (m + log2 l) ln 2 on the
+//   bf16 route; the backward kernels (flash_attention_bwd.cu) recompute P
+//   from it.  With a null pointer nothing more is written.  The device
+//   helpers the two files share are in flash_common.cuh.
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-using bf16 = __nv_bfloat16;
+using namespace flash;
 
 // ---------------------------------------------------------------------------
 // f32 route: CUDA cores
@@ -75,8 +76,9 @@ constexpr size_t f32_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int sq,
-                     int sk, int h, int kvh, float scale, int causal) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int sq, int sk, int h, int kvh, float scale,
+                     int causal) {
   constexpr int DP = D + 1;       // padded row pitch: conflict-free column reads
   constexpr int PP = BK + 1;
   constexpr int DPT = D / 16;     // output dims per thread
@@ -208,6 +210,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DPT; ++c) ob[(long)qi * q_row + tx + 16 * c] = acc[i][c] / den;
+    // the row's log-sum-exp of the scaled scores, natural log
+    if (lse != nullptr && tx == 0) lse[((long)bi * h + hi) * sq + qi] = m[i] + logf(den);
   }
 }
 
@@ -231,73 +235,6 @@ struct TcShape {
   static constexpr int BQ = 16 * MT * WARPS;   // query rows a CTA
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 2^x on the special-function unit (MUFU.EX2), subnormal results flushed
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16 bytes global -> shared, or 16 zero bytes where !in (nothing is read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as bf16x2, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ROWS rows of D bf16 from src (row r at src + (r0 + r) * pitch) into a
-// shared tile of pitch D + 8; rows at or past rmax are zero-filled, unread
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long pitch, int r0,
-                                          int rmax, int tid) {
-  constexpr int CPR = D / 8;   // 16-byte chunks a row
-  constexpr int N = ROWS * CPR;
-#pragma unroll
-  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    if (N % THREADS && idx >= N) break;
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    const bool in = r0 + r < rmax;
-    const bf16* s = in ? src + (long)(r0 + r) * pitch + c : src;
-    cp_async16(smem_u32(dst + r * (D + 8) + c), s, in);
-  }
-}
-
 template <int D>
 constexpr size_t bf16_smem_bytes() {
   return sizeof(bf16) * (size_t)(D + 8) * (TcShape<D>::BQ + 4 * TC_BK);   // Q, 2 x (K, V)
@@ -306,8 +243,9 @@ constexpr size_t bf16_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(TcShape<D>::THREADS, TcShape<D>::MIN_BLOCKS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk,
-                      int h, int kvh, float scale_log2, int causal) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                      float scale_log2, int causal) {
   using Shape = TcShape<D>;
   constexpr int MT = Shape::MT, THREADS = Shape::THREADS, BQ = Shape::BQ;
   constexpr int DP = D + 8;    // row pitch in shared memory, elements
@@ -386,17 +324,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t qa[MT][4];   // Q's A fragments, reloaded: registers go to S and O
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = (warp * MT + mt) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(qa[mt], smem_u32(sQ + r * DP + c));
-      }
+      for (int mt = 0; mt < MT; ++mt) load_a<DP>(qa[mt], sQ, (warp * MT + mt) * 16, kk, lane);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
-        const int r = np * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int c = kk * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(b, smem_u32(cK + r * DP + c));
+        load_b<DP>(b, cK, np * 16, kk, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(s[mt][2 * np], qa[mt], b[0], b[1]);
@@ -466,18 +398,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t pa[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
+      for (int mt = 0; mt < MT; ++mt) acc_to_a(pa[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
 #pragma unroll
       for (int np = 0; np < NB / 2; ++np) {
         uint32_t b[4];
-        const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = np * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(b, smem_u32(cV + r * DP + c));
+        load_b_trans<DP>(b, cV, np * 16, kk, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(acc[mt][2 * np], pa[mt], b[0], b[1]);
@@ -498,6 +423,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
     const int row0 = wq0 + 16 * mt + gr, row1 = row0 + 8;
+    // the row's log-sum-exp of the scaled scores, natural log: m and the
+    // sum are in the base-2 domain of scale_log2
+    if (lse != nullptr && tq == 0) {
+      float* lrow = lse + ((long)bi * h + hi) * sq;
+      if (row0 < sq) lrow[row0] = (m[mt][0] + log2f(fmaxf(l0, 1e-30f))) * LN2;
+      if (row1 < sq) lrow[row1] = (m[mt][1] + log2f(fmaxf(l1, 1e-30f))) * LN2;
+    }
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       const int c = nb * 8 + 2 * tq;
@@ -516,8 +448,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b, int sq,
-               int sk, int h, int kvh, float scale, int causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+               int sq, int sk, int h, int kvh, float scale, int causal,
+               cudaStream_t stream) {
   const size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -525,13 +458,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b, int 
   dim3 grid((sq + BQ - 1) / BQ, h, b);
   flash_fwd_f32_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kvh, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, h, kvh, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int sq,
-                int sk, int h, int kvh, float scale, int causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                int sq, int sk, int h, int kvh, float scale, int causal,
+                cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -539,15 +474,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int
   dim3 grid(h, b, (sq + TcShape<D>::BQ - 1) / TcShape<D>::BQ);
   flash_fwd_bf16_kernel<D><<<grid, TcShape<D>::THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sq, sk, h, kvh, scale * LOG2E, causal);
+      static_cast<bf16*>(o), lse, sq, sk, h, kvh, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kvh, float scale, int causal, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, s)
-                 : launch_f32<D>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, s);
+int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kvh, float scale, int causal, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, s)
+                 : launch_f32<D>(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, s);
 }
 
 }  // namespace
@@ -565,17 +500,20 @@ extern "C" size_t gf_flash_smem(int d, int is_bf16) {
 
 // q (b, sq, h, d), k/v (b, sk, kvh, d), o (b, sq, h, d), all contiguous, of
 // one dtype: bf16 when is_bf16 (the tensor-core route; 16-byte aligned),
-// else f32 (the CUDA-core route).  Returns cudaGetLastError().
+// else f32 (the CUDA-core route).  lse: null, or f32 (b, h, sq) that takes
+// each row's log-sum-exp of the scaled scores (natural log), what the
+// backward kernels read.  Returns cudaGetLastError().
 extern "C" int gf_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int b, int sq, int sk, int h, int kvh,
                                   int d, int is_bf16, float scale, int causal,
-                                  void* stream) {
+                                  void* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
-    case 16: return launch<16>(is_bf16, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s);
-    case 64: return launch<64>(is_bf16, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s);
-    case 80: return launch<80>(is_bf16, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s);
-    case 128: return launch<128>(is_bf16, q, k, v, o, b, sq, sk, h, kvh, scale, causal, s);
+    case 16: return launch<16>(is_bf16, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, s);
+    case 64: return launch<64>(is_bf16, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, s);
+    case 80: return launch<80>(is_bf16, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, s);
+    case 128: return launch<128>(is_bf16, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

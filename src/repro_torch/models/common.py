@@ -100,17 +100,20 @@ def init_tree(specs, gen: torch.Generator, device, dtype=torch.float32):
 class Params(nn.Module):
     """A nested table of parameters: ``p["wq"]`` reads a leaf,
     ``p["attn"]`` a sub-table, ``p["layers"]`` an ``nn.ModuleList`` of
-    per-layer tables.  Inference only: nothing requires a gradient."""
+    per-layer tables.  Every floating leaf requires a gradient when
+    ``trainable`` (the trainer's float32 masters), none otherwise
+    (serving)."""
 
-    def __init__(self, tree: dict[str, Any]):
+    def __init__(self, tree: dict[str, Any], trainable: bool = False):
         super().__init__()
         for name, v in tree.items():
             if isinstance(v, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(
+                    v, requires_grad=trainable and v.is_floating_point()))
             elif isinstance(v, dict):
-                self.add_module(name, Params(v))
+                self.add_module(name, Params(v, trainable))
             else:
-                self.add_module(name, nn.ModuleList(Params(x) for x in v))
+                self.add_module(name, nn.ModuleList(Params(x, trainable) for x in v))
 
     def __getitem__(self, name: str):
         return getattr(self, name)

@@ -138,8 +138,8 @@ def encdec_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     """The mean next-token CE of ``batch["tokens"]`` against
     ``batch["labels"]`` given ``batch["frames"]``; returns (loss, {"ce",
     "aux"}) with aux 0.  Forward only, as ``lm_loss``."""
-    _mesh_free(shd, remat)
-    refuse_gradients(params, "encdec_loss")
+    _mesh_free(shd, remat, cfg.family)
+    refuse_gradients(params, "encdec_loss", cfg.family)
     enc_out = encode(params, cfg, batch["frames"])
     logits = decode_train(params, cfg, batch["tokens"], enc_out)
     loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab)

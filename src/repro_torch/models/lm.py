@@ -1,6 +1,7 @@
 """Decoder-only LM assembly for the dense (granite, starcoder2, qwen3,
 deepseek), MoE (moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2)
-and ssm (falcon-mamba) families, inference only.
+and ssm (falcon-mamba) families: serving for all five, and the loss's
+gradient for the dense family (the trainer, ``launch/train.py``).
 
 Entry points:
   lm_forward     — forward over a sequence -> logits (b, s, V)
@@ -20,8 +21,14 @@ x0) at width 2d, output back to d) once per group, then
 layers one after the other.  The layers are an ``nn.ModuleList`` of
 per-layer parameter tables (the reference scans a stacked tree).  The
 enc-dec family (whisper) is served by ``models/encdec.py``, routed there
-by the registry; this module's entry points refuse it.  Gradients, remat
-and sharding (the reference's ``remat=`` and ``shd=``) belong to later
+by the registry; this module's entry points refuse it.
+
+The dense family's loss takes a gradient: flash attention's autograd op
+launches the backward kernel, and ``remat=True`` (the reference's default
+in its ``lm_loss``) wraps each layer in ``torch.utils.checkpoint``, the
+counterpart of its ``jax.checkpoint(layer_body, policy=nothing_saveable)``.
+The other families' gradients and remat (their SSD, scan and MoE
+backward), and sharding (the reference's ``shd=``), belong to later
 slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -30,6 +37,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -53,6 +61,8 @@ FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 #: The families whose layers are attention and a feed-forward block, with
 #: a k/v cache per layer.
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
+#: The families whose loss takes a gradient (and remat): the trainer's.
+TRAINED = ("dense",)
 
 
 def require_served(cfg: ArchConfig) -> None:
@@ -61,8 +71,8 @@ def require_served(cfg: ArchConfig) -> None:
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port "
             "serves the dense (granite, starcoder2, qwen3, deepseek), MoE "
             "(moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2), ssm "
-            "(falcon-mamba) and enc-dec (whisper) families, inference only.  "
-            "The trainer is the next slice"
+            "(falcon-mamba) and enc-dec (whisper) families, and trains the "
+            "dense family"
         )
 
 
@@ -75,20 +85,28 @@ def _decoder_only(cfg: ArchConfig) -> None:
             "(get_api routes it there), not by the decoder-only models/lm.py")
 
 
-def refuse_gradients(params, name: str) -> None:
-    """Raise where a parameter requires a gradient: the port runs the
-    forward only (the trainer is a later slice)."""
+def refuse_gradients(params, name: str, family: str) -> None:
+    """Raise where a parameter requires a gradient and ``family`` has no
+    trainer yet (only the dense family has one)."""
+    if family in TRAINED:
+        return
     if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
         raise NotImplementedError(
-            "gradients belong to the training slice, a later slice of the port: "
+            f"gradients of the {family} family belong to a later slice of the port "
+            "(the training slice has the dense family; the MoE, VLM and enc-dec "
+            "trainers are next, then the SSD and scan backward kernels): "
             f"{name} runs the forward only")
 
 
-def _mesh_free(shd=None, remat=False) -> None:
-    if shd is not None or remat:
+def _mesh_free(shd=None, remat=False, family: str | None = None) -> None:
+    if shd is not None:
         raise NotImplementedError(
-            "sharding (shd=) and remat belong to a later slice of the port: "
-            "it runs mesh-free on one card, inference only")
+            "sharding (shd=) belongs to a later slice of the port: it runs "
+            "mesh-free on one card")
+    if remat and family not in TRAINED:
+        raise NotImplementedError(
+            f"remat of the {family} family belongs to a later slice of the port: "
+            "only the dense family trains")
 
 
 def _norm_spec(d):
@@ -201,11 +219,14 @@ def _shared_block(ps, x, x0, cfg, positions, collect):
 
 
 def embed_tokens(params, tokens, cfg=None, vision_embeds=None):
-    """(b, s) token ids -> (b, s, d) in the compute dtype (the gathered
-    rows are cast, which gives the values of casting the table).  For a
-    VLM config with ``vision_embeds`` (b, nv, d), the first nv positions
-    are the vision embeddings, cast to the compute dtype."""
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    """(b, s) token ids -> (b, s, d) in the compute dtype.  The table is
+    cast and then gathered, as the reference does: with bf16 weights the
+    cast is a no-op, and with float32 masters the gradient is the
+    reference's (the rows' gradients summed in bf16, then cast to
+    float32).  For a VLM config with ``vision_embeds`` (b, nv, d), the
+    first nv positions are the vision embeddings, cast to the compute
+    dtype."""
+    x = params["embed"].to(COMPUTE_DTYPE)[tokens]
     if cfg is not None and cfg.family == "vlm" and vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(COMPUTE_DTYPE), x[:, nv:]], dim=1)
@@ -217,12 +238,15 @@ def _logits(params, cfg, x):
     return x @ params["unembed"].to(x.dtype)
 
 
-def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None):
+def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
+              remat=False):
     """Embed and run every layer (zamba2: every group); with ``cache``
     (from ``init_cache``), write each attention layer's k/v, each Mamba
     layer's conv tail and state and each shared application's k/v into it.
-    Returns the last hidden states (b, s, d) and the MoE layers' summed aux
-    loss (float32; 0 for the other families)."""
+    With ``remat`` (the dense family) each layer is checkpointed: its
+    activations are dropped after the forward and recomputed in the
+    backward.  Returns the last hidden states (b, s, d) and the MoE layers'
+    summed aux loss (float32; 0 for the other families)."""
     _decoder_only(cfg)
     x = embed_tokens(params, tokens, cfg, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -235,6 +259,9 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None):
             if cfg.family == "moe":
                 x, aux_i, kv = _moe_layer(pl, x, cfg, positions, collect)
                 aux = aux + aux_i
+            elif remat:
+                x, kv = checkpoint(_dense_layer, pl, x, cfg, positions, collect,
+                                   use_reentrant=False)
             else:
                 x, kv = _dense_layer(pl, x, cfg, positions, collect)
             if collect:
@@ -267,9 +294,10 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None):
 def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False,
                vision_embeds=None):
     """tokens (b, s) -> logits (b, s, V); a VLM's ``vision_embeds`` (b,
-    nv, d) take its first nv positions."""
-    _mesh_free(shd, remat)
-    x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds)
+    nv, d) take its first nv positions; ``remat`` checkpoints each dense
+    layer."""
+    _mesh_free(shd, remat, cfg.family)
+    x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds, remat=remat)
     return _logits(params, cfg, x)
 
 
@@ -278,12 +306,14 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     ``batch["vision_embeds"]``), then the mean next-token CE over
     ``batch["labels"]`` (positions labelled -1 do not count) plus 0.01 x
     the MoE layers' summed aux loss (0 for the other families).  Returns
-    (loss, {"ce", "aux"}).  Forward only: parameters that require a
-    gradient raise (the trainer is a later slice)."""
-    _mesh_free(shd, remat)
-    refuse_gradients(params, "lm_loss")
+    (loss, {"ce", "aux"}).  The dense family's loss takes a gradient, with
+    ``remat`` checkpointing each layer; for the other families parameters
+    that require a gradient, and ``remat``, raise (their trainers are later
+    slices)."""
+    _mesh_free(shd, remat, cfg.family)
+    refuse_gradients(params, "lm_loss", cfg.family)
     x, aux = _backbone(params, cfg, batch["tokens"],
-                       vision_embeds=batch.get("vision_embeds"))
+                       vision_embeds=batch.get("vision_embeds"), remat=remat)
     ce = cross_entropy_loss(_logits(params, cfg, x), batch["labels"], cfg.vocab)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

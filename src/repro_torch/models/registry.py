@@ -51,14 +51,17 @@ class ModelAPI:
         return param_count(self.specs())
 
     def init(self, gen: torch.Generator | int, device=None,
-             dtype=lm.COMPUTE_DTYPE) -> Params:
+             dtype=lm.COMPUTE_DTYPE, trainable: bool = False) -> Params:
         """Weights drawn from ``gen`` (a generator on ``device``, or a seed)
         on ``device`` (None: the CUDA card).  Matmul, conv and embedding
-        weights are stored in ``dtype``, the float32 leaves in float32."""
+        weights are stored in ``dtype``, the float32 leaves in float32.
+        ``trainable`` makes every leaf require a gradient: the trainer asks
+        for ``dtype=torch.float32`` (the reference's float32 masters, cast
+        to bf16 at use)."""
         dev = resolve_device(device)
         if isinstance(gen, int):
             gen = torch.Generator(device=dev).manual_seed(gen)
-        return Params(init_tree(self.specs(), gen, dev, dtype))
+        return Params(init_tree(self.specs(), gen, dev, dtype), trainable)
 
     def prefill(self, params, batch: dict, *, max_len: int | None = None, shd=None):
         """``batch``: ``tokens``, and a VLM's ``vision_embeds``."""
@@ -75,10 +78,11 @@ class ModelAPI:
         """{name: (shape, dtype)} of the serving caches."""
         return lm.cache_shapes(self.cfg, batch, max_len)
 
-    def loss(self, params, batch: dict, *, shd=None):
+    def loss(self, params, batch: dict, *, shd=None, remat: bool = False):
         """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``, and
-        a VLM's ``vision_embeds``), forward only."""
-        return lm.lm_loss(params, self.cfg, batch, shd=shd)
+        a VLM's ``vision_embeds``); the dense family's takes a gradient,
+        with ``remat`` checkpointing each layer."""
+        return lm.lm_loss(params, self.cfg, batch, shd=shd, remat=remat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +107,10 @@ class EncDecAPI(ModelAPI):
     def cache_shapes(self, batch: int, max_len: int) -> dict:
         return encdec.cache_shapes(self.cfg, batch, max_len)
 
-    def loss(self, params, batch: dict, *, shd=None):
+    def loss(self, params, batch: dict, *, shd=None, remat: bool = False):
         """(loss, {"ce", "aux"}) of ``batch`` (``frames``, ``tokens`` and
         ``labels``), forward only."""
-        return encdec.encdec_loss(params, self.cfg, batch, shd=shd)
+        return encdec.encdec_loss(params, self.cfg, batch, shd=shd, remat=remat)
 
 
 def build_api(cfg: ArchConfig) -> ModelAPI:

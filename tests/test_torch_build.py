@@ -1,5 +1,7 @@
-"""The port's shared nvcc builder (``repro_torch.kernels.build``) and the
-smoke run's operation counts for the SSD and selective-scan bounds, on the CPU.
+"""The port's shared nvcc builder (``repro_torch.kernels.build``), the
+smoke run's operation counts for the SSD and selective-scan bounds, and its
+rule for holding flash attention's backward kernel to its plain version, on
+the CPU.
 
 The builder is driven with a stand-in ``nvcc`` (a shell script under
 ``$CUDA_HOME/bin`` that writes its ``-o`` file, or fails), so these tests
@@ -268,3 +270,79 @@ def test_attention_bound_counts_the_call(b, sq, live, h, kv, d, causal):
     assert flops == b * h * pairs * 2 * 2 * d
     want = 2 * (b * sq * h * d) * 2 + 2 * (b * live * kv * d) * 2
     assert nbytes == want + (4 * b if sq == 1 else 0)
+
+
+def _bwd_bf16_operands(q, k, v, o, lse, do, causal):
+    """The plain backward with the backward kernel's bf16 arithmetic: P and
+    dS rounded to bf16 as the operands of their products, f32 sums, the
+    gradients returned in bf16."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf, vf = ref._expand(k, h).float(), ref._expand(v, h).float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    if causal:
+        p = torch.where(ref._mask(sq, sk, q.device)[None, None], p, 0.0)
+    dsum = torch.einsum("bqhd,bqhd->bhq", dof, of)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
+    ds = (p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - dsum[..., None]))
+    ds = ds.bfloat16().float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+
+    def group_sum(t):
+        return t.view(b, sk, kv, h // kv, d).sum(dim=3)
+
+    return dq.bfloat16(), group_sum(dk).bfloat16(), group_sum(dv).bfloat16()
+
+
+def _bwd_case(b, sq, sk, h, kv, d, causal, seed):
+    import torch
+    from repro_torch.kernels.flash_attention import ref
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, d, generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, sk, kv, d, generator=gen).bfloat16() for _ in range(2))
+    o, lse = ref.attention_plain_lse(q, k, v, causal=causal)
+    want = ref.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
+    return want, _bwd_bf16_operands(q, k, v, o, lse, do, causal)
+
+
+# (b, sq, sk, h, kv, d, causal): a long causal row at granite's head_dim,
+# groups 4, 5 and 1, sq < sk, non-causal, one query row
+_GRAD_CASES = [(1, 2048, 2048, 4, 1, 64, True), (2, 200, 200, 8, 2, 64, True),
+               (1, 100, 229, 10, 2, 128, True), (2, 257, 257, 5, 1, 128, False),
+               (2, 1, 300, 8, 2, 64, True)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", _GRAD_CASES)
+def test_gradient_check_accepts_the_kernels_bf16_rounding(b, sq, sk, h, kv, d, causal):
+    """The smoke's gradient rule passes the backward computed with the
+    kernel's bf16 operands, with room: every element within half its
+    allowance, the relative Frobenius error within a third of its bound."""
+    cs = _chip_smoke()
+    want, got = _bwd_case(b, sq, sk, h, kv, d, causal, seed=sq + sk)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = cs.grad_errors(g, w, "bfloat16")
+        assert cs.grad_ok(e, "bfloat16"), (name, e)
+        assert e["ratio"] < 0.5 and e["fro"] < cs.BWD_FRO_TOL["bfloat16"] / 3, (name, e)
+
+
+@pytest.mark.parametrize("factor", [1.5, 1.1])
+@pytest.mark.parametrize("name", ["dk", "dv"])
+def test_gradient_check_rejects_later_keys_planted_wrong(name, factor):
+    """dk or dv with the later half of its keys ``factor`` times too large
+    fails the rule, although the gradients there are a small fraction of
+    the largest (a causal row of length i weights each key about 1/i)."""
+    cs = _chip_smoke()
+    want, got = _bwd_case(1, 2048, 2048, 4, 1, 64, True, seed=1)
+    i = ("dq", "dk", "dv").index(name)
+    g, w = got[i].clone(), want[i]
+    assert cs.grad_ok(cs.grad_errors(g, w, "bfloat16"), "bfloat16")
+    g[:, 1024:] *= factor
+    late, top = float(w[:, 1024:].float().abs().max()), float(w.float().abs().max())
+    assert late < top / 2, (late, top)
+    e = cs.grad_errors(g, w, "bfloat16")
+    assert not cs.grad_ok(e, "bfloat16") and e["past"] > 0, e

@@ -3,8 +3,10 @@ PyTorch version on the same inputs (the placement kernels bitwise, the
 attention, SSD and selective-scan kernels within the reference's
 tolerances), placement on the card against the reference's SoA engine,
 the reduced zamba2, falcon-mamba, dense, MoE and VLM slices on the card
-against the same slices on the CPU, and the MoE routing on the card
-against the CPU's.  Marked ``gpu``;
+against the same slices on the CPU, the MoE routing on the card against
+the CPU's, and the trainer's slice: flash attention's lse and backward
+kernel against their plain versions, the autograd op's launches, and
+reduced granite train steps on the card against the CPU.  Marked ``gpu``;
 every test skips where there is no CUDA device (decided in the
 ``cuda_device`` fixture).  This file imports no JAX, so it runs on a GPU
 machine without it::
@@ -990,3 +992,165 @@ def test_paper_eval_synthetic_scenario_on_card_matches_cpu(cuda_device, capsys):
     launches = _scenario_on_card_and_cpu("synthetic")
     with capsys.disabled():
         print(f"\nsynthetic scenario (tiny): {launches} greedy_window launches")
+
+
+# ---------------------------------------------------------------------------
+# the trainer's slice: flash attention's lse and its backward kernel
+# ---------------------------------------------------------------------------
+
+# (b, sq, sk, h, kv, d, causal, dtype): head dims 16, 64, 80 and 128; GQA
+# groups 1, 4 and 5; causal with sq = sk and sq < sk, and not; lengths that
+# are not multiples of the 64-row tiles; one query row; granite's heads
+BWD_CASES = [
+    (2, 128, 128, 4, 4, 16, True, torch.bfloat16),
+    (2, 200, 200, 8, 2, 64, True, torch.bfloat16),
+    (1, 100, 229, 10, 2, 128, True, torch.bfloat16),
+    (2, 257, 257, 5, 1, 128, False, torch.bfloat16),
+    (1, 130, 333, 4, 1, 80, True, torch.bfloat16),
+    (2, 1, 300, 8, 2, 64, True, torch.bfloat16),
+    (2, 90, 333, 8, 8, 16, False, torch.bfloat16),
+    (2, 1024, 1024, 32, 8, 64, True, torch.bfloat16),
+    (1, 65, 65, 4, 4, 16, True, torch.float32),
+    (2, 100, 229, 8, 2, 64, True, torch.float32),
+    (1, 90, 90, 10, 2, 128, False, torch.float32),
+    (1, 70, 150, 4, 1, 80, True, torch.float32),
+]
+
+
+def _bwd_inputs(cuda_device, b, sq, sk, h, kv, d, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * sq + sk + h)
+    q = _randn(gen, (b, sq, h, d), dtype, cuda_device)
+    k = _randn(gen, (b, sk, kv, d), dtype, cuda_device)
+    v = _randn(gen, (b, sk, kv, d), dtype, cuda_device)
+    do = _randn(gen, (b, sq, h, d), dtype, cuda_device)
+    return q, k, v, do
+
+
+def _assert_grad_close(name, got, want, dtype):
+    """A gradient against its plain version, element by element: |err| <=
+    tol * (|want| + the RMS of its row (the d entries of one position and
+    head) + a tenth of the whole gradient's RMS), tol 2e-2 in bf16 (P^T and
+    dS rounded to bf16 for their products, as the forward rounds P) and
+    2e-5 in f32; and the error's Frobenius norm within 1e-2 (f32 1e-5) of
+    the gradient's.  The gradients fall off with the position (a causal
+    row of length i weights each key about 1/i), so a bound from the
+    largest element would pass errors on the later tiles; chip_smoke.py
+    holds the kernel to the same rule (``grad_errors``)."""
+    tol, fro_tol = (2e-2, 1e-2) if dtype == torch.bfloat16 else (2e-5, 1e-5)
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    row = w.pow(2).mean(-1, keepdim=True).sqrt()
+    allowed = tol * (w.abs() + row + 0.1 * float(w.pow(2).mean().sqrt()))
+    assert bool(torch.isfinite(g).all()), name
+    assert not bool((err > allowed).any()), (name, float((err / allowed).max()))
+    fro = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    assert fro <= fro_tol, (name, fro)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,dtype", BWD_CASES)
+def test_flash_attention_lse_matches_plain(cuda_device, b, sq, sk, h, kv, d, causal,
+                                           dtype):
+    """The forward's log-sum-exp (natural log of the scaled scores; the
+    bf16 route keeps it in base 2 and converts) against the plain one, and
+    the output unchanged by asking for it."""
+    q, k, v, _ = _bwd_inputs(cuda_device, b, sq, sk, h, kv, d, dtype)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=causal, return_lse=True)
+    o_only = flash_kernel.flash_attention(q, k, v, causal=causal)
+    want_o, want_lse = flash_ref.attention_plain_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert torch.equal(o, o_only)
+    torch.testing.assert_close(o.float(), want_o.float(), **_tol(dtype))
+    torch.testing.assert_close(lse, want_lse, atol=1e-4 if dtype == torch.bfloat16 else 2e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,dtype", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, d,
+                                                  causal, dtype):
+    """dq, dk and dv of the backward kernel against the plain backward on
+    the same inputs (the kernel forward's o and lse), each element within
+    its tolerance (``_assert_grad_close``); one count a call, and bitwise
+    the same on a second call (no atomics)."""
+    q, k, v, do = _bwd_inputs(cuda_device, b, sq, sk, h, kv, d, dtype)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=causal, return_lse=True)
+    before = flash_kernel.LAUNCHES["flash_attention_bwd"]
+    got = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_ref.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES["flash_attention_bwd"] == before + 2
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, g2), name
+        _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_launches_both_kernels(cuda_device, dtype):
+    """Through the op with inputs that require a gradient: one forward
+    launch (with the lse) and one backward call, and the gradients of the
+    backward kernel; without a gradient, the forward alone."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    b, sq, sk, h, kv, d = 2, 96, 96, 8, 2, 64
+    q, k, v, do = _bwd_inputs(cuda_device, b, sq, sk, h, kv, d, dtype)
+    before = dict(flash_kernel.LAUNCHES)
+    with torch.no_grad():
+        flash_ops.flash_attention(q.requires_grad_(), k, v, causal=True)
+    assert flash_kernel.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = flash_ops.flash_attention(qg, kg, vg, causal=True)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    o, lse = flash_kernel.flash_attention(q.detach(), k, v, causal=True, return_lse=True)
+    want = flash_kernel.flash_attention_bwd(q.detach(), k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES["flash_attention"] == before["flash_attention"] + 3
+    assert flash_kernel.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    assert torch.equal(out, o)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_reduced_granite_train_steps_on_card_match_cpu(cuda_device):
+    """4 train steps of reduced granite on the card (the forward and
+    backward kernels, remat) against the same steps on the CPU (their
+    plain versions) from one float32 state, within the CPU tests' bounds
+    (twice the reference's own spread, tests/test_torch_train.py): the
+    loss 3.46e-3 and the grad norm 12% (relative) at every step, the
+    params 0.0106, m 8.6e-3 and v 8.8e-4 on every element; 2 flash
+    launches and one backward call a layer a step."""
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    api = get_api("granite-3-2b", reduced=True)
+    toks = np.random.default_rng(0).integers(0, api.cfg.vocab, (4, 4, 129))
+    runs = {}
+    for name, where in (("cpu", "cpu"), ("card", cuda_device)):
+        params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
+        state = {"params": params, "opt": init_opt_state(params)}
+        step = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))
+        metrics = []
+        for t in toks:
+            before = dict(flash_kernel.LAUNCHES)
+            state, m = step(state, {"tokens": torch.from_numpy(t[:, :-1]).to(where),
+                                    "labels": torch.from_numpy(t[:, 1:]).to(where)})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            if name == "card":
+                L = api.cfg.n_layers
+                assert flash_kernel.LAUNCHES["flash_attention"] == \
+                    before["flash_attention"] + 2 * L
+                assert flash_kernel.LAUNCHES["flash_attention_bwd"] == \
+                    before["flash_attention_bwd"] + L
+        runs[name] = (metrics, {n: p.detach().cpu() for n, p in
+                                state["params"].named_parameters()},
+                      {k: {n: t.cpu() for n, t in state["opt"][k].items()} for k in "mv"})
+    (cm, cp, co), (gm, gp, go) = runs["cpu"], runs["card"]
+    for (cl, cg), (gl, gg) in zip(cm, gm):
+        assert np.isfinite(gl) and abs(gl - cl) <= 3.46e-3
+        assert abs(gg - cg) <= 0.12 * cg
+    for tol, c, g in ((0.0106, cp, gp), (8.6e-3, co["m"], go["m"]),
+                      (8.8e-4, co["v"], go["v"])):
+        assert max(float((g[n] - c[n]).abs().max()) for n in c) <= tol
