@@ -441,6 +441,14 @@ BWD_FRO_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 LSE_TOL = {"bfloat16": (1e-4, 1e-5), "float32": (2e-5, 2e-5)}
 # the timed shapes: granite's microbatch, and qwen3-14b's head_dim 128
 BWD_TIMED = {"granite-3-2b": (2, 4096, 32, 8, 64), "qwen3-14b": (2, 4096, 40, 8, 128)}
+# the same checks on the backward's earlier design (two mma.sync kernels,
+# dK/dV then dQ): at most 0.59 of an element's allowance (dq at granite's
+# microbatch) and a relative Frobenius error of 0.0025-0.0028, printed
+# beside this kernel's
+BWD_MMA_SYNC_ERRORS = (0.59, (0.0025, 0.0028))
+# the backward's wgmma kernels (bf16 at head_dim 64 and 128): their SASS
+# must hold warpgroup products (HGMMA) fed by TMA (UTMALDG)
+BWD_WGMMA_KERNELS = ("flash_bwd_sm90_bf16_kernel<64>", "flash_bwd_sm90_bf16_kernel<128>")
 # the reduced granite train slice, card against CPU: the CPU tests' bounds,
 # twice the reference's own spread (tests/test_torch_train.py): the loss and
 # the grad norm (relative) pooled over the steps; the step-1 gradients'
@@ -530,7 +538,8 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict
     zamba2's serving widths).  Raises unless every bf16 flash kernel and
     every SSD kernel runs on the tensor cores (HMMA or HGMMA) and every
     bf16 attention kernel and every SSD kernel copies asynchronously
-    (LDGSTS or UTMALDG)."""
+    (LDGSTS or UTMALDG), and unless the backward's wgmma kernels
+    (``BWD_WGMMA_KERNELS``) hold both HGMMA and UTMALDG."""
     cuobjdump = pathlib.Path(kbuild.nvcc()).parent / "cuobjdump"
     fl, dl, sl = flash_kernel.lib(), dec_kernel.lib(), ssd_kernel.lib()
     bwd = types.SimpleNamespace(SOURCE=flash_kernel.BWD_SOURCE)
@@ -562,6 +571,10 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict
             raise AssertionError(f"{name} has no tensor-core instruction")
         if (ssd or bf16) and not (row["LDGSTS"] or row["UTMALDG"]):
             raise AssertionError(f"{name} has no asynchronous copy")
+    for name in BWD_WGMMA_KERNELS:
+        row = out.get(name)
+        if row is None or not (row["HGMMA"] and row["UTMALDG"]):
+            raise AssertionError(f"{name}: no wgmma fed by TMA ({row})")
     if not any("_bf16_kernel" in n for n in out):
         raise AssertionError("no bf16 attention kernel found in the libraries")
     if not any(n.startswith("ssd") for n in out):
@@ -2826,10 +2839,13 @@ def bwd_check(fk, fr, q, k, v, do, causal, tag, card, plant=False) -> tuple[floa
             raise AssertionError(f"flash_attention_bwd {tag}: {name} disagrees with its "
                                  f"plain version: {e}")
         err = max(err, e["max_abs"])
+        ratio, (fro_lo, fro_hi) = BWD_MMA_SYNC_ERRORS
         print(f"kernel flash_attention_bwd {tag} {name}: max |err| {e['max_abs']:.6g}, "
               f"at most {e['ratio']:.4g} of its allowance ({BWD_TOL[dt]} x (|want| + "
               f"row RMS + {BWD_FLOOR} x RMS)), relative Frobenius {e['fro']:.4g} <= "
-              f"{BWD_FRO_TOL[dt]}, bitwise equal on a second call [{card}]", flush=True)
+              f"{BWD_FRO_TOL[dt]} (the mma.sync design's: at most {ratio} of the "
+              f"allowance, Frobenius {fro_lo}-{fro_hi}), bitwise equal on a second call "
+              f"[{card}]", flush=True)
         if plant and name != "dq":
             bad = g.clone()
             bad[:, bad.shape[1] // 2:] *= 1.5
@@ -2903,6 +2919,9 @@ def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag) -> dict:
                                           library_ms=lib_fwd, err=fwd_err, nbytes=f_bytes,
                                           flops=f_flops, shape=[b, s, s, h, kv, d])}
     bound_rows(rows, tag, card)
+    print(f"time flash_attention_bwd {tag}: its SDPA is the backward alone, "
+          f"torch.autograd.grad(..., retain_graph=True) through one retained "
+          f"scaled_dot_product_attention graph: {lib:.6g} ms [{card}]", flush=True)
     print(f"time flash_attention {tag}: forward with the lse {fwd_lse:.6g} ms, without "
           f"{fwd:.6g} ms [{card}]", flush=True)
     return rows

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Timing sweeps of the port's redesigned scan and placement-window
-kernels on one GPU.
+"""Timing sweeps of the port's redesigned scan, placement-window and
+flash-attention backward kernels on one GPU.
 
     python3 kernel_sweeps.py scan   [--parent DIR] [--other FILE ...]
     python3 kernel_sweeps.py window [--parent DIR] [--other FILE ...] [--unchecked]
+    python3 kernel_sweeps.py bwd    [--parent DIR] [--other FILE ...] [--unchecked]
 
 ``scan`` times the shipped ``kernels/selective_scan/csrc/selective_scan.cu``
 at falcon-mamba-7b's loss shape (b=4, L=4096, d=8192, n=16): the fused form
@@ -23,6 +24,15 @@ timed in turns with the shipped build (this, other, other, this).  It
 also builds ``chain_probe.cu`` (beside this script), which runs a step's
 unavoidable dependent chain alone for the same number of steps: the
 window's chain bound.
+
+``bwd`` times the shipped ``kernels/flash_attention/csrc/flash_attention_bwd.cu``
+at ``chip_smoke.BWD_TIMED``'s two shapes (granite-3-2b's and qwen3-14b's
+training microbatch, causal, bf16), beside SDPA's backward (autograd on a
+retained graph) and the bound (``chip_smoke.flash_bwd_bound``).  Every
+build (the shipped one, each ``--other FILE`` unless ``--unchecked``, and
+the parent's) is first held to the plain backward by
+``chip_smoke.grad_errors`` / ``grad_ok`` on one ragged causal case at each
+head_dim.  Each ``--other`` runs in turns with the shipped build.
 
 With ``--parent DIR`` (a checkout of another commit), each sweep also
 times that checkout's kernel on the same inputs, in turns with this one
@@ -59,11 +69,20 @@ WINDOW_REPLICAS = (100, 257, 400, 540, 600)
 WINDOW_LANES = (416, 1056)      # the chain probe's widths beside the main path's
 
 
-def staged(path) -> pathlib.Path:
-    """A copy of ``path`` under SWEEP_CSRC, so that its build lands there."""
-    SWEEP_CSRC.mkdir(parents=True, exist_ok=True)
-    dst = SWEEP_CSRC / pathlib.Path(path).name
+def staged(path, headers=None, slot=0) -> pathlib.Path:
+    """A copy of ``path`` under SWEEP_CSRC (in directory ``slot``, so that
+    versions of one file name do not meet), so that its build lands there,
+    with the headers (``*.cuh``) beside it, and those of ``headers`` (the
+    shipped source's directory) that it lacks."""
+    path = pathlib.Path(path)
+    csrc = SWEEP_CSRC / str(slot) / "csrc" if slot else SWEEP_CSRC
+    csrc.mkdir(parents=True, exist_ok=True)
+    dst = csrc / path.name
     shutil.copyfile(path, dst)
+    for d in (path.parent, headers):
+        for h in (pathlib.Path(d).glob("*.cuh") if d else ()):
+            if d == path.parent or not (csrc / h.name).exists():
+                shutil.copyfile(h, csrc / h.name)
     return dst
 
 
@@ -304,16 +323,125 @@ def window_sweep(card, parent, others, unchecked):
     return out
 
 
+def bwd_sweep(card, parent, others, unchecked):
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    dev = torch.device("cuda")
+    src = fk.BWD_SOURCE
+    jobs = [(src, kbuild.NVCC_FLAGS)]
+    jobs += [(staged(f, src.parent, i + 1), kbuild.NVCC_FLAGS) for i, f in enumerate(others)]
+    psrc = None
+    if parent:
+        psrc = pathlib.Path(parent) / "src/repro_torch/kernels/flash_attention/csrc" / src.name
+        jobs.append((psrc, kbuild.NVCC_FLAGS))
+    paths = build(jobs)
+    handles = {"this": loaded(paths[0], fk._bind_bwd)}
+    for f, path in zip(others, paths[1:]):
+        handles[f] = loaded(path, fk._bind_bwd)
+    ph = None
+    if psrc is not None:
+        ph = ctypes.CDLL(str(paths[-1]))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        ph.gf_flash_attention_bwd.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, P]
+        ph.gf_flash_attention_bwd.restype = I
+
+    def parent_bwd(q, k, v, o, lse, do):
+        """The parent's backward (its scratch: D, (b, h, sq) f32)."""
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dsum = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        rc = ph.gf_flash_attention_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dsum, dq, dk, dv)),
+            b, sq, sk, h, kvh, d, 1, d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+        kbuild.check(rc, "parent flash_attention_bwd")
+        return dq, dk, dv
+
+    def this_bwd(handle):
+        def call(q, k, v, o, lse, do):
+            route(src, handle)
+            return fk.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        return call
+
+    def inputs(seed, b, sq, sk, h, kv, d):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, do = (cs.randn(gen, (b, sq, h, d), "bfloat16", dev) for _ in range(2))
+        k, v = (cs.randn(gen, (b, sk, kv, d), "bfloat16", dev) for _ in range(2))
+        route(src, handles["this"])
+        o, lse = fk.flash_attention(q, k, v, causal=True, return_lse=True)
+        return q, k, v, o, lse, do
+
+    builds = {name: this_bwd(h) for name, h in handles.items()}
+    if ph is not None:
+        builds["parent"] = parent_bwd
+    out = {"checks": [], "shapes": {}}
+    for d in (64, 128):
+        case = (1, 1000, 1000, 8, 2, d)     # ragged: 1,000 is no multiple of a tile
+        q, k, v, o, lse, do = inputs(3, *case[:3], *case[3:])
+        want = fr.attention_plain_bwd(q, k, v, o, lse, do, causal=True)
+        for name, fn in builds.items():
+            if unchecked and name in others:
+                continue
+            got = fn(q, k, v, o, lse, do)
+            errs = {g: cs.grad_errors(x, y, "bfloat16")
+                    for g, x, y in zip(("dq", "dk", "dv"), got, want)}
+            ok = all(cs.grad_ok(e, "bfloat16") for e in errs.values())
+            out["checks"].append({"build": name, "shape": list(case), "ok": ok, "errors": errs})
+            print(f"bwd check {name} at b, s, h, kv, d = {case[0]}, {case[1]}, {case[3]}, "
+                  f"{case[4]}, {d} causal: " + "; ".join(
+                      f"{g} ratio {e['ratio']:.4g} fro {e['fro']:.4g}" for g, e in errs.items())
+                  + f" -> {'ok' if ok else 'REJECTED'} [{card}]", flush=True)
+            if not ok:
+                raise AssertionError(f"bwd sweep: build {name} disagrees with the plain backward")
+        del q, k, v, o, lse, do, want
+    route(src, handles["this"])
+    for tag, (b, s_, h, kv, d) in cs.BWD_TIMED.items():
+        q, k, v, o, lse, do = inputs(5, b, s_, s_, h, kv, d)
+        nbytes, flops = cs.flash_bwd_bound(b, s_, s_, h, kv, d, 2, True)
+        bound = max(nbytes / cs.HBM_BYTES_PER_S, flops / cs.BF16_FLOPS) * 1e3
+        row = {"shape": [b, s_, s_, h, kv, d], "bound_ms": bound, "turns": []}
+        order = []
+        if ph is not None:
+            order += [("parent", "this", "this", "parent")]
+        order += [("this", f, f, "this") for f in others]
+        if not order:
+            order = [("this",)]
+        for turn in order:
+            for name in turn:
+                fn = builds[name]
+                ms = cs.cuda_ms(lambda: fn(q, k, v, o, lse, do), reps=10)
+                row["turns"].append((name, ms))
+        route(src, handles["this"])
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        res = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        row["sdpa_bwd_ms"] = cs.cuda_ms(
+            lambda: torch.autograd.grad(res, (qt, kt, vt), dot, retain_graph=True), reps=10)
+        print(f"bwd {tag} (b={b}, s={s_}, {h}/{kv} heads of {d}, causal): " + ", ".join(
+            f"{n} {t:.6g} ms" for n, t in row["turns"]) + f"; SDPA's backward (autograd "
+              f"through scaled_dot_product_attention on a retained graph) "
+              f"{row['sdpa_bwd_ms']:.6g} ms; bound {bound:.6g} ms [{card}]", flush=True)
+        out["shapes"][tag] = row
+        del q, k, v, o, lse, do, qt, kt, vt, dot, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("which", choices=("scan", "window"))
+    ap.add_argument("which", choices=("scan", "window", "bwd"))
     ap.add_argument("--parent", help="a checkout of another commit to time in turns")
     ap.add_argument("--other", action="append", default=[],
                     help="another version of the kernel's source with its C interface")
     ap.add_argument("--unchecked", action="store_true",
-                    help="window: time the --other builds without holding their "
-                         "outputs to the shipped build's")
+                    help="window, bwd: time the --other builds without holding their "
+                         "outputs to the shipped build's (the plain version's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_sweeps: no CUDA device", file=sys.stderr)
@@ -321,8 +449,12 @@ def main() -> int:
     import chip_smoke as cs
     card = cs.card_line()
     print(f"card: {card}", flush=True)
-    res = (scan_sweep(card, args.parent, args.other) if args.which == "scan"
-           else window_sweep(card, args.parent, args.other, args.unchecked))
+    if args.which == "scan":
+        res = scan_sweep(card, args.parent, args.other)
+    elif args.which == "window":
+        res = window_sweep(card, args.parent, args.other, args.unchecked)
+    else:
+        res = bwd_sweep(card, args.parent, args.other, args.unchecked)
     res["card"] = card
     print(json.dumps(res), flush=True)
     return 0

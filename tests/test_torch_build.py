@@ -272,10 +272,12 @@ def test_attention_bound_counts_the_call(b, sq, live, h, kv, d, causal):
     assert nbytes == want + (4 * b if sq == 1 else 0)
 
 
-def _bwd_bf16_operands(q, k, v, o, lse, do, causal):
+def _bwd_bf16_operands(q, k, v, o, lse, do, causal, key_tile=128):
     """The plain backward with the backward kernel's bf16 arithmetic: P and
-    dS rounded to bf16 as the operands of their products, f32 sums, the
-    gradients returned in bf16."""
+    dS rounded to bf16 as the operands of their products, f32 sums, dQ the
+    ascending sum of one f32 partial a ``key_tile`` of keys (each tile's
+    bf16 dS times its K, added into the accumulator in key-tile order),
+    the gradients returned in bf16."""
     import torch
     from repro_torch.kernels.flash_attention import ref
     b, sq, h, d = q.shape
@@ -290,7 +292,11 @@ def _bwd_bf16_operands(q, k, v, o, lse, do, causal):
     dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
     ds = (p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - dsum[..., None]))
     ds = ds.bfloat16().float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, sk, key_tile):
+        acc += torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + key_tile],
+                            kf[:, k0:k0 + key_tile])
+    dq = acc * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
 
     def group_sum(t):
@@ -299,7 +305,7 @@ def _bwd_bf16_operands(q, k, v, o, lse, do, causal):
     return dq.bfloat16(), group_sum(dk).bfloat16(), group_sum(dv).bfloat16()
 
 
-def _bwd_case(b, sq, sk, h, kv, d, causal, seed):
+def _bwd_case(b, sq, sk, h, kv, d, causal, seed, key_tile=128):
     import torch
     from repro_torch.kernels.flash_attention import ref
     gen = torch.Generator().manual_seed(seed)
@@ -307,7 +313,7 @@ def _bwd_case(b, sq, sk, h, kv, d, causal, seed):
     k, v = (torch.randn(b, sk, kv, d, generator=gen).bfloat16() for _ in range(2))
     o, lse = ref.attention_plain_lse(q, k, v, causal=causal)
     want = ref.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
-    return want, _bwd_bf16_operands(q, k, v, o, lse, do, causal)
+    return want, _bwd_bf16_operands(q, k, v, o, lse, do, causal, key_tile)
 
 
 # (b, sq, sk, h, kv, d, causal): a long causal row at granite's head_dim,
@@ -317,13 +323,16 @@ _GRAD_CASES = [(1, 2048, 2048, 4, 1, 64, True), (2, 200, 200, 8, 2, 64, True),
                (2, 1, 300, 8, 2, 64, True)]
 
 
+@pytest.mark.parametrize("key_tile", [64, 128])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", _GRAD_CASES)
-def test_gradient_check_accepts_the_kernels_bf16_rounding(b, sq, sk, h, kv, d, causal):
+def test_gradient_check_accepts_the_kernels_bf16_rounding(b, sq, sk, h, kv, d, causal,
+                                                          key_tile):
     """The smoke's gradient rule passes the backward computed with the
-    kernel's bf16 operands, with room: every element within half its
-    allowance, the relative Frobenius error within a third of its bound."""
+    kernel's bf16 operands and its dQ summed a key tile at a time, with
+    room: every element within half its allowance, the relative Frobenius
+    error within a third of its bound."""
     cs = _chip_smoke()
-    want, got = _bwd_case(b, sq, sk, h, kv, d, causal, seed=sq + sk)
+    want, got = _bwd_case(b, sq, sk, h, kv, d, causal, seed=sq + sk, key_tile=key_tile)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         e = cs.grad_errors(g, w, "bfloat16")
         assert cs.grad_ok(e, "bfloat16"), (name, e)
@@ -346,3 +355,88 @@ def test_gradient_check_rejects_later_keys_planted_wrong(name, factor):
     assert late < top / 2, (late, top)
     e = cs.grad_errors(g, w, "bfloat16")
     assert not cs.grad_ok(e, "bfloat16") and e["past"] > 0, e
+
+
+# the backward's plan: (b, sq, sk, h, kv, d, causal) at granite's and
+# qwen3's microbatches, ragged, sq < sk, non-causal with sq > sk, one row
+_PLAN_CASES = [(2, 4096, 4096, 32, 8, 64, True), (2, 4096, 4096, 40, 8, 128, True),
+               (1, 100, 229, 10, 2, 128, True), (2, 257, 257, 5, 1, 128, False),
+               (2, 1, 300, 8, 2, 64, True), (1, 300, 200, 4, 2, 64, False),
+               (2, 1024, 1024, 8, 2, 64, True)]
+
+
+@pytest.mark.parametrize("d,dtype,route", [
+    (16, "bfloat16", "mma_sync"), (64, "bfloat16", "wgmma"), (80, "bfloat16", "mma_sync"),
+    (128, "bfloat16", "wgmma"), (16, "float32", "f32"), (64, "float32", "f32"),
+    (80, "float32", "f32"), (128, "float32", "f32")])
+def test_bwd_plan_routes_by_head_dim_and_dtype(d, dtype, route):
+    """bf16 at head_dim 64 and 128 (the trainer's) takes the wgmma kernel
+    and its scratch; 16 and 80 keep the mma.sync kernels and f32 the
+    CUDA-core ones, with D alone as scratch."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    plan = fk.bwd_plan(2, 100, 229, 8, 2, d, getattr(torch, dtype), causal=True)
+    assert plan.route == route
+    if route != "wgmma":
+        assert plan.workspace_bytes == 4 * 2 * 8 * 100 and plan.acc_shape == ()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", _PLAN_CASES)
+def test_bwd_plan_scratch_holds_the_dq_accumulator_and_counters(b, sq, sk, h, kv, d, causal):
+    """On the wgmma route: 128 keys a work item, 128 queries a step at
+    head_dim 64 and 64 at 128; the scratch holds the padded lse and D rows,
+    the f32 dQ accumulator (b, h, query tile, its rows, d), one counter a
+    (batch, head, query tile) and the work counter, in that order, each
+    part 16-byte aligned."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    plan = fk.bwd_plan(b, sq, sk, h, kv, d, torch.bfloat16, causal)
+    bq = 128 if d == 64 else 64
+    assert (plan.route, plan.bq, plan.bk) == ("wgmma", bq, 128)
+    n_qt = -(-sq // bq)
+    assert (plan.n_qt, plan.n_kt, plan.sq_pad) == (n_qt, -(-sk // 128), n_qt * bq)
+    assert plan.acc_shape == (b, h, n_qt, bq, d) and plan.cnt_shape == (b, h, n_qt)
+    off = plan.offsets
+    assert off["dsum"] - off["lse2"] == off["acc"] - off["dsum"] == b * h * n_qt * bq
+    assert off["cnt"] - off["acc"] == int(np.prod(plan.acc_shape))
+    assert off["work"] - off["cnt"] == int(np.prod(plan.cnt_shape))
+    assert plan.workspace_bytes == 4 * (off["work"] + 1)
+    assert all(off[k] % 4 == 0 for k in ("lse2", "dsum", "acc", "cnt"))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", _PLAN_CASES)
+def test_bwd_plan_hands_out_every_dq_predecessor_first(b, sq, sk, h, kv, d, causal):
+    """The persistent grid's order: every item once, ascending key tile
+    (under the mask, heaviest first), so that key tile j - 1 of the same kv
+    head and batch, whose dQ adds key tile j waits for, comes earlier; each
+    item walks exactly the (query tile, head) steps the mask leaves it, from
+    the last query tile down with the heads inside, and tile j + 1's walk is
+    a prefix of tile j's, so each (batch, head, query tile) is added to by
+    key tiles 0, 1, .. in turn."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    plan = fk.bwd_plan(b, sq, sk, h, kv, d, torch.bfloat16, causal)
+    items = plan.items()
+    index = {it: n for n, it in enumerate(items)}
+    assert len(index) == len(items) == plan.n_kt * kv * b
+    grp = h // kv
+    weights = [len(plan.steps(j, kvi)) for j, kvi, _ in items]
+    assert weights == sorted(weights, reverse=True)
+    adders = {}
+    for j, kvi, bi in items:
+        if j:
+            assert index[(j - 1, kvi, bi)] < index[(j, kvi, bi)]
+        steps = plan.steps(j, kvi)
+        # the mask's own count: query tile t sees key tile j when its last
+        # row sees the tile's first key
+        want = [(t, kvi * grp + g) for t in range(plan.n_qt - 1, -1, -1) for g in range(grp)
+                if not causal or j * 128 <= min((t + 1) * plan.bq, sq) - 1 + sk - sq]
+        assert steps == want
+        if j:
+            prev = plan.steps(j - 1, kvi)
+            assert prev[:len(steps)] == steps
+        for t, hi in steps:
+            adders.setdefault((bi, hi, t), []).append(j)
+    for js in adders.values():
+        assert js == list(range(len(js)))
+    assert len(adders) == b * h * plan.n_qt

@@ -1073,7 +1073,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, sq, sk, h, kv,
     """dq, dk and dv of the backward kernel against the plain backward on
     the same inputs (the kernel forward's o and lse), each element within
     its tolerance (``_assert_grad_close``); one count a call, and bitwise
-    the same on a second call (no atomics)."""
+    the same on a second call (dQ summed in a fixed order)."""
     q, k, v, do = _bwd_inputs(cuda_device, b, sq, sk, h, kv, d, dtype)
     o, lse = flash_kernel.flash_attention(q, k, v, causal=causal, return_lse=True)
     before = flash_kernel.LAUNCHES["flash_attention_bwd"]
@@ -1086,6 +1086,27 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, sq, sk, h, kv,
         assert g.dtype == dtype and g.shape == w.shape, name
         assert torch.equal(g, g2), name
         _assert_grad_close(name, g, w, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kv,d,causal", [
+    (2, 1024, 8, 2, 64, True), (2, 1024, 8, 2, 64, False), (1, 640, 8, 8, 128, True)])
+def test_flash_attention_bwd_is_bitwise_the_same_call_after_call(cuda_device, b, s, h, kv,
+                                                                d, causal):
+    """On the wgmma route, where many key tiles add into each query tile's
+    dQ (8 key tiles of 128 at 1,024, 5 at 640) on a persistent grid that
+    hands them to whichever SM is free: three calls give the same bits, as
+    the counters fix the order of the adds; and the gradients hold."""
+    q, k, v, do = _bwd_inputs(cuda_device, b, s, s, h, kv, d, torch.bfloat16)
+    o, lse = flash_kernel.flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert flash_kernel.bwd_plan(b, s, s, h, kv, d, q.dtype, causal).route == "wgmma"
+    calls = [flash_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+             for _ in range(3)]
+    want = flash_ref.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for i, name in enumerate(("dq", "dk", "dv")):
+        assert torch.equal(calls[0][i], calls[1][i]) and torch.equal(calls[0][i], calls[2][i])
+        _assert_grad_close(name, calls[0][i], want[i], torch.bfloat16)
 
 
 @pytest.mark.gpu
