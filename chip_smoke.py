@@ -231,8 +231,10 @@ at full width, through flash attention's backward kernel:
 26. Flash attention's forward with its log-sum-exp and its backward
     kernel against their plain versions (``attention_plain_lse``,
     ``attention_plain_bwd``) on ``BWD_CASES``: head dims 16, 64, 80 and
-    128, GQA groups 1, 4 and 5, causal with sq = sk and sq < sk and not,
-    ragged lengths, one query row, bf16 and f32; o within 2e-2 (f32
+    128, GQA groups 1, 4, 5 and 6, causal with sq = sk and sq < sk and
+    not (sq = sk and sq != sk: whisper-tiny's encoder and cross-attention
+    with their ragged last key tile), ragged lengths, one query row, bf16
+    and f32; o within 2e-2 (f32
     2e-5), the lse within 1e-4 (bf16 route; f32 2e-5), each gradient
     element within 2e-2 (f32 2e-5) of |want| plus its row's RMS plus a
     tenth of the gradient's RMS, the relative Frobenius error within 1e-2
@@ -244,7 +246,11 @@ at full width, through flash attention's backward kernel:
     lse, the backward beside the plain backward, SDPA's backward
     (``torch.autograd.grad`` through ``scaled_dot_product_attention(...,
     is_causal=True, enable_gqa=True)`` on a retained graph) and the bound
-    (2.5 times the forward's products).
+    (2.5 times the forward's products); and so at the new trainers' shapes
+    (``BWD_TIMED_FAMILIES``): whisper-tiny's encoder (32 x 1,500 frames, 6
+    heads of 64, non-causal) and cross-attention (32 x 448 queries against
+    1,500 frames) and internvl2-26b's microbatch (2 x 4,096, 48 heads over
+    8 of 128, causal), each with its planted dk/dv rejected.
 27. The reduced granite train slice on the card against the CPU: 4 steps
     of ``build_train_step`` from one float32 state on b=4 x 128 tokens
     (numpy seed 0), the step-1 gradients, every step's loss and grad norm
@@ -265,6 +271,53 @@ at full width, through flash attention's backward kernel:
     final state (every parameter's bits) equal the uninterrupted run's.
 29. The reduced granite trainer on the card for 30 steps (b=8 x 64, lr
     5e-3): the loss falls by more than 0.3, the twin of the CPU test.
+
+The MoE, VLM and enc-dec trainers (the sixteenth slice): whisper-tiny
+trained at full width and depth, moonshot-v1-16b-a3b and internvl2-26b at
+full width with 2 of their 48 layers, through the same two kernels:
+
+30. The reduced moonshot, internvl2 and whisper train slices on the card
+    against the CPU: 3 steps of ``build_train_step`` from one float32
+    state on b=4 x 128 tokens with the frontend inputs drawn after them
+    (numpy seed 0); the step-1 gradients, every step's loss and grad
+    norm and the state after the steps within the CPU tests' bounds
+    (``FAMILY_SLICE_TOL``: twice the reference's own spread,
+    ``tests/test_torch_train_families.py``; whisper's state after the
+    card's last step from the CPU's state before it); 2 flash launches and
+    one backward call an attention a step (whisper: one an encoder layer,
+    two a decoder layer).  Then whisper-tiny at full width, one train
+    step at b=2 x 448 with 1,500 frames on the card and the CPU: every
+    backward on the wgmma route, the loss and grad norm within
+    ``WHISPER_FULL_TOL``, 24 flash launches and 12 backward calls.  And
+    the same shape's loss gradient in float32 on the card through the
+    flash kernels (their f32 route) and through the plain attention: each
+    group of leaves (the encoder's attention, the decoder's self
+    attention, its cross attention's q/o and k/v projections, the rest)
+    within the CPU's own float32-against-float64 spread at that group,
+    measured in the same run.
+31. Main path: ``train("whisper-tiny", reduced=False, steps=20,
+    batch=256, seq=448, microbatches=8, lr=1e-3, seed=0)``, the frames
+    drawn for each step by ``frontend_inputs``: 192 flash launches and 96
+    backward calls a step (12 attentions x 8 microbatches, each forward
+    twice under remat), no other kernel, the backward's calls by shape;
+    every loss and grad norm finite, the loss lower at the last step than
+    at the first, the peak under 80 GB; each step's loss, ce, grad norm,
+    seconds and tokens/s; a trace of one more step with its flash
+    launches.  Then the run stopped at step 10 with a checkpoint and
+    resumed: the resumed steps and the final state's bits equal the
+    uninterrupted run's.
+32. ``train(arch, reduced=False, model_dims={"n_layers": 2}, steps=3,
+    batch=8, seq=4096, microbatches=4)`` for moonshot-v1-16b-a3b and
+    internvl2-26b (internvl2's 256 vision embeddings drawn for each step):
+    16 flash launches and 8 backward calls a step, every loss and grad
+    norm finite, the peak under 80 GB, step seconds and tokens/s; a trace
+    of one more step, in which moonshot's MoE parts (router, dispatch
+    loop, expert products, combine) are ``record_function`` ranges in the
+    forward and, as ``<part>.backward``, in the backward.  Then, on one
+    microbatch of the trained moonshot state, each MoE layer's recomputed
+    top-k experts under remat equal its forward's bitwise.
+
+Phases 28, 31 and 32 are one function, ``full_width_training``.
 
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
@@ -408,13 +461,19 @@ MD_MSE_TOL = 1e-5
 # width and depth at the reference's train_4k length: a global batch of 8 in 4
 # microbatches of 2, 4 steps; stopped at step 2 with a checkpoint and resumed
 TRAIN_ARCH = "granite-3-2b"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_STOP = 8, 4096, 4, 4, 2
+TRAIN = dict(batch=8, seq=4096, microbatches=4, steps=4)
+TRAIN_STOP = 2
 TRAIN_PEAK_LIMIT = 80e9     # bytes: the state and activations fit one card
 # the checkpoints of the resumed run (gitignored; removed after the phase)
 TRAIN_CKPT = ROOT / "_train_ckpt"
 # (b, sq, sk, h, kv, d, causal, dtype name): head dims 16, 64, 80 and 128,
-# GQA groups 1, 4 and 5, causal sq = sk and sq < sk, non-causal, ragged
-# lengths, one query row; the f32 route
+# GQA groups 1, 4, 5 and 6, causal sq = sk and sq < sk, non-causal with sq
+# = sk and sq != sk, ragged lengths, one query row; the f32 route.  The
+# MoE, VLM and enc-dec trainers' shapes on the wgmma route: whisper-tiny's
+# encoder (1,500 frames: 11 key tiles of 128, then 92), cross-attention
+# (448 queries: 3 tiles of 128, then 64; against the 1,500 frames) and
+# causal decoder, 6 heads of 64 (group 1), and internvl2's 48 heads over 8
+# (group 6) at 1,000 (15 tiles of 64, then 40)
 BWD_CASES = [
     (2, 128, 128, 4, 4, 16, True, "bfloat16"),
     (2, 200, 200, 8, 2, 64, True, "bfloat16"),
@@ -422,6 +481,10 @@ BWD_CASES = [
     (2, 257, 257, 5, 1, 128, False, "bfloat16"),
     (1, 130, 333, 4, 1, 80, True, "bfloat16"),
     (2, 1, 300, 8, 2, 64, True, "bfloat16"),
+    (1, 1500, 1500, 6, 6, 64, False, "bfloat16"),
+    (2, 448, 1500, 6, 6, 64, False, "bfloat16"),
+    (2, 448, 448, 6, 6, 64, True, "bfloat16"),
+    (1, 1000, 1000, 48, 8, 128, True, "bfloat16"),
     (1, 65, 65, 4, 4, 16, True, "float32"),
     (2, 100, 229, 8, 2, 64, True, "float32"),
     (1, 90, 90, 10, 2, 128, False, "float32"),
@@ -455,6 +518,49 @@ BWD_WGMMA_KERNELS = ("flash_bwd_sm90_bf16_kernel<64>", "flash_bwd_sm90_bf16_kern
 # relative Frobenius norm and largest error; the state's largest errors
 TRAIN_SLICE_TOL = {"loss": 3.46e-3, "grad_norm": 0.12, "grads_rel": 0.0914,
                    "grads_max": 0.021, "params": 0.0106, "m": 8.6e-3, "v": 8.8e-4}
+
+# the MoE, VLM and enc-dec trainers (the sixteenth slice).  The backward
+# timed at their shapes, (b, sq, sk, h, kv, d, causal): whisper-tiny's
+# encoder and cross-attention at its training microbatch (32 sequences of
+# 448 tokens against 1,500 frames, 6 heads of 64), non-causal, and
+# internvl2-26b's microbatch (2 x 4,096, 48 heads over 8 of 128), causal
+BWD_TIMED_FAMILIES = {"whisper-tiny encoder": (32, 1500, 1500, 6, 6, 64, False),
+                      "whisper-tiny cross": (32, 448, 1500, 6, 6, 64, False),
+                      "internvl2-26b": (2, 4096, 4096, 48, 8, 128, True)}
+# the reduced train slices, card against CPU (3 steps at b=4 x 128, the
+# frontend inputs drawn after the tokens): twice the reference's own
+# spread in the CPU tests (tests/test_torch_train_families.py): the loss
+# and the grad norm (relative) pooled over the four configs' steps, the
+# step-1 gradients and the state per config.  whisper's state is held after
+# the card's last step from the CPU's state before it (its free-running
+# states separate: the config is chaotic in bf16)
+FAMILY_SLICE_TOL = {
+    "moonshot-v1-16b-a3b": {"loss": 0.0216, "grad_norm": 0.331, "grads_rel": 0.181,
+                            "grads_max": 0.0911, "params": 9.11e-3, "m": 0.0368,
+                            "v": 1.34e-3},
+    "internvl2-26b": {"loss": 0.0216, "grad_norm": 0.331, "grads_rel": 0.0961,
+                      "grads_max": 0.0227, "params": 9.20e-3, "m": 0.0127, "v": 1.85e-3},
+    "whisper-tiny": {"loss": 0.0216, "grad_norm": 0.331, "grads_rel": 0.988,
+                     "grads_max": 0.444, "params": 9.71e-3, "m": 0.0352, "v": 1.56e-3},
+}
+# whisper-tiny at full width, card against CPU, one train step at b=2 x 448
+# with 1,500 frames: twice the reference's own spread at that shape
+# (``tests/_torch_train_families_ref.py ... whisper-full``: the loss 2.58e-3,
+# the grad norm 5.39%; its two runs' gradients differ by 127% relative
+# Frobenius, so their elements are not compared)
+WHISPER_FULL_TOL = {"loss": 5.16e-3, "grad_norm": 0.108}
+# whisper-tiny trained at full width and depth: 256 sequences (the batch
+# the Whisper paper trained with, arXiv:2212.04356) of 448 tokens (its
+# decoder's context, not train_4k's 4,096) with 1,500 frames each, in 8
+# microbatches of 32, 20 steps at lr 1e-3, seed 0; stopped at step 10 with
+# a checkpoint and resumed
+WHISPER_TRAIN = dict(batch=256, seq=448, microbatches=8, steps=20, lr=1e-3)
+WHISPER_STOP = 10
+# moonshot-v1-16b-a3b and internvl2-26b at full width with 2 of their 48
+# layers: b=8 x 4,096 in 4 microbatches, 3 steps
+WIDE_ARCHS = ("moonshot-v1-16b-a3b", "internvl2-26b")
+WIDE_TRAIN = dict(batch=8, seq=4096, microbatches=4, steps=3)
+WIDE_LAYERS = 2
 
 
 def card_line() -> str:
@@ -2875,49 +2981,54 @@ def flash_bwd_checks(dev, card, fk, fr) -> tuple[float, float]:
     return fwd_err, err
 
 
-def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag) -> dict:
-    """Phase 26b: at (b, s, h, kv, d), causal, bf16: the checks of
-    ``bwd_check``, then CUDA-event times of the forward with and without
-    the lse and of the backward, beside the plain versions (one call each)
-    and SDPA (its forward; its backward by ``torch.autograd.grad`` on a
-    retained graph); the bounds of both."""
+def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag, sk=None, causal=True) -> dict:
+    """Phase 26b: at (b, s, h, kv, d) against ``sk`` keys (default s),
+    bf16: the checks of ``bwd_check``, then CUDA-event times of the
+    forward with and without the lse and of the backward, beside the plain
+    versions (one call each) and SDPA (its forward; its backward by
+    ``torch.autograd.grad`` on a retained graph); the bounds of both."""
     import torch
     import torch.nn.functional as F
+    sk = sk or s
     gen = torch.Generator(device=dev).manual_seed(5)
     q, do = (randn(gen, (b, s, h, d), "bfloat16", dev) for _ in range(2))
-    k, v = (randn(gen, (b, s, kv, d), "bfloat16", dev) for _ in range(2))
-    fwd_err, err = bwd_check(fk, fr, q, k, v, do, True, f"{tag} b={b} s={s} bf16", card,
-                             plant=True)
-    o, lse = fk.flash_attention(q, k, v, causal=True, return_lse=True)
+    k, v = (randn(gen, (b, sk, kv, d), "bfloat16", dev) for _ in range(2))
+    shape_tag = f"b={b} s={s}" if sk == s else f"b={b} sq={s} sk={sk}"
+    fwd_err, err = bwd_check(fk, fr, q, k, v, do, causal,
+                             f"{tag} {shape_tag} {'' if causal else 'non-causal '}bf16",
+                             card, plant=True)
+    o, lse = fk.flash_attention(q, k, v, causal=causal, return_lse=True)
     plain = {}
     plain_fwd = event_ms(lambda: plain.setdefault(
-        "f", fr.attention_plain_lse(q, k, v, causal=True)))
+        "f", fr.attention_plain_lse(q, k, v, causal=causal)))
     plain.clear()
     plain_bwd = event_ms(lambda: plain.setdefault(
-        "b", fr.attention_plain_bwd(q, k, v, o, lse, do, causal=True)))
+        "b", fr.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)))
     plain.clear()
     torch.cuda.empty_cache()
-    fwd_lse = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=True, return_lse=True),
+    fwd_lse = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=causal, return_lse=True),
                       reps=10)
-    fwd = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=True), reps=10)
-    ms = cuda_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, causal=True), reps=10)
+    fwd = cuda_ms(lambda: fk.flash_attention(q, k, v, causal=causal), reps=10)
+    ms = cuda_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), reps=10)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt.detach(), kt.detach(), vt.detach(), is_causal=True, enable_gqa=True), reps=10)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt.detach(), kt.detach(), vt.detach(), is_causal=causal, enable_gqa=True), reps=10)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
                   reps=10)
-    nbytes, flops = flash_bwd_bound(b, s, s, h, kv, d, 2, True)
-    f_bytes, f_flops = attention_bound(b, s, s, h, kv, d, 2, True)
+    nbytes, flops = flash_bwd_bound(b, s, sk, h, kv, d, 2, causal)
+    f_bytes, f_flops = attention_bound(b, s, sk, h, kv, d, 2, causal)
     f_bytes += 4 * b * h * s     # the lse written
     del q, k, v, do, o, lse, qt, kt, vt, dot, out
     torch.cuda.empty_cache()
     rows = {"flash_attention_bwd": dict(ms=ms, plain_ms=plain_bwd, library_ms=lib, err=err,
-                                        nbytes=nbytes, flops=flops, shape=[b, s, s, h, kv, d]),
+                                        nbytes=nbytes, flops=flops,
+                                        shape=[b, s, sk, h, kv, d], causal=causal),
             "flash_attention (lse)": dict(ms=fwd_lse, ms_without_lse=fwd, plain_ms=plain_fwd,
                                           library_ms=lib_fwd, err=fwd_err, nbytes=f_bytes,
-                                          flops=f_flops, shape=[b, s, s, h, kv, d])}
+                                          flops=f_flops, shape=[b, s, sk, h, kv, d],
+                                          causal=causal)}
     bound_rows(rows, tag, card)
     print(f"time flash_attention_bwd {tag}: its SDPA is the backward alone, "
           f"torch.autograd.grad(..., retain_graph=True) through one retained "
@@ -2942,90 +3053,47 @@ def train_slice_check(dev, card, get_api, flash_counts) -> dict:
     one float32 state: the step-1 gradients, 4 steps' losses and grad
     norms, and the state after them, within ``TRAIN_SLICE_TOL``; on the
     card 2 flash launches a layer and one backward call a layer a step."""
-    import numpy as np
-    import torch
-    from repro_torch.distributed.steps import build_train_step
-    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    api = get_api(TRAIN_ARCH, reduced=True)
-    n_steps, L = 4, api.cfg.n_layers
-    toks = np.random.default_rng(0).integers(0, api.cfg.vocab, (n_steps, 4, 129))
-    runs = {}
-    for run, where in (("cpu", "cpu"), ("card", dev)):
-        params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
-        state = {"params": params, "opt": init_opt_state(params)}
-        data = [{"tokens": torch.from_numpy(t[:, :-1]).to(where),
-                 "labels": torch.from_numpy(t[:, 1:]).to(where)} for t in toks]
-        loss, _ = api.loss(params, data[0], remat=True)
-        loss.backward()
-        grads = {n: p.grad.cpu() for n, p in params.named_parameters()}
-        for p in params.parameters():
-            p.grad = None
-        step = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))
-        metrics = []
-        for b in data:
-            before = dict(flash_counts)
-            state, m = step(state, b)
-            metrics.append({k: float(v) for k, v in m.items()})
-            if run == "card":
-                got = (flash_counts["flash_attention"] - before["flash_attention"],
-                       flash_counts["flash_attention_bwd"] - before["flash_attention_bwd"])
-                if got != (2 * L, L):
-                    raise AssertionError(f"a reduced train step launched {got} flash "
-                                         f"forward / backward, expected {(2 * L, L)}")
-        runs[run] = {
-            "grads": grads, "metrics": metrics,
-            "params": {n: p.detach().cpu() for n, p in state["params"].named_parameters()},
-            "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
-            "v": {n: t.cpu() for n, t in state["opt"]["v"].items()}}
-    cpu, card_run = runs["cpu"], runs["card"]
-
-    def largest(what):
-        return max(float((card_run[what][n] - cpu[what][n]).abs().max()) for n in cpu[what])
-
-    num = sum(float(((card_run["grads"][n] - cpu["grads"][n]) ** 2).sum()) for n in cpu["grads"])
-    den = sum(float((cpu["grads"][n] ** 2).sum()) for n in cpu["grads"])
-    errs = {
-        "loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(card_run["metrics"],
-                                                               cpu["metrics"])),
-        "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
-                         for a, b in zip(card_run["metrics"], cpu["metrics"])),
-        "grads_rel": (num / den) ** 0.5, "grads_max": largest("grads"),
-        "params": largest("params"), "m": largest("m"), "v": largest("v")}
-    finite = all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in card_run["metrics"])
-    bad = {k: (e, TRAIN_SLICE_TOL[k]) for k, e in errs.items() if not e <= TRAIN_SLICE_TOL[k]}
-    if bad or not finite:
-        raise AssertionError(f"reduced {TRAIN_ARCH} training on the card differs from the "
-                             f"CPU: {bad} (finite {finite})")
-    print(f"slice reduced {TRAIN_ARCH} train b=4 x 128, {n_steps} steps: card vs CPU "
-          + ", ".join(f"{k} {e:.6g} (bound {TRAIN_SLICE_TOL[k]})" for k, e in errs.items())
-          + f"; losses card {[round(m['loss'], 6) for m in card_run['metrics']]} [{card}]",
-          flush=True)
-    return {"errors": errs, "card_losses": [m["loss"] for m in card_run["metrics"]],
-            "cpu_losses": [m["loss"] for m in cpu["metrics"]]}
+    return train_slice_compare(dev, card, get_api(TRAIN_ARCH, reduced=True),
+                               TRAIN_SLICE_TOL, flash_counts, 4, TRAIN_ARCH)
 
 
 class Preempted(Exception):
     """Raised by a training run's ``on_step`` hook to stop it (phase 28)."""
 
 
-def granite_training(dev, card, p_train, steps_mod, adamw, flash_counts, others,
-                     zero_counts) -> dict:
-    """Phase 28: granite-3-2b trained at full width (see the module
-    docstring); returns the run's numbers."""
+def full_width_training(dev, card, p_train, steps_mod, adamw, fk, others, zero_counts,
+                        arch, train_kw, stop=None, model_dims=None, ranges_fn=None,
+                        loss_falls=False, check=None) -> dict:
+    """``arch`` trained at full width (``train_kw``: batch, seq,
+    microbatches, steps and an lr; ``model_dims`` cuts the depth): on the
+    card 2 flash launches and one backward call an attention a microbatch
+    (remat's recompute), no other kernel, finite metrics (with
+    ``loss_falls``, the last loss under the first), the peak under
+    ``TRAIN_PEAK_LIMIT``; then one more step, traced (``ranges_fn()``
+    gives its ranges and their undo), after which ``check(api, params,
+    batch)`` runs; then, with ``stop``, the run stopped after step ``stop``
+    with its checkpoint and resumed, bitwise equal to the uninterrupted
+    run.  The backward's calls are counted by shape."""
+    import dataclasses
     import gc
     import shutil
 
     import numpy as np
     import torch
     from repro_torch.data.pipeline import SyntheticTokens
-    from repro_torch.models.registry import get_api
-    kw = dict(arch=TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-              seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, seed=0, log_every=1, device=None)
-    api = get_api(TRAIN_ARCH)
-    n_layers = api.cfg.n_layers
-    # the forward twice a layer (remat's recompute), the backward once, in
-    # each microbatch: (320, 160) a step
-    want = (2 * n_layers * TRAIN_MICRO, n_layers * TRAIN_MICRO)
+    from repro_torch.models.registry import build_api, get_api
+    api = get_api(arch)
+    full_layers = api.cfg.n_layers
+    if model_dims:
+        api = build_api(dataclasses.replace(api.cfg, **model_dims))
+    kw = dict(arch=arch, reduced=False, model_dims=model_dims, seed=0, log_every=1,
+              device=None, **train_kw)
+    micro, n_steps = train_kw["microbatches"], train_kw["steps"]
+    n_att = n_attentions(api.cfg)
+    want = (2 * n_att * micro, n_att * micro)
+    flash_counts = fk.LAUNCHES
+    label = arch + (f" ({api.cfg.n_layers} of {full_layers} layers)" if model_dims else "")
+    frames = f" with {api.cfg.enc_len} frames" if api.cfg.family == "encdec" else ""
     per_step = []
 
     def count_step(i, loss, dt):
@@ -3033,64 +3101,90 @@ def granite_training(dev, card, p_train, steps_mod, adamw, flash_counts, others,
 
     gc.collect()
     torch.cuda.empty_cache()
-    zero_counts()
-    t0 = time.perf_counter()
-    state, losses, run = p_train.train(on_step=count_step, **kw)
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_counts["flash_attention"],
-                "flash_attention_bwd": flash_counts["flash_attention_bwd"]}
+    shapes = {}
+    undo = count_bwd_shapes(fk, shapes)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        state, losses, run = p_train.train(on_step=count_step, **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = dict(flash_counts)
     steps, peak = run["steps"], run["peak_mem_bytes"]
     deltas = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(per_step, [(0, 0)] + per_step)]
     if any(d != want for d in deltas) or any(v for c in others for v in c.values()):
-        raise AssertionError(f"training launched {deltas} flash forward / backward a "
-                             f"step (expected {want}), others "
-                             f"{[dict(c) for c in others]}")
+        raise AssertionError(f"{label} training launched {deltas} flash forward / backward "
+                             f"a step (expected {want}), others {[dict(c) for c in others]}")
     if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
         raise AssertionError(f"a non-finite loss or grad norm: {steps}")
+    if loss_falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}'s loss did not fall: {losses}")
     if peak >= TRAIN_PEAK_LIMIT:
-        raise AssertionError(f"training peaked at {peak} B")
+        raise AssertionError(f"{label} training peaked at {peak} B")
+    n_params = api.n_params()
     for r in steps:
-        print(f"train {TRAIN_ARCH} full width step {r['step']}: loss {r['loss']:.6g}, grad "
-              f"norm {r['grad_norm']:.6g}, lr {r['lr']:.6g}, {r['seconds']:.6g} s, "
-              f"{r['tokens_per_s']:.6g} tokens/s [{card}]", flush=True)
-    print(f"train {TRAIN_ARCH} b={TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches, "
-          f"{TRAIN_STEPS} steps: wall {wall:.6g} s, peak memory {peak} B, launches "
-          f"{launches} ({want} a step) [{card}]", flush=True)
+        print(f"train {label} full width step {r['step']}: loss {r['loss']:.6g}, ce "
+              f"{r['ce']:.6g}, aux {r['aux']:.6g}, grad norm {r['grad_norm']:.6g}, lr "
+              f"{r['lr']:.6g}, {r['seconds']:.6g} s, {r['tokens_per_s']:.6g} tokens/s "
+              f"[{card}]", flush=True)
+    print(f"train {label} ({n_params} parameters) b={train_kw['batch']} x {train_kw['seq']}"
+          f"{frames} in {micro} microbatches, {n_steps} steps: wall {wall:.6g} s, peak "
+          f"memory {peak} B, launches {launches} ({want} a step), the backward by shape "
+          f"{shapes}; loss {losses[0]:.6g} -> {losses[-1]:.6g} [{card}]", flush=True)
     prints = fingerprint(state["params"])
 
     # one more step, traced
     step_fn = steps_mod.build_train_step(api, adamw.AdamWConfig(
-        lr=3e-3, warmup_steps=min(20, TRAIN_STEPS // 5 + 1), total_steps=TRAIN_STEPS),
-        microbatches=TRAIN_MICRO)
-    data = SyntheticTokens(api.cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        lr=train_kw.get("lr", 3e-3), warmup_steps=min(20, n_steps // 5 + 1),
+        total_steps=n_steps), microbatches=micro)
+    data = SyntheticTokens(api.cfg.vocab, train_kw["seq"], train_kw["batch"], seed=0)
     batch = {k: torch.from_numpy(v).to(dev, torch.long)
-             for k, v in data.batch_at(TRAIN_STEPS).items()}
+             for k, v in data.batch_at(n_steps).items()}
+    batch.update(p_train.frontend_inputs(api, train_kw["batch"], 0, n_steps, dev))
     holder = {"state": state}
     del state
+    before = dict(flash_counts)
 
     def one_step():
         holder["state"], _ = step_fn(holder["state"], batch)
 
-    profile = trace(f"{TRAIN_ARCH} train step (b={TRAIN_BATCH} x {TRAIN_SEQ}, "
-                    f"{TRAIN_MICRO} microbatches)", one_step, card, top_n=12)
+    ranges, undo = ranges_fn() if ranges_fn else ((), lambda: None)
+    try:
+        profile = trace(f"{label} train step (b={train_kw['batch']} x {train_kw['seq']}, "
+                        f"{micro} microbatches)", one_step, card, top_n=12, ranges=ranges)
+    finally:
+        undo()
+    profile["flash_launches"] = {k: flash_counts[k] - before[k] for k in flash_counts}
+    print(f"profile {label} train step: flash launches {profile['flash_launches']} "
+          f"[{card}]", flush=True)
+    out = {"arch": arch, "layers": api.cfg.n_layers, "n_params": n_params, **train_kw,
+           "steps": steps, "wall_s": wall, "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_step": want, "bwd_launches_by_shape": shapes, "profile": profile,
+           "card": card}
+    if check:
+        out["check"] = check(api, holder["state"]["params"], batch)
     holder.clear()
     del step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
+    if stop is None:
+        return out
 
-    # preempted after step TRAIN_STOP and its checkpoint, then resumed
+    # preempted after step ``stop`` and its checkpoint, then resumed
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     first = []
 
     def preempt(i, loss, dt):
         first.append(loss)
-        if i + 1 == TRAIN_STOP:
+        if i + 1 == stop:
             raise Preempted
 
     t0 = time.perf_counter()
-    # (the stopped run's state goes with the exception: two states do not fit)
+    # (the stopped run's state goes with the exception: two of granite's
+    # states do not fit)
     try:
-        p_train.train(checkpoint_dir=str(TRAIN_CKPT), checkpoint_every=TRAIN_STOP,
+        p_train.train(checkpoint_dir=str(TRAIN_CKPT), checkpoint_every=stop,
                       on_step=preempt, **kw)
         raise AssertionError("the run meant to be preempted ran to its end")
     except Preempted:
@@ -3098,23 +3192,23 @@ def granite_training(dev, card, p_train, steps_mod, adamw, flash_counts, others,
     stop_wall = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    if first != losses[:TRAIN_STOP]:
+    if first != losses[:stop]:
         raise AssertionError(f"the interrupted run's losses {first} differ from "
-                             f"{losses[:TRAIN_STOP]}")
+                             f"{losses[:stop]}")
 
     def drop_old(i, loss, dt):
-        # one checkpoint on the disk at a time: the step-2 file has been read
-        if i == TRAIN_STOP:
-            for f in TRAIN_CKPT.glob(f"step_{TRAIN_STOP:08d}.*"):
+        # one checkpoint on the disk at a time: the resumed one has been read
+        if i == stop:
+            for f in TRAIN_CKPT.glob(f"step_{stop:08d}.*"):
                 f.unlink()
 
     t0 = time.perf_counter()
     resumed, rest, r_run = p_train.train(checkpoint_dir=str(TRAIN_CKPT), resume=True,
                                          on_step=drop_old, **kw)
     resume_wall = time.perf_counter() - t0
-    r_steps = r_run["steps"]
-    same = (rest == losses[TRAIN_STOP:]
-            and [r["grad_norm"] for r in r_steps] == [r["grad_norm"] for r in steps[TRAIN_STOP:]]
+    same = (rest == losses[stop:]
+            and [r["grad_norm"] for r in r_run["steps"]]
+            == [r["grad_norm"] for r in steps[stop:]]
             and fingerprint(resumed["params"]) == prints)
     del resumed
     gc.collect()
@@ -3122,15 +3216,12 @@ def granite_training(dev, card, p_train, steps_mod, adamw, flash_counts, others,
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     if not same:
         raise AssertionError(f"the resumed run differs from the uninterrupted one: losses "
-                             f"{rest} against {losses[TRAIN_STOP:]}")
-    print(f"train {TRAIN_ARCH} stopped at step {TRAIN_STOP} with a checkpoint ({stop_wall:.6g} "
-          f"s) and resumed to step {TRAIN_STEPS} ({resume_wall:.6g} s): losses, grad norms "
-          f"and every parameter's bits equal the uninterrupted run's [{card}]", flush=True)
-    return {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "microbatches": TRAIN_MICRO, "steps": steps, "wall_s": wall,
-            "peak_mem_bytes": peak, "launches": launches, "launches_per_step": want,
-            "profile": profile, "stopped_run_wall_s": stop_wall,
-            "resumed_run_wall_s": resume_wall, "resume_equal": same, "card": card}
+                             f"{rest} against {losses[stop:]}")
+    print(f"train {label} stopped at step {stop} with a checkpoint ({stop_wall:.6g} s) and "
+          f"resumed to step {n_steps} ({resume_wall:.6g} s): losses, grad norms and every "
+          f"parameter's bits equal the uninterrupted run's [{card}]", flush=True)
+    return {**out, "stopped_run_wall_s": stop_wall, "resumed_run_wall_s": resume_wall,
+            "resume_equal": same}
 
 
 def train_loss_drop(card, p_train) -> dict:
@@ -3143,6 +3234,432 @@ def train_loss_drop(card, p_train) -> dict:
     print(f"train reduced {TRAIN_ARCH} 30 steps on the card: loss {losses[0]:.6g} -> "
           f"{losses[-1]:.6g} [{card}]", flush=True)
     return {"first": losses[0], "last": losses[-1]}
+
+
+# ---------------------------------------------------------------------------
+# the MoE, VLM and enc-dec trainers: the reduced slices, whisper-tiny at
+# full width, moonshot and internvl2 at full width and cut depth
+# ---------------------------------------------------------------------------
+
+
+def n_attentions(cfg) -> int:
+    """Flash attention calls in one forward: one an attention layer, two
+    (self and cross) an enc-dec decoder layer."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def slice_batches(cfg, n, rows=4, seq=128) -> list:
+    """n batches of rows x seq tokens and their next tokens from numpy seed
+    0, then each batch's frontend input (a VLM's vision embeddings, an
+    enc-dec's frames), standard normal in bf16, from the same generator (the
+    CPU tests' draws)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (n, rows, seq + 1))
+    out = [{"tokens": torch.from_numpy(t[:, :-1]), "labels": torch.from_numpy(t[:, 1:])}
+           for t in toks]
+    key = {"vlm": "vision_embeds", "encdec": "frames"}.get(cfg.family)
+    if key:
+        n_rows = cfg.n_vision_tokens if cfg.family == "vlm" else cfg.enc_len
+        for b in out:
+            b[key] = torch.from_numpy(rng.standard_normal(
+                (rows, n_rows, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    return out
+
+
+def state_to(state, where) -> dict:
+    """A copy of a train state on ``where``."""
+    import copy
+    return {"params": copy.deepcopy(state["params"]).to(where),
+            "opt": {"m": {n: t.clone().to(where) for n, t in state["opt"]["m"].items()},
+                    "v": {n: t.clone().to(where) for n, t in state["opt"]["v"].items()},
+                    "step": state["opt"]["step"].clone().to(where)}}
+
+
+def state_numbers(state) -> dict:
+    return {"params": {n: p.detach().cpu() for n, p in state["params"].named_parameters()},
+            "m": {n: t.cpu() for n, t in state["opt"]["m"].items()},
+            "v": {n: t.cpu() for n, t in state["opt"]["v"].items()}}
+
+
+def train_slice_compare(dev, card, api, tol, flash_counts, n_steps, label,
+                        last_from_cpu=False) -> dict:
+    """A reduced train slice, card against CPU, from one float32 state
+    (``api.init(0)``) on ``slice_batches``: the step-1 gradients, every
+    step's loss and grad norm, and the state after the steps within
+    ``tol``; on the card 2 flash launches and one backward call an
+    attention a step.  With ``last_from_cpu`` the state is held after the
+    card's last step from the CPU's state before it."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    n_att = n_attentions(api.cfg)
+    data = slice_batches(api.cfg, n_steps)
+    runs = {}
+    for run, where in (("cpu", "cpu"), ("card", dev)):
+        params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
+        state = {"params": params, "opt": init_opt_state(params)}
+        batches = [{k: v.to(where) for k, v in b.items()} for b in data]
+        loss, _ = api.loss(params, batches[0], remat=True)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        step = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))
+        metrics = []
+        for i, b in enumerate(batches):
+            if run == "cpu" and i == n_steps - 1:
+                last_in = state_to(state, "cpu")
+            before = dict(flash_counts)
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if run == "card":
+                got = (flash_counts["flash_attention"] - before["flash_attention"],
+                       flash_counts["flash_attention_bwd"] - before["flash_attention_bwd"])
+                if got != (2 * n_att, n_att):
+                    raise AssertionError(f"a reduced {label} train step launched {got} flash "
+                                         f"forward / backward, expected {(2 * n_att, n_att)}")
+        runs[run] = {"grads": grads, "metrics": metrics, **state_numbers(state)}
+        del state, params
+    cpu, card_run = runs["cpu"], runs["card"]
+    if last_from_cpu:
+        state, _ = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))(
+            state_to(last_in, dev), {k: v.to(dev) for k, v in data[-1].items()})
+        card_run.update(state_numbers(state))
+        del state
+
+    def largest(what):
+        return max(float((card_run[what][n] - cpu[what][n]).abs().max()) for n in cpu[what])
+
+    num = sum(float(((card_run["grads"][n] - cpu["grads"][n]) ** 2).sum())
+              for n in cpu["grads"])
+    den = sum(float((cpu["grads"][n] ** 2).sum()) for n in cpu["grads"])
+    errs = {
+        "loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(card_run["metrics"],
+                                                               cpu["metrics"])),
+        "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                         for a, b in zip(card_run["metrics"], cpu["metrics"])),
+        "grads_rel": (num / den) ** 0.5, "grads_max": largest("grads"),
+        "params": largest("params"), "m": largest("m"), "v": largest("v")}
+    finite = all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in card_run["metrics"])
+    bad = {k: (e, tol[k]) for k, e in errs.items() if not e <= tol[k]}
+    if bad or not finite:
+        raise AssertionError(f"reduced {label} training on the card differs from the "
+                             f"CPU: {bad} (finite {finite})")
+    print(f"slice reduced {label} train b=4 x 128, {n_steps} steps"
+          f"{' (the state after the last step from the CPU state)' if last_from_cpu else ''}"
+          ": card vs CPU " + ", ".join(f"{k} {e:.6g} (bound {tol[k]})"
+                                       for k, e in errs.items())
+          + f"; losses card {[round(m['loss'], 6) for m in card_run['metrics']]} [{card}]",
+          flush=True)
+    return {"errors": errs, "card_losses": [m["loss"] for m in card_run["metrics"]],
+            "cpu_losses": [m["loss"] for m in cpu["metrics"]]}
+
+
+def whisper_full_check(dev, card, api, fk, flash_counts) -> dict:
+    """Phase 30b: whisper-tiny at full width, one train step at b=2 x 448
+    with 1,500 frames (``slice_batches``'s draws) from one float32 state,
+    card against CPU: the loss and the grad norm within
+    ``WHISPER_FULL_TOL``, every parameter finite after the step; on the
+    card every attention's backward takes the wgmma route, 24 flash
+    launches and 12 backward calls."""
+    import math
+
+    import torch
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cfg = api.cfg
+    b, s = 2, 448
+    for sq, sk, causal in ((cfg.enc_len, cfg.enc_len, False), (s, s, True),
+                           (s, cfg.enc_len, False)):
+        route = fk.bwd_plan(b, sq, sk, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            torch.bfloat16, causal).route
+        if route != "wgmma":
+            raise AssertionError(f"whisper's ({sq}, {sk}) backward takes the {route} route")
+    batch = slice_batches(cfg, 1, rows=b, seq=s)[0]
+    n_att = n_attentions(cfg)
+    got = {}
+    for run, where in (("cpu", "cpu"), ("card", dev)):
+        params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
+        state = {"params": params, "opt": init_opt_state(params)}
+        before = dict(flash_counts)
+        t0 = time.perf_counter()
+        state, m = build_train_step(api, AdamWConfig(lr=1e-3))(
+            state, {k: v.to(where) for k, v in batch.items()})
+        got[run] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "seconds": time.perf_counter() - t0,
+                    "finite": all(bool(torch.isfinite(p).all())
+                                  for p in state["params"].parameters())}
+        if run == "card":
+            launches = (flash_counts["flash_attention"] - before["flash_attention"],
+                        flash_counts["flash_attention_bwd"] - before["flash_attention_bwd"])
+            if launches != (2 * n_att, n_att):
+                raise AssertionError(f"whisper's full-width step launched {launches} flash "
+                                     f"forward / backward, expected {(2 * n_att, n_att)}")
+        del state, params
+    errs = {"loss": abs(got["card"]["loss"] - got["cpu"]["loss"]),
+            "grad_norm": abs(got["card"]["grad_norm"] - got["cpu"]["grad_norm"])
+            / got["cpu"]["grad_norm"]}
+    bad = {k: (e, WHISPER_FULL_TOL[k]) for k, e in errs.items() if not e <= WHISPER_FULL_TOL[k]}
+    if bad or not (got["card"]["finite"] and math.isfinite(got["card"]["loss"])):
+        raise AssertionError(f"whisper-tiny's full-width train step on the card differs from "
+                             f"the CPU: {bad}, {got}")
+    print(f"slice {WHISPER} full width train step b={b} x {s}, {cfg.enc_len} frames: card vs "
+          f"CPU loss {errs['loss']:.6g} (bound {WHISPER_FULL_TOL['loss']}), grad norm "
+          f"{errs['grad_norm']:.6g} (bound {WHISPER_FULL_TOL['grad_norm']}); card loss "
+          f"{got['card']['loss']:.6g}, grad norm {got['card']['grad_norm']:.6g}; the CPU step "
+          f"{got['cpu']['seconds']:.6g} s [{card}]", flush=True)
+    return {"errors": errs, "card": got["card"], "cpu": got["cpu"]}
+
+
+def count_bwd_shapes(fk, tally):
+    """Wrap ``fk.flash_attention_bwd`` to count its calls by (sq, sk,
+    causal) in ``tally``; returns the wrapper's undo."""
+    orig = fk.flash_attention_bwd
+
+    def counted(q, k, v, o, lse, do, *, causal=True):
+        key = f"{q.shape[1]}x{k.shape[1]}{'' if causal else ' non-causal'}"
+        tally[key] = tally.get(key, 0) + 1
+        return orig(q, k, v, o, lse, do, causal=causal)
+
+    fk.flash_attention_bwd = counted
+
+    def undo():
+        fk.flash_attention_bwd = orig
+    return undo
+
+
+def moe_backward_ranges(moe):
+    """Wrap the MoE's four parts (router, dispatch loop, expert products,
+    combine) so that each runs in a ``record_function`` range of its name
+    (``moe.router``, ...; the forward and remat's recompute) and its
+    backward in ``<name>.backward``: an identity autograd function on the
+    part's outputs opens the range when their gradients arrive, after it
+    has unpacked a saved tensor (which runs a checkpointed layer's
+    recompute first, outside the range), and one on its inputs closes it.
+    Returns (the range names, the wrappers' undo)."""
+    import torch
+    from torch.profiler import record_function
+
+    class Open(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, box, *ts):
+            ctx.box = box
+            ctx.save_for_backward(ts[0])
+            return tuple(t.view_as(t) for t in ts)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            ctx.saved_tensors    # the recompute, if this layer's is pending
+            ctx.box["range"] = record_function(ctx.box["name"] + ".backward")
+            ctx.box["range"].__enter__()
+            return (None,) + gs
+
+    class Close(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, box, *ts):
+            ctx.box = box
+            return tuple(t.view_as(t) for t in ts)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            rng = ctx.box.pop("range", None)
+            if rng is not None:
+                rng.__exit__(None, None, None)
+            return (None,) + gs
+
+    def router(p, x, cfg, group_size):
+        box = {"name": "moe.router"}
+        with record_function(box["name"]):
+            (x,) = Close.apply(box, x)
+            r = orig["_router"](p, x, cfg, group_size)
+            r["xg"], r["topv"], r["aux"] = Open.apply(box, r["xg"], r["topv"], r["aux"])
+        return r
+
+    def dispatch(topi, topv, e, cap, dt):
+        box = {"name": "moe.dispatch"}
+        with record_function(box["name"]):
+            (topv,) = Close.apply(box, topv)
+            d, c = orig["_dispatch"](topi, topv, e, cap, dt)
+            (c,) = Open.apply(box, c)
+        return d, c
+
+    def experts(p, dispatch, xg):
+        box = {"name": "moe.experts"}
+        with record_function(box["name"]):
+            (xg,) = Close.apply(box, xg)
+            (ye,) = Open.apply(box, orig["_experts"](p, dispatch, xg))
+        return ye
+
+    def combine(c, ye):
+        box = {"name": "moe.combine"}
+        with record_function(box["name"]):
+            c, ye = Close.apply(box, c, ye)
+            (out,) = Open.apply(box, orig["_combine"](c, ye))
+        return out
+
+    wrappers = {"_router": router, "_dispatch": dispatch, "_experts": experts,
+                "_combine": combine}
+    orig = {name: getattr(moe, name) for name in wrappers}
+    for name, fn in wrappers.items():
+        setattr(moe, name, fn)
+
+    def undo():
+        for name, fn in orig.items():
+            setattr(moe, name, fn)
+
+    parts = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+    return parts + tuple(p + ".backward" for p in parts), undo
+
+
+def moe_recompute_routes(moe, card, api, params, batch, rows=2) -> dict:
+    """Under remat each MoE layer's router runs twice: the forward, then
+    the recompute in the backward (the last layer first).  On ``rows`` of
+    ``batch`` every layer's recomputed top-k experts must equal its
+    forward's bitwise; the gradients this leaves are dropped."""
+    import torch
+    seen = []
+    orig = moe._router
+
+    def record(*a, **kw):
+        r = orig(*a, **kw)
+        seen.append(r["topi"].detach().clone())
+        return r
+
+    moe._router = record
+    try:
+        loss, _ = api.loss(params, {k: v[:rows] for k, v in batch.items()}, remat=True)
+        loss.backward()
+    finally:
+        moe._router = orig
+        for p in params.parameters():
+            p.grad = None
+    n = api.cfg.n_layers
+    if len(seen) != 2 * n:
+        raise AssertionError(f"{n} MoE layers routed {len(seen)} times under remat")
+    differ = [li for li in range(n) if not torch.equal(seen[li], seen[2 * n - 1 - li])]
+    if differ:
+        raise AssertionError(f"{api.cfg.name}: the recompute routed layers {differ} "
+                             f"differently from the forward")
+    print(f"check {api.cfg.name} ({n} layers) remat on {rows} x {batch['tokens'].shape[1]} "
+          f"tokens: each layer's recomputed top-{api.cfg.top_k} experts equal the forward's "
+          f"bitwise ({seen[0].numel()} routes a layer) [{card}]", flush=True)
+    return {"layers": n, "routes_per_layer": seen[0].numel(), "recompute_equal": True}
+
+
+def grad_group(name: str) -> str:
+    """An enc-dec parameter's group: the encoder's attention, the
+    decoder's self attention, its cross attention's q/o and k/v
+    projections (the k/v from the encoder output), the rest."""
+    if name.startswith("enc_layers.") and ".attn." in name:
+        return "encoder attention"
+    if ".self_attn." in name:
+        return "decoder self attention"
+    if ".cross_attn.w" in name:
+        return ("decoder cross attention k/v" if name[-2:] in ("wk", "wv")
+                else "decoder cross attention q/o")
+    return "the rest"
+
+
+def group_errors(got, want) -> dict:
+    """{group: (relative Frobenius norm of got - want over its leaves,
+    largest |got - want|)} of two {name: tensor} maps."""
+    num, den, big = {}, {}, {}
+    for n, w in want.items():
+        g = grad_group(n)
+        d = (got[n].double() - w.double())
+        num[g] = num.get(g, 0.0) + float((d ** 2).sum())
+        den[g] = den.get(g, 0.0) + float((w.double() ** 2).sum())
+        big[g] = max(big.get(g, 0.0), float(d.abs().max()))
+    return {g: ((num[g] / den[g]) ** 0.5, big[g]) for g in num}
+
+
+def whisper_f32_gradients(dev, card, api, fk, fr, lm_mod, encdec_mod, b=2, s=448) -> dict:
+    """Phase 30c: whisper-tiny at full width in float32 (both modules'
+    compute dtype), the loss's gradient at b=2 x 448 with 1,500 frames
+    (``slice_batches``'s draws) from one state: on the card through the
+    flash kernels (their f32 route: 24 launches, 12 backward calls) and
+    through the plain attention (``fr``, the rest of the model the same),
+    and on the CPU in float32 and in float64.  Each group of leaves
+    (``grad_group``) of the kernels' gradient must lie within the plain
+    attention's by less than the CPU's float32 gradient lies from its
+    float64 one: the kernels and their wrappers move the card's gradient
+    by less than float32 arithmetic does.  The card against the CPU is
+    printed, not held: at this width the gradient is ill-conditioned (the
+    CPU's own float32 lies percents from its float64), and the card's
+    float32 ops land farther from the CPU's still, with the plain
+    attention as with the kernels."""
+    import torch
+    cfg = api.cfg
+    for sq, sk, causal in ((cfg.enc_len, cfg.enc_len, False), (s, s, True),
+                           (s, cfg.enc_len, False)):
+        route = fk.bwd_plan(b, sq, sk, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            torch.float32, causal).route
+        if route != "f32":
+            raise AssertionError(f"whisper's float32 ({sq}, {sk}) backward takes the "
+                                 f"{route} route")
+    batch = slice_batches(cfg, 1, rows=b, seq=s)[0]
+    n_att = n_attentions(cfg)
+    flash_counts = fk.LAUNCHES
+    kernels = (fk.flash_attention, fk.flash_attention_bwd)
+    dtypes = (lm_mod.COMPUTE_DTYPE, encdec_mod.COMPUTE_DTYPE)
+
+    def plain_fwd(q, k, v, *, causal=True, return_lse=False):
+        return (fr.attention_plain_lse if return_lse else fr.attention_plain)(
+            q, k, v, causal=causal)
+
+    def gradient(where, dt, plain=False):
+        lm_mod.COMPUTE_DTYPE = encdec_mod.COMPUTE_DTYPE = dt
+        if plain:
+            fk.flash_attention, fk.flash_attention_bwd = plain_fwd, fr.attention_plain_bwd
+        try:
+            params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(dt).to(where)
+            loss, _ = api.loss(params, {k: v.to(where) for k, v in batch.items()},
+                               remat=True)
+            loss.backward()
+            return float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                          params.named_parameters()}
+        finally:
+            fk.flash_attention, fk.flash_attention_bwd = kernels
+            lm_mod.COMPUTE_DTYPE, encdec_mod.COMPUTE_DTYPE = dtypes
+
+    before = dict(flash_counts)
+    runs = {"kernels": gradient(dev, torch.float32)}
+    got = (flash_counts["flash_attention"] - before["flash_attention"],
+           flash_counts["flash_attention_bwd"] - before["flash_attention_bwd"])
+    if got != (2 * n_att, n_att):
+        raise AssertionError(f"whisper's float32 gradient launched {got} flash forward / "
+                             f"backward, expected {(2 * n_att, n_att)}")
+    runs["plain"] = gradient(dev, torch.float32, plain=True)
+    runs["cpu f32"] = gradient("cpu", torch.float32)
+    runs["cpu f64"] = gradient("cpu", torch.float64)
+    errs = group_errors(runs["kernels"][1], runs["plain"][1])
+    spread = group_errors(runs["cpu f32"][1], runs["cpu f64"][1])
+    vs_cpu = {k: group_errors(runs[k][1], runs["cpu f32"][1]) for k in ("kernels", "plain")}
+    bad = {g: (e[0], spread[g][0]) for g, e in errs.items() if not e[0] < spread[g][0]}
+    finite = all(bool(torch.isfinite(t).all()) for t in runs["kernels"][1].values())
+    if bad or not finite:
+        raise AssertionError(f"whisper-tiny's float32 gradient through the kernels differs "
+                             f"from the plain attention's by more than the CPU's float32 "
+                             f"from its float64: {bad} (finite {finite})")
+    print(f"slice {WHISPER} full width float32 gradient b={b} x {s}, {cfg.enc_len} frames: "
+          f"kernels vs plain attention on the card, relative Frobenius per group (bound: the "
+          f"CPU's float32 vs float64) " + ", ".join(
+              f"{g} {e[0]:.6g} ({spread[g][0]:.6g})" for g, e in errs.items())
+          + "; the card (kernels / plain attention) vs the CPU's float32 (not held) "
+          + ", ".join(f"{g} {e[0]:.6g} / {vs_cpu['plain'][g][0]:.6g}"
+                      for g, e in vs_cpu["kernels"].items())
+          + f"; losses {', '.join(f'{k} {v[0]:.9g}' for k, v in runs.items())} [{card}]",
+          flush=True)
+    return {"loss": {k: v[0] for k, v in runs.items()},
+            "kernels_vs_plain": {g: e[0] for g, e in errs.items()},
+            "cpu_f32_vs_f64": {g: e[0] for g, e in spread.items()},
+            "card_vs_cpu_f32": {k: {g: e[0] for g, e in v.items()}
+                                for k, v in vs_cpu.items()}}
 
 
 def main() -> int:
@@ -3680,20 +4197,57 @@ def main() -> int:
     bwd_rows = {arch: flash_bwd_row(dev, card, flash_kernel, flash_ref, *shape,
                                     f"{arch} (h={shape[2]}, kv={shape[3]}, d={shape[4]})")
                 for arch, shape in BWD_TIMED.items()}
+    family_bwd_rows = {
+        tag: flash_bwd_row(dev, card, flash_kernel, flash_ref, b, sq, h, kv, d,
+                           f"{tag} (h={h}, kv={kv}, d={d})", sk=sk, causal=causal)
+        for tag, (b, sq, sk, h, kv, d, causal) in BWD_TIMED_FAMILIES.items()}
 
     # ---- 27. the reduced granite train slice, card against CPU ---------------
     train_slice = train_slice_check(dev, card, get_api, flash_kernel.LAUNCHES)
 
     # ---- 28. main path: granite-3-2b trained at full width and depth ---------
     others = [c for c in counters if c is not flash_kernel.LAUNCHES]
-    training = granite_training(dev, card, p_train, train_steps, adamw,
-                                flash_kernel.LAUNCHES, others, zero_counts)
+    training = full_width_training(dev, card, p_train, train_steps, adamw, flash_kernel,
+                                   others, zero_counts, TRAIN_ARCH, TRAIN, stop=TRAIN_STOP)
     training["slice"] = train_slice
 
     # ---- 29. the reduced trainer's loss drop on the card ----------------------
     training["loss_drop"] = train_loss_drop(card, p_train)
     training["kernels"] = bwd_rows
     print(json.dumps({"training": training}), flush=True)
+
+    # ---- 30. the MoE, VLM and enc-dec train slices, card against CPU ---------
+    family_slices = {
+        arch: train_slice_compare(dev, card, get_api(arch, reduced=True),
+                                  FAMILY_SLICE_TOL[arch], flash_kernel.LAUNCHES, 3, arch,
+                                  last_from_cpu=arch == WHISPER)
+        for arch in FAMILY_SLICE_TOL}
+    family_slices["whisper-tiny full width"] = whisper_full_check(
+        dev, card, get_api(WHISPER), flash_kernel, flash_kernel.LAUNCHES)
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models import lm as lm_mod
+    family_slices["whisper-tiny full width float32 gradient"] = whisper_f32_gradients(
+        dev, card, get_api(WHISPER), flash_kernel, flash_ref, lm_mod, encdec_mod)
+
+    # ---- 31. main path: whisper-tiny trained at full width and depth ---------
+    families = {WHISPER: full_width_training(
+        dev, card, p_train, train_steps, adamw, flash_kernel, others, zero_counts, WHISPER,
+        WHISPER_TRAIN, stop=WHISPER_STOP, loss_falls=True)}
+
+    # ---- 32. moonshot-v1-16b-a3b and internvl2-26b at full width, 2 layers ---
+    # (moonshot's trace splits the MoE's forward and backward into its four
+    # parts; its recomputed routes are held to the forward's)
+    for arch in WIDE_ARCHS:
+        is_moe = get_api(arch).cfg.family == "moe"
+        families[arch] = full_width_training(
+            dev, card, p_train, train_steps, adamw, flash_kernel, others, zero_counts, arch,
+            WIDE_TRAIN, model_dims={"n_layers": WIDE_LAYERS},
+            ranges_fn=(lambda: moe_backward_ranges(moe)) if is_moe else None,
+            check=(lambda api, params, batch: moe_recompute_routes(
+                moe, card, api, params, batch)) if is_moe else None)
+    families["slices"] = family_slices
+    families["kernels"] = family_bwd_rows
+    print(json.dumps({"family_training": families}), flush=True)
 
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
@@ -3744,6 +4298,24 @@ def main() -> int:
             if arch == TRAIN_ARCH else 0,
             "max_abs_err": max(bwd_err, r["err"]), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the backward at the new families' shapes, with their launches in the
+    # main paths' runs (whisper's by shape)
+    bwd_launches = {
+        "whisper-tiny encoder": families[WHISPER]["bwd_launches_by_shape"].get(
+            "1500x1500 non-causal", 0),
+        "whisper-tiny cross": families[WHISPER]["bwd_launches_by_shape"].get(
+            "448x1500 non-causal", 0),
+        "internvl2-26b": families["internvl2-26b"]["launches"]["flash_attention_bwd"]}
+    for tag, rows in family_bwd_rows.items():
+        r = rows["flash_attention_bwd"]
+        kernels.append({
+            "name": f"flash_attention_bwd/{tag}", "route": "cuda",
+            "source": BWD_FLASH_SOURCE,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
+            "model": tag.split()[0], "shape": r["shape"], "causal": r["causal"],
+            "launches": bwd_launches[tag], "max_abs_err": max(bwd_err, r["err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     r = bwd_rows[TRAIN_ARCH]["flash_attention (lse)"]
     kernels.append({

@@ -1,4 +1,5 @@
-"""Encoder-decoder LM (the whisper-tiny backbone), inference only.
+"""Encoder-decoder LM (the whisper-tiny backbone): serving and the loss's
+gradient (the trainer, ``launch/train.py``).
 
 The audio frontend is stubbed, as the reference stubs it: the inputs are
 precomputed frame embeddings ``frames`` (b, enc_len, d).  LayerNorm,
@@ -18,6 +19,16 @@ Entry points:
   encdec_loss       — encode + decode_train, then next-token CE
   encdec_prefill    — encode, then the prompt -> (last logits, caches)
   encdec_decode_step — one token against both caches
+
+The loss takes a gradient through flash attention's autograd op (its
+backward kernel) in every encoder and decoder layer.  Where a gradient
+will be taken, every layer is checkpointed (``torch.utils.checkpoint``):
+its activations are dropped after the forward and recomputed in the
+backward, whatever ``remat`` says, as the reference wraps both layer
+bodies in ``jax.checkpoint(..., policy=nothing_saveable)``
+unconditionally.  A decoder layer projects the cross k/v from the encoder
+output inside its checkpoint, as the reference's ``_cross_kv`` runs inside
+its body.
 
 The layers are ``nn.ModuleList``s of per-layer tables (the reference
 scans a stacked tree).
@@ -39,7 +50,7 @@ from repro_torch.models.common import (
     stacked,
 )
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import _mesh_free, embed_tokens, refuse_gradients
+from repro_torch.models.lm import _grad_taken, _layer_call, _mesh_free, embed_tokens
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -95,10 +106,12 @@ def _enc_layer(pl, x, cfg):
 
 
 def encode(params, cfg: ArchConfig, frames) -> torch.Tensor:
-    """frames: (b, enc_len, d) stub embeddings -> (b, enc_len, d)."""
+    """frames: (b, enc_len, d) stub embeddings -> (b, enc_len, d); each
+    layer checkpointed where a gradient will be taken."""
     x = _with_positions(frames.to(COMPUTE_DTYPE))
+    layer = _layer_call(_enc_layer, _grad_taken(params))
     for pl in params["enc_layers"]:
-        x = _enc_layer(pl, x, cfg)
+        x = layer(pl, x, cfg)
     return _ln(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -127,19 +140,21 @@ def _logits(params, cfg, x):
 
 
 def decode_train(params, cfg: ArchConfig, tokens, enc_out) -> torch.Tensor:
-    """Teacher-forced decoder forward -> logits (b, s, V)."""
+    """Teacher-forced decoder forward -> logits (b, s, V); each layer
+    checkpointed where a gradient will be taken."""
     x = _with_positions(embed_tokens(params, tokens))
+    layer = _layer_call(_dec_layer, _grad_taken(params))
     for pl in params["dec_layers"]:
-        x, _ = _dec_layer(pl, x, cfg, enc_out)
+        x, _ = layer(pl, x, cfg, enc_out)
     return _logits(params, cfg, x)
 
 
 def encdec_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     """The mean next-token CE of ``batch["tokens"]`` against
     ``batch["labels"]`` given ``batch["frames"]``; returns (loss, {"ce",
-    "aux"}) with aux 0.  Forward only, as ``lm_loss``."""
+    "aux"}) with aux 0.  It takes a gradient, every layer checkpointed
+    whatever ``remat`` says (the reference's rule)."""
     _mesh_free(shd, remat, cfg.family)
-    refuse_gradients(params, "encdec_loss", cfg.family)
     enc_out = encode(params, cfg, batch["frames"])
     logits = decode_train(params, cfg, batch["tokens"], enc_out)
     loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab)

@@ -1,7 +1,8 @@
 """Decoder-only LM assembly for the dense (granite, starcoder2, qwen3,
 deepseek), MoE (moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2)
 and ssm (falcon-mamba) families: serving for all five, and the loss's
-gradient for the dense family (the trainer, ``launch/train.py``).
+gradient for the dense, MoE and VLM families (the trainer,
+``launch/train.py``).
 
 Entry points:
   lm_forward     — forward over a sequence -> logits (b, s, V)
@@ -23,13 +24,17 @@ per-layer parameter tables (the reference scans a stacked tree).  The
 enc-dec family (whisper) is served by ``models/encdec.py``, routed there
 by the registry; this module's entry points refuse it.
 
-The dense family's loss takes a gradient: flash attention's autograd op
-launches the backward kernel, and ``remat=True`` (the reference's default
-in its ``lm_loss``) wraps each layer in ``torch.utils.checkpoint``, the
-counterpart of its ``jax.checkpoint(layer_body, policy=nothing_saveable)``.
-The other families' gradients and remat (their SSD, scan and MoE
-backward), and sharding (the reference's ``shd=``), belong to later
-slices of the port and raise ``NotImplementedError``.
+The dense, MoE and VLM families' loss takes a gradient: flash attention's
+autograd op launches the backward kernel, the MoE's einsums and ``bmm``
+differentiate in plain PyTorch (the reference has no MoE kernel), and
+``remat=True`` (the reference's default in its ``lm_loss``) wraps each
+layer in ``torch.utils.checkpoint``, the counterpart of its
+``jax.checkpoint(layer_body, policy=nothing_saveable)``; an MoE layer's
+checkpoint returns its aux loss with its output, as the reference's scan
+carries it.  The hybrid and ssm families' gradients and remat (the SSD and
+scan backward kernels, ROADMAP queue 1 item 6c), and sharding (the
+reference's ``shd=``), belong to later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 #: a k/v cache per layer.
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
 #: The families whose loss takes a gradient (and remat): the trainer's.
-TRAINED = ("dense",)
+TRAINED = ("dense", "moe", "vlm", "encdec")
 
 
 def require_served(cfg: ArchConfig) -> None:
@@ -72,7 +77,7 @@ def require_served(cfg: ArchConfig) -> None:
             "serves the dense (granite, starcoder2, qwen3, deepseek), MoE "
             "(moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2), ssm "
             "(falcon-mamba) and enc-dec (whisper) families, and trains the "
-            "dense family"
+            "dense, MoE, VLM and enc-dec families"
         )
 
 
@@ -85,16 +90,32 @@ def _decoder_only(cfg: ArchConfig) -> None:
             "(get_api routes it there), not by the decoder-only models/lm.py")
 
 
+def _grad_taken(params) -> bool:
+    """Whether a gradient will be taken: grad mode on and a parameter that
+    requires one (the trainer's float32 masters)."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters())
+
+
+def _layer_call(fn, remat: bool):
+    """``fn`` itself, or with ``remat`` ``fn`` under a non-reentrant
+    checkpoint: its activations dropped after the forward and recomputed
+    in the backward."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def refuse_gradients(params, name: str, family: str) -> None:
     """Raise where a parameter requires a gradient and ``family`` has no
-    trainer yet (only the dense family has one)."""
+    trainer yet (the hybrid and ssm families: their SSD and scan backward
+    kernels are a later slice)."""
     if family in TRAINED:
         return
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params.parameters()):
+    if _grad_taken(params):
         raise NotImplementedError(
             f"gradients of the {family} family belong to a later slice of the port "
-            "(the training slice has the dense family; the MoE, VLM and enc-dec "
-            "trainers are next, then the SSD and scan backward kernels): "
+            "(the training slices have the dense, MoE, VLM and enc-dec families; the "
+            "SSD and scan backward kernels are next, ROADMAP queue 1 item 6c): "
             f"{name} runs the forward only")
 
 
@@ -105,8 +126,9 @@ def _mesh_free(shd=None, remat=False, family: str | None = None) -> None:
             "mesh-free on one card")
     if remat and family not in TRAINED:
         raise NotImplementedError(
-            f"remat of the {family} family belongs to a later slice of the port: "
-            "only the dense family trains")
+            f"remat of the {family} family belongs to a later slice of the port "
+            "(the SSD and scan backward kernels, ROADMAP queue 1 item 6c): the "
+            "dense, MoE, VLM and enc-dec families train")
 
 
 def _norm_spec(d):
@@ -187,7 +209,8 @@ def _dense_layer(pl, x, cfg, positions, collect):
 
 
 def _moe_layer(pl, x, cfg, positions, collect):
-    """Returns (x, aux, kv)."""
+    """Returns (x, aux, kv): the layer's output, its float32 aux loss and
+    (with ``collect``) its k/v."""
     x, kv = _attn_block(pl, x, cfg, positions, collect)
     h = rms_norm(x, pl["ln2"], cfg.norm_eps)
     out, aux = moe_mod.moe_apply(pl["moe"], h, cfg)
@@ -243,10 +266,12 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     """Embed and run every layer (zamba2: every group); with ``cache``
     (from ``init_cache``), write each attention layer's k/v, each Mamba
     layer's conv tail and state and each shared application's k/v into it.
-    With ``remat`` (the dense family) each layer is checkpointed: its
-    activations are dropped after the forward and recomputed in the
-    backward.  Returns the last hidden states (b, s, d) and the MoE layers'
-    summed aux loss (float32; 0 for the other families)."""
+    With ``remat`` (the dense, MoE and VLM families) each layer is
+    checkpointed: its activations are dropped after the forward and
+    recomputed in the backward (an MoE layer routes the same tokens to the
+    same experts again: its router and dispatch are deterministic).
+    Returns the last hidden states (b, s, d) and the MoE layers' summed aux
+    loss (float32; 0 for the other families)."""
     _decoder_only(cfg)
     x = embed_tokens(params, tokens, cfg, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -254,16 +279,14 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     s = tokens.shape[1]
     if cfg.family in _ATTN_FAMILIES:
         positions = torch.arange(s, device=tokens.device)[None, :]
+        layer = _layer_call(_moe_layer if cfg.family == "moe" else _dense_layer, remat)
         for li in range(cfg.n_layers):
-            pl = params["layers"][li]
+            out = layer(params["layers"][li], x, cfg, positions, collect)
             if cfg.family == "moe":
-                x, aux_i, kv = _moe_layer(pl, x, cfg, positions, collect)
+                x, aux_i, kv = out
                 aux = aux + aux_i
-            elif remat:
-                x, kv = checkpoint(_dense_layer, pl, x, cfg, positions, collect,
-                                   use_reentrant=False)
             else:
-                x, kv = _dense_layer(pl, x, cfg, positions, collect)
+                x, kv = out
             if collect:
                 cache["k"][li, :, :s] = kv[0]
                 cache["v"][li, :, :s] = kv[1]
@@ -294,8 +317,8 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
 def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False,
                vision_embeds=None):
     """tokens (b, s) -> logits (b, s, V); a VLM's ``vision_embeds`` (b,
-    nv, d) take its first nv positions; ``remat`` checkpoints each dense
-    layer."""
+    nv, d) take its first nv positions; ``remat`` checkpoints each layer
+    (the dense, MoE and VLM families)."""
     _mesh_free(shd, remat, cfg.family)
     x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds, remat=remat)
     return _logits(params, cfg, x)
@@ -306,10 +329,10 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     ``batch["vision_embeds"]``), then the mean next-token CE over
     ``batch["labels"]`` (positions labelled -1 do not count) plus 0.01 x
     the MoE layers' summed aux loss (0 for the other families).  Returns
-    (loss, {"ce", "aux"}).  The dense family's loss takes a gradient, with
-    ``remat`` checkpointing each layer; for the other families parameters
-    that require a gradient, and ``remat``, raise (their trainers are later
-    slices)."""
+    (loss, {"ce", "aux"}).  The dense, MoE and VLM families' loss takes a
+    gradient, with ``remat`` checkpointing each layer; for the hybrid and
+    ssm families parameters that require a gradient, and ``remat``, raise
+    (their trainers are a later slice)."""
     _mesh_free(shd, remat, cfg.family)
     refuse_gradients(params, "lm_loss", cfg.family)
     x, aux = _backbone(params, cfg, batch["tokens"],

@@ -80,8 +80,8 @@ class ModelAPI:
 
     def loss(self, params, batch: dict, *, shd=None, remat: bool = False):
         """(loss, {"ce", "aux"}) of ``batch`` (``tokens`` and ``labels``, and
-        a VLM's ``vision_embeds``); the dense family's takes a gradient,
-        with ``remat`` checkpointing each layer."""
+        a VLM's ``vision_embeds``); the dense, MoE and VLM families' takes a
+        gradient, with ``remat`` checkpointing each layer."""
         return lm.lm_loss(params, self.cfg, batch, shd=shd, remat=remat)
 
 
@@ -109,7 +109,7 @@ class EncDecAPI(ModelAPI):
 
     def loss(self, params, batch: dict, *, shd=None, remat: bool = False):
         """(loss, {"ce", "aux"}) of ``batch`` (``frames``, ``tokens`` and
-        ``labels``), forward only."""
+        ``labels``); it takes a gradient, every layer checkpointed."""
         return encdec.encdec_loss(params, self.cfg, batch, shd=shd, remat=remat)
 
 

@@ -541,20 +541,44 @@ def test_decoder_only_entry_points_refuse_the_encdec_config():
     p_lm.require_served(cfg)
 
 
-def test_encdec_loss_refuses_gradients():
-    """The trainer is a later slice: a parameter that requires a gradient
-    makes the loss raise (the forward runs under ``torch.no_grad`` or with
-    frozen parameters)."""
+def test_encdec_loss_refuses_gradients(monkeypatch):
+    """The enc-dec loss takes a gradient (the trainer's slice): with a
+    parameter that requires one, every encoder and decoder layer is
+    checkpointed whatever ``remat`` says, so each attention runs its flash
+    forward twice (the forward, then the recompute in the backward) and its
+    backward once: one attention an encoder layer, two (self and cross) a
+    decoder layer.  Without one (serving, ``torch.no_grad``) nothing is
+    recomputed.  The name is the refusal's it replaces."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     api = p_get_api(ARCH, reduced=True)
     params = api.init(0, "cpu")
     rng = np.random.default_rng(0)
     batch = {"frames": torch.from_numpy(rng.standard_normal((1, 32, 64)).astype(np.float32)),
              "tokens": torch.from_numpy(rng.integers(0, 512, (1, 8))),
              "labels": torch.from_numpy(rng.integers(0, 512, (1, 8)))}
-    loss, _ = api.loss(params, batch)
-    assert np.isfinite(float(loss))
-    params["unembed"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        api.loss(params, batch)
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = flash_kernel.flash_attention, flash_kernel.flash_attention_bwd
+
+    def count(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(flash_kernel, "flash_attention", count("fwd", fwd))
+    monkeypatch.setattr(flash_kernel, "flash_attention_bwd", count("bwd", bwd))
+    n = api.cfg.n_enc_layers + 2 * api.cfg.n_layers
     with torch.no_grad():
-        api.loss(params, batch)
+        loss, _ = api.loss(params, batch)
+    assert np.isfinite(float(loss)) and calls == {"fwd": n, "bwd": 0}
+    for p in params.parameters():
+        p.requires_grad_(True)
+    for remat in (False, True):
+        calls.update(fwd=0, bwd=0)
+        loss, _ = api.loss(params, batch, remat=remat)
+        loss.backward()
+        assert calls == {"fwd": 2 * n, "bwd": n}, (remat, calls)
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in params.parameters())
+        for p in params.parameters():
+            p.grad = None

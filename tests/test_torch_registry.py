@@ -70,19 +70,23 @@ def test_vlm_train_cell_carries_the_vision_embeds():
 
 
 def test_encdec_cells_are_the_next_slice():
-    """The enc-dec cells lower on the port as on the reference; what the
-    port does not run yet is the trainer: gradients through the enc-dec
-    loss raise, naming the training slice."""
+    """The enc-dec cells lower on the port as on the reference, and the
+    trainer's slice runs them: a gradient flows through the enc-dec loss
+    into every parameter, the frames' encoder included."""
     cfg = ArchConfig(**dataclasses.asdict(j_reg.get_config("whisper-tiny")))
     assert set(p_reg.input_specs(cfg, "train_4k")) == set(
         j_reg.input_specs(j_reg.get_config("whisper-tiny"), "train_4k"))
     api = p_reg.build_api(cfg.reduced())
-    params = api.init(0, "cpu")
-    params["embed"].requires_grad_(True)
-    batch = {"frames": torch.zeros((1, 32, 64)),
-             "tokens": torch.zeros((1, 4), dtype=torch.long),
-             "labels": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        api.loss(params, batch)
+    params = api.init(0, "cpu", dtype=torch.float32, trainable=True)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"frames": torch.randn((1, 32, 64), generator=gen).to(torch.bfloat16),
+             "tokens": torch.randint(0, 512, (1, 4), generator=gen),
+             "labels": torch.randint(0, 512, (1, 4), generator=gen)}
+    loss, metrics = api.loss(params, batch)
+    loss.backward()
+    assert float(metrics["aux"]) == 0.0
+    for name, p in params.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert float(params["enc_layers"][0]["attn"]["wq"].grad.abs().sum()) > 0
     assert jax.tree.leaves(j_reg.input_specs(j_reg.get_config("whisper-tiny"),
                                              "train_4k"))
