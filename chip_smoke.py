@@ -5,14 +5,16 @@
 
 1. Prints the card's name and power limit and builds every kernel of the
    port with nvcc, one process per source, all started together:
-   ``placement.cu``, ``flash_attention.cu``, ``decode_attention.cu``,
-   ``ssd.cu`` and ``selective_scan.cu``.  For the two attention libraries
-   and the SSD it prints each kernel's registers, shared memory and spills
-   (``-Xptxas -v``) and its tensor-core (HMMA, HGMMA), asynchronous-copy
-   (LDGSTS, UTMALDG) and LDSM instruction counts (``cuobjdump -sass``),
-   and fails unless the bf16 flash kernels and every SSD kernel use the
-   tensor cores and the bf16 attention kernels and every SSD kernel copy
-   asynchronously.
+   ``placement.cu``, ``flash_attention.cu``, ``flash_attention_bwd.cu``,
+   ``decode_attention.cu``, ``ssd.cu``, ``ssd_bwd.cu``,
+   ``selective_scan.cu`` and ``selective_scan_bwd.cu``.  For the two
+   attention libraries and the SSD's forward it prints each kernel's
+   registers, shared memory and spills (``-Xptxas -v``; the verbose
+   build prints them for every source) and its tensor-core (HMMA, HGMMA),
+   asynchronous-copy (LDGSTS, UTMALDG) and LDSM instruction counts
+   (``cuobjdump -sass``), and fails unless the bf16 flash kernels and
+   every SSD forward kernel use the tensor cores and the bf16 attention
+   kernels and every SSD forward kernel copy asynchronously.
 
 The batch placement path (the first slice):
 
@@ -264,11 +266,9 @@ at full width, through flash attention's backward kernel:
     (counts zeroed just before, read after each step), no other kernel;
     every loss and grad norm finite, the peak under 80 GB; each step's
     loss, grad norm, lr, seconds and tokens/s; a trace of one more step
-    (the idle share, the top kernels).  Then the same run stopped at step
-    2 with a checkpoint (preempted: ``on_step`` raises after the step-2
-    checkpoint) and resumed from it to step 4: the
-    first run's losses, then the resumed steps' losses, grad norms and
-    final state (every parameter's bits) equal the uninterrupted run's.
+    (the idle share, the top kernels).  (Until the hybrid trainer came,
+    the same run was also stopped at step 2 with a checkpoint and
+    resumed; phase 35 stops and resumes zamba2-2.7b instead.)
 29. The reduced granite trainer on the card for 30 steps (b=8 x 64, lr
     5e-3): the loss falls by more than 0.3, the twin of the CPU test.
 
@@ -317,7 +317,47 @@ full width with 2 of their 48 layers, through the same two kernels:
     microbatch of the trained moonshot state, each MoE layer's recomputed
     top-k experts under remat equal its forward's bitwise.
 
-Phases 28, 31 and 32 are one function, ``full_width_training``.
+The hybrid and ssm trainers (the seventeenth slice): zamba2-2.7b trained
+at full width and depth, falcon-mamba-7b at full width with 8 of its 64
+layers, through the SSD's and the fused Mamba1 scan's backward kernels
+(``ssd_bwd.cu``, ``selective_scan_bwd.cu``, built in phase 1 with the
+rest):
+
+33. Each backward kernel against its plain version (the explicit reverse
+    recurrences): the SSD's on ``SSD_BWD_CASES`` (ragged lengths against
+    its chunk, state 8, 16, 64 and 128, one token, with and without the
+    final state's gradient), the fused scan's on ``SCAN_BWD_CASES`` (d
+    not a multiple of its 64-channel CTA, ragged lengths, state 4 to 64,
+    one token, strided z, B and C); every gradient element within
+    ``ssm_grad_errors``'s bound (1e-3 of |want| + its RMS, plus one bf16
+    ulp for the scan's bf16 gradients) and a second call bitwise equal.
+    Then at zamba2's microbatch (2 x 4,096, 80 heads of 64, state 64) and
+    falcon-mamba's (2 x 4,096, 8,192 channels, state 16): checked, a 1%
+    error planted in the SSD's dxdt and the scan's dB caught, and timed
+    beside the forward kernel, the plain backward and the bound
+    (``ssd_bwd_bound_ms``, ``fused_scan_bwd_bound``); no single PyTorch
+    call computes either.
+34. The reduced zamba2 and falcon-mamba train slices on the card against
+    the CPU, as phase 30 (``FAMILY_SLICE_TOL``: twice the reference's
+    spread, ``tests/test_torch_train_ssm.py``), falcon-mamba's card steps
+    each from the CPU's state before it (``SSM_STEPS_FROM_CPU``); each
+    step's launches as ``step_launches`` counts them.  Then, printed and
+    not held, falcon-mamba's free-running grad norms on the card through
+    the kernel and through the plain backward, each against the CPU's
+    (``slice_drift``).
+35. Main path: ``train("zamba2-2.7b", reduced=False, steps=4, batch=8,
+    seq=4096, microbatches=4)`` at full width and depth; then the same run
+    stopped at step 2 with a checkpoint (preempted: ``on_step`` raises
+    after the step-2 checkpoint) and resumed from it to step 4: the first
+    run's losses, then the resumed steps' losses, grad norms and final
+    state (every parameter's bits) equal the uninterrupted run's.  And
+    falcon-mamba-7b with 8 layers for 3 steps.  Every step launches what
+    ``step_launches`` counts (zamba2 a step: 72 flash forwards and 36
+    backwards, 612 SSD forwards and 216 backwards; falcon-mamba: 64 fused
+    scans and 32 backwards) and nothing else; a trace of one more step
+    reports the scans', their backwards' and flash's device time by name.
+
+Phases 28, 31, 32 and 35 are one function, ``full_width_training``.
 
 Any failed check raises and the script exits non-zero.  The last lines
 are the kernels' JSON record, the card's name and power limit, and
@@ -341,7 +381,9 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 BWD_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd.cu"
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd/csrc/ssd_bwd.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu"
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/selective_scan/csrc/selective_scan_bwd.cu"
 
 N_TASKS = 32768          # the main path's batch (largest gated cell)
 REPLICAS = 8             # scaled_testbed(8): 32 endpoints
@@ -459,12 +501,13 @@ MD_MSE_TOL = 1e-5
 # the trainer for the dense family (the ninth slice): granite-3-2b, the
 # reference's training default (src/repro/launch/train.py:30), trained at full
 # width and depth at the reference's train_4k length: a global batch of 8 in 4
-# microbatches of 2, 4 steps; stopped at step 2 with a checkpoint and resumed
+# microbatches of 2, 4 steps.  Its stopped and resumed run (~170 s of
+# checkpoint I/O for 31.6 GB) gave way to zamba2-2.7b's at full width in
+# phase 35, which keeps the smoke inside its time limit
 TRAIN_ARCH = "granite-3-2b"
 TRAIN = dict(batch=8, seq=4096, microbatches=4, steps=4)
-TRAIN_STOP = 2
 TRAIN_PEAK_LIMIT = 80e9     # bytes: the state and activations fit one card
-# the checkpoints of the resumed run (gitignored; removed after the phase)
+# the checkpoints of the resumed runs (gitignored; removed after each)
 TRAIN_CKPT = ROOT / "_train_ckpt"
 # (b, sq, sk, h, kv, d, causal, dtype name): head dims 16, 64, 80 and 128,
 # GQA groups 1, 4, 5 and 6, causal sq = sk and sq < sk, non-causal with sq
@@ -542,7 +585,33 @@ FAMILY_SLICE_TOL = {
                       "grads_max": 0.0227, "params": 9.20e-3, "m": 0.0127, "v": 1.85e-3},
     "whisper-tiny": {"loss": 0.0216, "grad_norm": 0.331, "grads_rel": 0.988,
                      "grads_max": 0.444, "params": 9.71e-3, "m": 0.0352, "v": 1.56e-3},
+    # the hybrid and ssm trainers: twice the spreads of
+    # tests/test_torch_train_ssm.py (the loss and the grad norm pooled over
+    # both configs' steps)
+    "zamba2-2.7b": {"loss": 3.14e-3, "grad_norm": 0.0197, "grads_rel": 0.0659,
+                    "grads_max": 0.043, "params": 8.48e-3, "m": 1.22e-3, "v": 1.15e-4},
+    "falcon-mamba-7b": {"loss": 3.14e-3, "grad_norm": 0.0197, "grads_rel": 0.0545,
+                        "grads_max": 0.0781, "params": 6.7e-3, "m": 3.02e-3, "v": 2.2e-4},
 }
+SSM_ARCHS = ("zamba2-2.7b", "falcon-mamba-7b")
+# falcon-mamba's free-running grad norms drift apart by its third step:
+# 2.0% between the card and the CPU against 1.97% allowed, as far with the
+# plain backward in place of the kernel on the card (``slice_drift``
+# prints both), while the step-1 gradients agree to 0.27%: the card's bf16
+# rounding, amplified by two updates.  So its card steps each start from
+# the CPU's state.
+SSM_STEPS_FROM_CPU = ("falcon-mamba-7b",)
+# the hybrid and ssm trainers at full width (phase 35): zamba2-2.7b at its
+# full depth (54 Mamba2 layers, the shared block 9 times) and falcon-mamba-7b
+# with 8 of its 64 layers (its full depth needs 116.4 GB of f32 state), each
+# at granite's 8 x 4,096 tokens in 4 microbatches; zamba2 stopped after
+# step 2 with a checkpoint and resumed
+SSM_TRAIN = {"zamba2-2.7b": dict(batch=8, seq=4096, microbatches=4, steps=4),
+             "falcon-mamba-7b": dict(batch=8, seq=4096, microbatches=4, steps=3)}
+SSM_STOP = {"zamba2-2.7b": 2}
+SSM_LAYERS = {"falcon-mamba-7b": 8}
+# kernels whose device time the traced train steps report by name
+SSM_WATCH = ("ssd_tc_kernel", "ssd_bwd", "scan_kernel", "scan_bwd", "flash_fwd", "flash_bwd")
 # whisper-tiny at full width, card against CPU, one train step at b=2 x 448
 # with 1,500 frames: twice the reference's own spread at that shape
 # (``tests/_torch_train_families_ref.py ... whisper-full``: the loss 2.58e-3,
@@ -1124,13 +1193,15 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     return rows
 
 
-def trace(label, fn, card, top_n=6, ranges=()) -> dict:
+def trace(label, fn, card, top_n=6, ranges=(), watch=()) -> dict:
     """A ``torch.profiler`` trace of ``fn()`` (ended by a synchronise): the
     CUDA kernels' summed time over the host clock, the launches, and the
     kernels that take the most device time.  Where the trace holds no
     device time it says so (None).  ``ranges``: names of
     ``record_function`` ranges inside ``fn``, each reported with its calls
-    and the device time of the kernels launched inside it."""
+    and the device time of the kernels launched inside it.  ``watch``:
+    name fragments, each reported with the device time and launches of the
+    kernels whose names hold it, whether or not they are among the top."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1170,6 +1241,14 @@ def trace(label, fn, card, top_n=6, ranges=()) -> dict:
           f"{out['kernel_launches']} kernel launches [{card}]", flush=True)
     for e in top:
         print(f"  {dev_us(e) / 1e3:10.4f} ms x{e.count:5d}  {e.key[:90]}", flush=True)
+    if watch:
+        out["watched"] = {}
+        for part in watch:
+            hits = [e for e in kernels if part in e.key]
+            out["watched"][part] = {"ms": sum(dev_us(e) for e in hits) / 1e3,
+                                    "count": sum(e.count for e in hits)}
+            print(f"  kernels named *{part}*: {out['watched'][part]['ms']:.6g} ms, "
+                  f"{out['watched'][part]['count']} launches", flush=True)
     if ranges:
         out["ranges"] = {}
         for name in ranges:
@@ -1593,7 +1672,8 @@ def falcon_loss(dev, card, api, scan_counts, zero_counts, others) -> dict:
                                lambda: api.loss(params, batch), card, top_n=12)
         res["profile"]["launches"] = {k: scan_counts[k] - before[k] for k in scan_counts}
         if res["profile"]["launches"] != {"selective_scan": 0,
-                                          "mamba1_scan_fused": cfg.n_layers}:
+                                          "mamba1_scan_fused": cfg.n_layers,
+                                          "mamba1_scan_bwd": 0}:
             raise AssertionError(f"traced loss forward: {res['profile']['launches']}")
     return res
 
@@ -1630,7 +1710,8 @@ def falcon_serving(dev, card, serve, api, scan_counts, zero_counts, others) -> d
           flush=True)
     prof = serving_profile(dev, card, serve, api, scan_counts, top_n=12)
     if prof["prefill"]["launches"] != {"selective_scan": 0,
-                                       "mamba1_scan_fused": cfg.n_layers} or \
+                                       "mamba1_scan_fused": cfg.n_layers,
+                                       "mamba1_scan_bwd": 0} or \
             any(prof["decode"]["launches"].values()):
         raise AssertionError(f"scan launches by window: {prof}")
     return {"arch": FM_ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
@@ -3048,32 +3129,33 @@ def fingerprint(params) -> list:
                 for p in params.parameters()]
 
 
-def train_slice_check(dev, card, get_api, flash_counts) -> dict:
+def train_slice_check(dev, card, get_api, counters) -> dict:
     """Phase 27: the reduced granite train slice, card against CPU, from
     one float32 state: the step-1 gradients, 4 steps' losses and grad
     norms, and the state after them, within ``TRAIN_SLICE_TOL``; on the
     card 2 flash launches a layer and one backward call a layer a step."""
     return train_slice_compare(dev, card, get_api(TRAIN_ARCH, reduced=True),
-                               TRAIN_SLICE_TOL, flash_counts, 4, TRAIN_ARCH)
+                               TRAIN_SLICE_TOL, counters, 4, TRAIN_ARCH)
 
 
 class Preempted(Exception):
     """Raised by a training run's ``on_step`` hook to stop it (phase 28)."""
 
 
-def full_width_training(dev, card, p_train, steps_mod, adamw, fk, others, zero_counts,
+def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero_counts,
                         arch, train_kw, stop=None, model_dims=None, ranges_fn=None,
-                        loss_falls=False, check=None) -> dict:
+                        loss_falls=False, check=None, watch=()) -> dict:
     """``arch`` trained at full width (``train_kw``: batch, seq,
     microbatches, steps and an lr; ``model_dims`` cuts the depth): on the
-    card 2 flash launches and one backward call an attention a microbatch
-    (remat's recompute), no other kernel, finite metrics (with
+    card each step launches ``step_launches`` by the ``counters`` (remat's
+    recompute included) and no other kernel, finite metrics (with
     ``loss_falls``, the last loss under the first), the peak under
     ``TRAIN_PEAK_LIMIT``; then one more step, traced (``ranges_fn()``
-    gives its ranges and their undo), after which ``check(api, params,
-    batch)`` runs; then, with ``stop``, the run stopped after step ``stop``
-    with its checkpoint and resumed, bitwise equal to the uninterrupted
-    run.  The backward's calls are counted by shape."""
+    gives its ranges and their undo; ``watch`` names kernels whose device
+    time it reports), after which ``check(api, params, batch)`` runs;
+    then, with ``stop``, the run stopped after step ``stop`` with its
+    checkpoint and resumed, bitwise equal to the uninterrupted run.
+    Flash's backward calls are counted by shape."""
     import dataclasses
     import gc
     import shutil
@@ -3089,15 +3171,13 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, others, zero_c
     kw = dict(arch=arch, reduced=False, model_dims=model_dims, seed=0, log_every=1,
               device=None, **train_kw)
     micro, n_steps = train_kw["microbatches"], train_kw["steps"]
-    n_att = n_attentions(api.cfg)
-    want = (2 * n_att * micro, n_att * micro)
-    flash_counts = fk.LAUNCHES
+    want = step_launches(api.cfg, micro)
     label = arch + (f" ({api.cfg.n_layers} of {full_layers} layers)" if model_dims else "")
     frames = f" with {api.cfg.enc_len} frames" if api.cfg.family == "encdec" else ""
     per_step = []
 
     def count_step(i, loss, dt):
-        per_step.append((flash_counts["flash_attention"], flash_counts["flash_attention_bwd"]))
+        per_step.append(launch_counts(counters))
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3110,12 +3190,13 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, others, zero_c
         wall = time.perf_counter() - t0
     finally:
         undo()
-    launches = dict(flash_counts)
+    launches = launch_counts(counters)
     steps, peak = run["steps"], run["peak_mem_bytes"]
-    deltas = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(per_step, [(0, 0)] + per_step)]
-    if any(d != want for d in deltas) or any(v for c in others for v in c.values()):
-        raise AssertionError(f"{label} training launched {deltas} flash forward / backward "
-                             f"a step (expected {want}), others {[dict(c) for c in others]}")
+    zero = {k: 0 for k in launches}
+    deltas = [launch_deltas(a, b) for a, b in zip(per_step, [zero] + per_step)]
+    if any(d != want for d in deltas) or launch_deltas(launches, per_step[-1]):
+        raise AssertionError(f"{label} training launched {deltas} a step (expected "
+                             f"{want}), {launches} in all")
     if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
         raise AssertionError(f"a non-finite loss or grad norm: {steps}")
     if loss_falls and not losses[-1] < losses[0]:
@@ -3144,7 +3225,7 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, others, zero_c
     batch.update(p_train.frontend_inputs(api, train_kw["batch"], 0, n_steps, dev))
     holder = {"state": state}
     del state
-    before = dict(flash_counts)
+    before = launch_counts(counters)
 
     def one_step():
         holder["state"], _ = step_fn(holder["state"], batch)
@@ -3152,12 +3233,13 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, others, zero_c
     ranges, undo = ranges_fn() if ranges_fn else ((), lambda: None)
     try:
         profile = trace(f"{label} train step (b={train_kw['batch']} x {train_kw['seq']}, "
-                        f"{micro} microbatches)", one_step, card, top_n=12, ranges=ranges)
+                        f"{micro} microbatches)", one_step, card, top_n=12, ranges=ranges,
+                        watch=watch)
     finally:
         undo()
-    profile["flash_launches"] = {k: flash_counts[k] - before[k] for k in flash_counts}
-    print(f"profile {label} train step: flash launches {profile['flash_launches']} "
-          f"[{card}]", flush=True)
+    profile["launches"] = launch_deltas(launch_counts(counters), before)
+    print(f"profile {label} train step: launches {profile['launches']} [{card}]",
+          flush=True)
     out = {"arch": arch, "layers": api.cfg.n_layers, "n_params": n_params, **train_kw,
            "steps": steps, "wall_s": wall, "peak_mem_bytes": peak, "launches": launches,
            "launches_per_step": want, "bwd_launches_by_shape": shapes, "profile": profile,
@@ -3244,10 +3326,42 @@ def train_loss_drop(card, p_train) -> dict:
 
 def n_attentions(cfg) -> int:
     """Flash attention calls in one forward: one an attention layer, two
-    (self and cross) an enc-dec decoder layer."""
+    (self and cross) an enc-dec decoder layer, one a zamba2 group (its
+    shared block), none in falcon-mamba."""
     if cfg.family == "encdec":
         return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "ssm":
+        return 0
     return cfg.n_layers
+
+
+def step_launches(cfg, micro=1) -> dict:
+    """The kernel launches of one train step over ``micro`` microbatches,
+    remat on, by counter name (every other counter 0): flash's forward
+    twice an attention (the forward, the recompute) and its backward once;
+    the fused Mamba1 scan twice a layer and its backward once; the SSD
+    three times a layer but twice for the last layer of each zamba2 group
+    (the group's recompute stops after its last layer's input, PyTorch's
+    non-reentrant checkpoint stopping early) and its backward once."""
+    n_att = n_attentions(cfg)
+    want = {"flash_attention": 2 * n_att, "flash_attention_bwd": n_att}
+    if cfg.family == "hybrid":
+        want.update(ssd=3 * cfg.n_layers - n_att, ssd_bwd=cfg.n_layers)
+    if cfg.family == "ssm":
+        want.update(mamba1_scan_fused=2 * cfg.n_layers, mamba1_scan_bwd=cfg.n_layers)
+    return {k: v * micro for k, v in want.items() if v}
+
+
+def launch_counts(counters) -> dict:
+    """Every counter's launches so far, by name (the names are distinct)."""
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def launch_deltas(after, before) -> dict:
+    """The counters that moved between two ``launch_counts``."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 def slice_batches(cfg, n, rows=4, seq=128) -> list:
@@ -3285,21 +3399,26 @@ def state_numbers(state) -> dict:
             "v": {n: t.cpu() for n, t in state["opt"]["v"].items()}}
 
 
-def train_slice_compare(dev, card, api, tol, flash_counts, n_steps, label,
-                        last_from_cpu=False) -> dict:
+def train_slice_compare(dev, card, api, tol, counters, n_steps, label,
+                        last_from_cpu=False, steps_from_cpu=False) -> dict:
     """A reduced train slice, card against CPU, from one float32 state
     (``api.init(0)``) on ``slice_batches``: the step-1 gradients, every
     step's loss and grad norm, and the state after the steps within
-    ``tol``; on the card 2 flash launches and one backward call an
-    attention a step.  With ``last_from_cpu`` the state is held after the
-    card's last step from the CPU's state before it."""
+    ``tol``; on the card each step launches ``step_launches`` by the
+    ``counters`` (the kernels' ``LAUNCHES``) and nothing else.  With
+    ``last_from_cpu`` the state is held after the card's last step from
+    the CPU's state before it; with ``steps_from_cpu`` every card step
+    starts from the CPU's state before it, so each step's loss, grad norm
+    and (after the last) state are held without the free-running runs'
+    drift."""
     import numpy as np
     import torch
     from repro_torch.distributed.steps import build_train_step
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    n_att = n_attentions(api.cfg)
+    want = step_launches(api.cfg)
     data = slice_batches(api.cfg, n_steps)
     runs = {}
+    cpu_in = []   # the CPU's state before each step
     for run, where in (("cpu", "cpu"), ("card", dev)):
         params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
         state = {"params": params, "opt": init_opt_state(params)}
@@ -3312,23 +3431,24 @@ def train_slice_compare(dev, card, api, tol, flash_counts, n_steps, label,
         step = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))
         metrics = []
         for i, b in enumerate(batches):
-            if run == "cpu" and i == n_steps - 1:
-                last_in = state_to(state, "cpu")
-            before = dict(flash_counts)
+            if run == "cpu":
+                cpu_in.append(state_to(state, "cpu"))
+            elif steps_from_cpu and i:
+                state = state_to(cpu_in[i], where)
+            before = launch_counts(counters)
             state, m = step(state, b)
             metrics.append({k: float(v) for k, v in m.items()})
             if run == "card":
-                got = (flash_counts["flash_attention"] - before["flash_attention"],
-                       flash_counts["flash_attention_bwd"] - before["flash_attention_bwd"])
-                if got != (2 * n_att, n_att):
-                    raise AssertionError(f"a reduced {label} train step launched {got} flash "
-                                         f"forward / backward, expected {(2 * n_att, n_att)}")
+                got = launch_deltas(launch_counts(counters), before)
+                if got != want:
+                    raise AssertionError(f"a reduced {label} train step launched {got}, "
+                                         f"expected {want}")
         runs[run] = {"grads": grads, "metrics": metrics, **state_numbers(state)}
         del state, params
     cpu, card_run = runs["cpu"], runs["card"]
     if last_from_cpu:
         state, _ = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))(
-            state_to(last_in, dev), {k: v.to(dev) for k, v in data[-1].items()})
+            state_to(cpu_in[-1], dev), {k: v.to(dev) for k, v in data[-1].items()})
         card_run.update(state_numbers(state))
         del state
 
@@ -3352,12 +3472,50 @@ def train_slice_compare(dev, card, api, tol, flash_counts, n_steps, label,
                              f"CPU: {bad} (finite {finite})")
     print(f"slice reduced {label} train b=4 x 128, {n_steps} steps"
           f"{' (the state after the last step from the CPU state)' if last_from_cpu else ''}"
+          f"{' (each step from the CPU state before it)' if steps_from_cpu else ''}"
           ": card vs CPU " + ", ".join(f"{k} {e:.6g} (bound {tol[k]})"
                                        for k, e in errs.items())
           + f"; losses card {[round(m['loss'], 6) for m in card_run['metrics']]} [{card}]",
           flush=True)
     return {"errors": errs, "card_losses": [m["loss"] for m in card_run["metrics"]],
             "cpu_losses": [m["loss"] for m in cpu["metrics"]]}
+
+
+def slice_drift(dev, card, api, fk, fr, n_steps=3) -> dict:
+    """Phase 34b, printed and not held: reduced falcon-mamba's free-running
+    steps (``slice_batches``, one float32 state) on the CPU, on the card
+    through the fused scan's backward kernel, and on the card with its
+    plain backward in the kernel's place: each card run's grad norms
+    against the CPU's, step by step.  Where the plain backward drifts as
+    far, the drift is the card's rounding, not the kernel."""
+    import torch
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    data = slice_batches(api.cfg, n_steps)
+    kernel_bwd = fk.mamba1_scan_fused_bwd
+    norms = {}
+    for run, where in (("cpu", "cpu"), ("kernels", dev), ("plain backward", dev)):
+        if run == "plain backward":
+            fk.mamba1_scan_fused_bwd = fr.mamba1_scan_fused_plain_bwd
+        try:
+            params = api.init(0, "cpu", dtype=torch.float32, trainable=True).to(where)
+            state = {"params": params, "opt": init_opt_state(params)}
+            step = build_train_step(api, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8))
+            norms[run] = []
+            for b in data:
+                state, m = step(state, {k: v.to(where) for k, v in b.items()})
+                norms[run].append(float(m["grad_norm"]))
+        finally:
+            fk.mamba1_scan_fused_bwd = kernel_bwd
+        del state, params
+    drift = {run: [abs(a - c) / c for a, c in zip(norms[run], norms["cpu"])]
+             for run in ("kernels", "plain backward")}
+    print(f"slice reduced {api.cfg.name} free-running {n_steps} steps, grad norms against "
+          f"the CPU's {norms['cpu']}: "
+          + "; ".join(f"{run} {[round(x, 6) for x in norms[run]]}, relative drift "
+                      f"{[f'{x:.4g}' for x in drift[run]]}" for run in drift)
+          + f" (not held) [{card}]", flush=True)
+    return {"grad_norms": norms, "drift": drift}
 
 
 def whisper_full_check(dev, card, api, fk, flash_counts) -> dict:
@@ -3662,6 +3820,255 @@ def whisper_f32_gradients(dev, card, api, fk, fr, lm_mod, encdec_mod, b=2, s=448
                                 for k, v in vs_cpu.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the hybrid and ssm trainers: the SSD's and the fused scan's backward
+# kernels, the reduced slices, zamba2 and falcon-mamba at full width
+# ---------------------------------------------------------------------------
+
+
+def ssd_bwd_forms(b, L, nh, hd, n, chunk) -> tuple[int, int]:
+    """f32 operations of the SSD gradient's two forms, (chunked,
+    recurrence).  The chunked form at ``chunk``: per (row, chunk of q
+    tokens) the triangle of G = C B^T, shared by the heads (q(q+1) n); per
+    head the triangles of dy xdt^T and M^T dy (q(q+1) hd each) and of dM B
+    and dM^T C (q(q+1) n each), and five (q, n, hd) products: B dS,
+    dy S^T, xdt dS^T, the chunk's state and its gradient (2 q n hd each).
+    The recurrence: per (row, token, head) the recomputed state (3 n hd),
+    its gradient (3 n hd), dxdt, dB, dC and dloga (2 n hd each)."""
+    chunked = 0
+    for c0 in range(0, L, chunk):
+        q = min(chunk, L - c0)
+        chunked += b * (q * (q + 1) * n
+                        + nh * (2 * q * (q + 1) * (hd + n) + 10 * q * n * hd))
+    return chunked, b * L * nh * 14 * n * hd
+
+
+def ssd_bwd_bound_ms(b, L, nh, hd, n, chunk=64, dS=False) -> dict:
+    """The least time the SSD's gradient takes on the card: the larger of
+    its bytes (xdt, dy, loga, B, C and dS where given read once; dxdt,
+    dloga, dB, dC written once; f32) at the memory rate and its
+    operations, the lesser of the recurrence on the f32 CUDA cores and the
+    chunked form (at the kernel's chunk) as 3xTF32 on the tensor cores."""
+    chunked, recurrence = ssd_bwd_forms(b, L, nh, hd, n, chunk)
+    nbytes = 4 * (3 * b * L * nh * hd + 2 * b * L * nh + 4 * b * L * n
+                  + (b * nh * n * hd if dS else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_rec = recurrence / FP32_FLOPS * 1e3
+    t_chunked = 3 * chunked / TF32_FLOPS * 1e3
+    t_ops = min(t_rec, t_chunked)
+    form = ("the recurrence on the f32 CUDA cores at 67 TFLOP/s" if t_rec <= t_chunked
+            else "the chunked form as 3xTF32 on the tensor cores at 495 TFLOP/s")
+    return dict(nbytes=nbytes, chunked_flops=chunked, recurrence_flops=recurrence,
+                t_bytes=t_bytes, t_ops=t_ops, ops_form=form,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_scan_bwd_bound(b, L, d, n) -> dict:
+    """The least time the fused Mamba1 scan's gradient takes on the card:
+    xc, dt_raw, z and dy read and dxc, ddt_raw and dz written once (bf16),
+    B and C read and dB and dC written once (bf16), A, dt_b, D read and
+    dA, dD, ddt_b written once (f32).  On the special-function units what
+    the function needs, as the forward's bound counts it: the state's exp
+    once a (token, channel, state), and the softplus's exp and log and one
+    operation for the gate a (token, channel) (the softplus's derivative
+    is e / (1 + e) of the same exp); on the FMA lanes 18 f32 operations a
+    (token, channel, state) (the recomputed state 3, its read-out 2, the
+    state's gradient 2, dh.B 2, dA's and ddelta's terms 6, dB's part 2, the
+    decay 1) and 20 a (token, channel).  The two run side by side."""
+    nbytes = 2 * (7 * b * L * d + 4 * b * L * n) + 4 * 2 * (d * n + 2 * d)
+    sfu = b * L * d * (n + 3)
+    flops = b * L * d * (18 * n + 20)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS, sfu / SFU_PER_S) * 1e3
+    return dict(nbytes=nbytes, sfu=sfu, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# the backward kernels against their plain versions (phase 33).  SSD: (b, L,
+# nh, hd, n, dS given): ragged lengths against the kernel's chunk, state 8,
+# 16 and 64, the widest head and state (its smaller chunk), one token.
+SSD_BWD_CASES = [(2, 300, 4, 64, 64, True), (1, 100, 3, 16, 8, True),
+                 (2, 77, 5, 32, 16, False), (1, 130, 2, 128, 128, True),
+                 (2, 1, 4, 64, 64, True), (1, 1000, 8, 64, 64, False)]
+# the fused scan: (b, L, d, n): d not a multiple of the 64-channel CTA,
+# ragged lengths against the 16-token chunk, state 8, 16 and 64, one token
+SCAN_BWD_CASES = [(2, 100, 72, 16), (1, 64, 128, 8), (2, 33, 200, 64), (1, 1, 8, 4),
+                  (1, 500, 520, 16)]
+# zamba2's microbatch (b=2 of the trainer's 8 x 4,096 in 4) and
+# falcon-mamba's, timed
+SSD_BWD_TIMED = (2, 4096, 80, 64, 64)
+SCAN_BWD_TIMED = (2, 4096, 8192, 16)
+# each gradient element within rtol (|want| + RMS(want)) of the plain
+# backward: both sides add in f32 in other orders (the SSD's kernel in
+# chunks, its plain version token by token; the scan's exp is ex2.approx);
+# the scan's bf16 gradients also one bf16 ulp (2^-7 of the value) apart
+# where the two round on either side of a boundary
+SSM_BWD_RTOL = 1e-3
+BF16_ULP = 2.0 ** -7
+
+
+def ssm_grad_errors(got, want) -> dict:
+    """Per gradient: the largest |got - want| over its bound
+    (``SSM_BWD_RTOL`` (|want| + RMS(want)), plus a bf16 ulp of |want| for
+    bf16 gradients), and the largest |got - want|.  Ratios above 1 fail."""
+    import torch
+    out = {}
+    for name, g in got.items():
+        w = want[name].double()
+        e = (g.double() - w).abs()
+        rms = float(w.pow(2).mean().sqrt()) if w.numel() else 0.0
+        bound = SSM_BWD_RTOL * (w.abs() + rms)
+        if g.dtype == torch.bfloat16:
+            bound = bound + BF16_ULP * w.abs()
+        finite = bool(torch.isfinite(g).all())
+        out[name] = {"ratio": float((e / bound.clamp_min(1e-30)).max()) if finite
+                     else float("inf"), "max_abs_err": float(e.max()) if finite else
+                     float("inf")}
+    return out
+
+
+def ssd_bwd_case(gen, dev, b, L, nh, hd, n, with_dS):
+    """Seeded inputs of the SSD's gradient: the trainer's pre-weighted
+    forms (xdt = x dt, loga = dt A with dt a softplus), dy standard normal
+    and dS where given."""
+    import torch
+    x = torch.randn((b, L, nh, hd), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, L, nh), generator=gen, device=dev) * 0.5)
+    A = -torch.exp(torch.randn((nh,), generator=gen, device=dev) * 0.3)
+    B = torch.randn((b, L, n), generator=gen, device=dev)
+    C = torch.randn((b, L, n), generator=gen, device=dev)
+    dy = torch.randn((b, L, nh, hd), generator=gen, device=dev)
+    dS = torch.randn((b, nh, n, hd), generator=gen, device=dev) if with_dS else None
+    return (x * dt[..., None], dt * A, B, C, dy, dS)
+
+
+def scan_bwd_case(gen, dev, b, L, d, n, r=8):
+    """The fused scan's inputs as the block leaves them (strided z, B and
+    C) and a bf16 dy."""
+    import torch
+    args = fused_scan_inputs(gen, b, L, d, n, r, dev)
+    dy = torch.randn((b, L, d), generator=gen, device=dev).to(torch.bfloat16)
+    return args, dy
+
+
+SSD_GRADS = ("dxdt", "dloga", "dB", "dC")
+SCAN_GRADS = ("dxc", "ddt_raw", "ddt_b", "dA", "dB", "dC", "dD", "dz")
+
+
+def ssm_bwd_check(label, run, plain, names, card, plant=None) -> float:
+    """``run()`` (the kernel) against ``plain()`` (its plain version) by
+    ``ssm_grad_errors``, a second call bitwise equal to the first; with
+    ``plant`` = (gradient, index), that gradient's later half scaled by
+    1.01 must fail the check.  Returns the largest ratio and the largest
+    |got - want|."""
+    import torch
+    got = dict(zip(names, run()))
+    again = dict(zip(names, run()))
+    want = dict(zip(names, plain()))
+    torch.cuda.synchronize()
+    if not all(bits_equal(got[k], again[k]) for k in names):
+        raise AssertionError(f"{label}: two calls differ")
+    errs = ssm_grad_errors(got, want)
+    worst = max(e["ratio"] for e in errs.values())
+    if not worst <= 1.0:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain backward: "
+                             f"{errs}")
+    if plant:
+        bad = dict(got)
+        t = bad[plant].clone()
+        flat = t.view(-1)
+        flat[flat.numel() // 2:] *= 1.01
+        bad[plant] = t
+        if max(e["ratio"] for e in ssm_grad_errors(bad, want).values()) <= 1.0:
+            raise AssertionError(f"{label}: a 1% error planted in {plant} passed")
+    print(f"kernel {label}: largest error over its bound {worst:.4g} ("
+          + ", ".join(f"{k} {e['ratio']:.3g} ({e['max_abs_err']:.3g})"
+                      for k, e in errs.items())
+          + "), a second call bitwise equal"
+          + (f"; a 1% error planted in {plant} caught" if plant else "") + f" [{card}]",
+          flush=True)
+    return worst, max(e["max_abs_err"] for e in errs.values())
+
+
+def ssm_bwd_checks(dev, card, sk, sr, fk, fr) -> dict:
+    """Phase 33: the SSD's backward kernel (``sk.ssd_bwd``) and the fused
+    scan's (``fk.mamba1_scan_fused_bwd``) against their plain versions on
+    ``SSD_BWD_CASES`` and ``SCAN_BWD_CASES``, then each at its timed shape:
+    checked (a 1% error planted in the SSD's dxdt and the scan's dB must
+    be caught), timed beside the plain version and the bound.  Returns the
+    two kernel rows."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(33)
+    worst = {"ssd_bwd": (0.0, 0.0), "mamba1_scan_bwd": (0.0, 0.0)}
+
+    def keep(name, res):
+        worst[name] = tuple(max(x, y) for x, y in zip(worst[name], res))
+
+    for b, L, nh, hd, n, with_dS in SSD_BWD_CASES:
+        a = ssd_bwd_case(gen, dev, b, L, nh, hd, n, with_dS)
+        keep("ssd_bwd", ssm_bwd_check(
+            f"ssd_bwd b={b} L={L} nh={nh} hd={hd} n={n} dS={with_dS}",
+            lambda: sk.ssd_bwd(*a), lambda: sr.ssd_plain_bwd(*a), SSD_GRADS, card))
+    for b, L, d, n in SCAN_BWD_CASES:
+        args, dy = scan_bwd_case(gen, dev, b, L, d, n)
+        keep("mamba1_scan_bwd", ssm_bwd_check(
+            f"mamba1_scan_bwd b={b} L={L} d={d} n={n}",
+            lambda: fk.mamba1_scan_fused_bwd(*args, dy),
+            lambda: fr.mamba1_scan_fused_plain_bwd(*args, dy), SCAN_GRADS, card))
+    rows = {}
+    b, L, nh, hd, n = SSD_BWD_TIMED
+    a = ssd_bwd_case(gen, dev, b, L, nh, hd, n, False)
+    keep("ssd_bwd", ssm_bwd_check(
+        f"ssd_bwd at zamba2's microbatch b={b} L={L} nh={nh} hd={hd} n={n}",
+        lambda: sk.ssd_bwd(*a), lambda: sr.ssd_plain_bwd(*a), SSD_GRADS, card,
+        plant="dxdt"))
+    ms = cuda_ms(lambda: sk.ssd_bwd(*a), reps=5)
+    fwd_ms = cuda_ms(lambda: sk.ssd(*a[:4]), reps=5)
+    plain = event_ms(lambda: sr.ssd_plain_bwd(*a))
+    bound = ssd_bwd_bound_ms(b, L, nh, hd, n)
+    rows["ssd_bwd"] = dict(bound, shape=[b, L, nh, hd, n], ms=ms, forward_ms=fwd_ms,
+                           plain_ms=plain, library_ms=None, err=worst["ssd_bwd"][0],
+                           max_abs_err=worst["ssd_bwd"][1])
+    print(f"time ssd_bwd b={b} L={L} nh={nh} hd={hd} n={n}: kernel {ms:.6g} ms (the "
+          f"forward kernel {fwd_ms:.6g} ms), plain backward {plain:.6g} ms, library call "
+          f"none, bound {bound['bound_ms']:.6g} ms by {bound['bound_by']} "
+          f"({bound['nbytes']} B take {bound['t_bytes']:.6g} ms; the operations "
+          f"{bound['t_ops']:.6g} ms as {bound['ops_form']}); "
+          f"{bound['bound_ms'] / ms:.4f} of its bound [{card}]", flush=True)
+    del a
+    b, L, d, n = SCAN_BWD_TIMED
+    args, dy = scan_bwd_case(gen, dev, b, L, d, n, r=256)
+    keep("mamba1_scan_bwd", ssm_bwd_check(
+        f"mamba1_scan_bwd at falcon-mamba's microbatch b={b} L={L} d={d} n={n}",
+        lambda: fk.mamba1_scan_fused_bwd(*args, dy),
+        lambda: fr.mamba1_scan_fused_plain_bwd(*args, dy), SCAN_GRADS, card, plant="dB"))
+    ms = cuda_ms(lambda: fk.mamba1_scan_fused_bwd(*args, dy), reps=5)
+    fwd_ms = cuda_ms(lambda: fk.mamba1_scan_fused(*args), reps=5)
+    plain = event_ms(lambda: fr.mamba1_scan_fused_plain_bwd(*args, dy))
+    bound = fused_scan_bwd_bound(b, L, d, n)
+    outs = fk.mamba1_scan_fused_bwd(*args, dy)
+    moved = sum(t.numel() * t.element_size() for t in (*args, dy, *outs))
+    del outs
+    if bound["nbytes"] != moved:
+        raise AssertionError(f"fused_scan_bwd_bound counts {bound['nbytes']} B, the call "
+                             f"moves {moved} B")
+    rows["mamba1_scan_bwd"] = dict(bound, shape=[b, L, d, n], ms=ms, forward_ms=fwd_ms,
+                                   plain_ms=plain, library_ms=None,
+                                   err=worst["mamba1_scan_bwd"][0],
+                                   max_abs_err=worst["mamba1_scan_bwd"][1])
+    print(f"time mamba1_scan_bwd b={b} L={L} d={d} n={n}: kernel {ms:.6g} ms (the fused "
+          f"forward {fwd_ms:.6g} ms), plain backward {plain:.6g} ms, library call none, "
+          f"bound {bound['bound_ms']:.6g} ms by {bound['bound_by']} ({bound['nbytes']} B "
+          f"take {bound['t_bytes']:.6g} ms; {bound['sfu']} special-function operations "
+          f"take {bound['sfu'] / SFU_PER_S * 1e3:.6g} ms; {bound['flops']} f32 FLOP take "
+          f"{bound['flops'] / FP32_FLOPS * 1e3:.6g} ms); {bound['bound_ms'] / ms:.4f} of "
+          f"its bound [{card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3712,9 +4119,10 @@ def main() -> int:
     kbuild.build_all([(build.SOURCE, build.NVCC_FLAGS)] + [
         (src, kbuild.NVCC_FLAGS)
         for src in (flash_kernel.SOURCE, flash_kernel.BWD_SOURCE, dec_kernel.SOURCE,
-                    ssd_kernel.SOURCE, scan_kernel.SOURCE)], verbose=True)
+                    ssd_kernel.SOURCE, ssd_kernel.BWD_SOURCE, scan_kernel.SOURCE,
+                    scan_kernel.BWD_SOURCE)], verbose=True)
     for lib in (build.lib, flash_kernel.lib, flash_kernel.bwd_lib, dec_kernel.lib,
-                ssd_kernel.lib, scan_kernel.lib):
+                ssd_kernel.lib, ssd_kernel.bwd_lib, scan_kernel.lib, scan_kernel.bwd_lib):
         lib()
     for name, st in kbuild.BUILD_STATS.items():
         print(f"build {name}: nvcc {st['builds']} build(s), {st['seconds']:.2f} s "
@@ -4203,12 +4611,11 @@ def main() -> int:
         for tag, (b, sq, sk, h, kv, d, causal) in BWD_TIMED_FAMILIES.items()}
 
     # ---- 27. the reduced granite train slice, card against CPU ---------------
-    train_slice = train_slice_check(dev, card, get_api, flash_kernel.LAUNCHES)
+    train_slice = train_slice_check(dev, card, get_api, counters)
 
     # ---- 28. main path: granite-3-2b trained at full width and depth ---------
-    others = [c for c in counters if c is not flash_kernel.LAUNCHES]
     training = full_width_training(dev, card, p_train, train_steps, adamw, flash_kernel,
-                                   others, zero_counts, TRAIN_ARCH, TRAIN, stop=TRAIN_STOP)
+                                   counters, zero_counts, TRAIN_ARCH, TRAIN)
     training["slice"] = train_slice
 
     # ---- 29. the reduced trainer's loss drop on the card ----------------------
@@ -4219,9 +4626,9 @@ def main() -> int:
     # ---- 30. the MoE, VLM and enc-dec train slices, card against CPU ---------
     family_slices = {
         arch: train_slice_compare(dev, card, get_api(arch, reduced=True),
-                                  FAMILY_SLICE_TOL[arch], flash_kernel.LAUNCHES, 3, arch,
+                                  FAMILY_SLICE_TOL[arch], counters, 3, arch,
                                   last_from_cpu=arch == WHISPER)
-        for arch in FAMILY_SLICE_TOL}
+        for arch in FAMILY_SLICE_TOL if arch not in SSM_ARCHS}
     family_slices["whisper-tiny full width"] = whisper_full_check(
         dev, card, get_api(WHISPER), flash_kernel, flash_kernel.LAUNCHES)
     from repro_torch.models import encdec as encdec_mod
@@ -4231,7 +4638,7 @@ def main() -> int:
 
     # ---- 31. main path: whisper-tiny trained at full width and depth ---------
     families = {WHISPER: full_width_training(
-        dev, card, p_train, train_steps, adamw, flash_kernel, others, zero_counts, WHISPER,
+        dev, card, p_train, train_steps, adamw, flash_kernel, counters, zero_counts, WHISPER,
         WHISPER_TRAIN, stop=WHISPER_STOP, loss_falls=True)}
 
     # ---- 32. moonshot-v1-16b-a3b and internvl2-26b at full width, 2 layers ---
@@ -4240,7 +4647,7 @@ def main() -> int:
     for arch in WIDE_ARCHS:
         is_moe = get_api(arch).cfg.family == "moe"
         families[arch] = full_width_training(
-            dev, card, p_train, train_steps, adamw, flash_kernel, others, zero_counts, arch,
+            dev, card, p_train, train_steps, adamw, flash_kernel, counters, zero_counts, arch,
             WIDE_TRAIN, model_dims={"n_layers": WIDE_LAYERS},
             ranges_fn=(lambda: moe_backward_ranges(moe)) if is_moe else None,
             check=(lambda api, params, batch: moe_recompute_routes(
@@ -4248,6 +4655,32 @@ def main() -> int:
     families["slices"] = family_slices
     families["kernels"] = family_bwd_rows
     print(json.dumps({"family_training": families}), flush=True)
+
+    # ---- 33. the SSD's and the fused scan's backward kernels -----------------
+    torch.cuda.empty_cache()
+    ssm_rows = ssm_bwd_checks(dev, card, ssd_kernel, ssd_ref, scan_kernel, scan_ref)
+
+    # ---- 34. the reduced zamba2 and falcon-mamba train slices, card vs CPU ---
+    ssm_slices = {arch: train_slice_compare(dev, card, get_api(arch, reduced=True),
+                                            FAMILY_SLICE_TOL[arch], counters, 3, arch,
+                                            steps_from_cpu=arch in SSM_STEPS_FROM_CPU)
+                  for arch in SSM_ARCHS}
+    for arch in SSM_STEPS_FROM_CPU:
+        ssm_slices[arch]["free_running"] = slice_drift(
+            dev, card, get_api(arch, reduced=True), scan_kernel, scan_ref)
+
+    # ---- 35. main path: zamba2-2.7b at full width and depth, falcon-mamba-7b
+    # at full width with 8 layers
+    ssm_training = {}
+    for arch in SSM_ARCHS:
+        ssm_training[arch] = full_width_training(
+            dev, card, p_train, train_steps, adamw, flash_kernel, counters, zero_counts, arch,
+            SSM_TRAIN[arch], stop=SSM_STOP.get(arch),
+            model_dims={"n_layers": SSM_LAYERS[arch]} if arch in SSM_LAYERS else None,
+            watch=SSM_WATCH)
+    ssm_training["slices"] = ssm_slices
+    ssm_training["kernels"] = ssm_rows
+    print(json.dumps({"ssm_training": ssm_training}), flush=True)
 
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
@@ -4327,6 +4760,20 @@ def main() -> int:
         "ms": r["ms"], "ms_without_lse": r["ms_without_lse"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"]})
+    # the hybrid and ssm trainers' backward kernels, timed at their
+    # microbatches, with their launches in phase 35's runs
+    for name, source, line, arch in (
+            ("ssd_bwd", SSD_BWD_SOURCE, "src/repro/kernels/ssd/kernel.py:26", "zamba2-2.7b"),
+            ("mamba1_scan_bwd", SCAN_BWD_SOURCE,
+             "src/repro/kernels/selective_scan/kernel.py:23", "falcon-mamba-7b")):
+        r = ssm_rows[name]
+        kernels.append({
+            "name": f"{name}/{arch}", "route": "cuda", "source": source, "replaces": line,
+            "model": arch, "shape": r["shape"],
+            "launches": ssm_training[arch]["launches"].get(name, 0),
+            "max_abs_err": r["max_abs_err"], "err_over_bound": r["err"], "ms": r["ms"],
+            "forward_ms": r["forward_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

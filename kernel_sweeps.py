@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Timing sweeps of the port's redesigned scan, placement-window and
-flash-attention backward kernels on one GPU.
+"""Timing sweeps of the port's redesigned scan, placement-window,
+flash-attention backward and SSD / fused-scan backward kernels on one
+GPU.
 
     python3 kernel_sweeps.py scan   [--parent DIR] [--other FILE ...]
     python3 kernel_sweeps.py window [--parent DIR] [--other FILE ...] [--unchecked]
     python3 kernel_sweeps.py bwd    [--parent DIR] [--other FILE ...] [--unchecked]
+    python3 kernel_sweeps.py ssm    [--parent DIR] [--other FILE ...] [--unchecked]
 
 ``scan`` times the shipped ``kernels/selective_scan/csrc/selective_scan.cu``
 at falcon-mamba-7b's loss shape (b=4, L=4096, d=8192, n=16): the fused form
@@ -33,6 +35,17 @@ build (the shipped one, each ``--other FILE`` unless ``--unchecked``, and
 the parent's) is first held to the plain backward by
 ``chip_smoke.grad_errors`` / ``grad_ok`` on one ragged causal case at each
 head_dim.  Each ``--other`` runs in turns with the shipped build.
+
+``ssm`` times the shipped backward kernels of the SSD
+(``kernels/ssd/csrc/ssd_bwd.cu``) at zamba2-2.7b's training microbatch
+(``chip_smoke.SSD_BWD_TIMED``) and of the fused Mamba1 scan
+(``kernels/selective_scan/csrc/selective_scan_bwd.cu``) at falcon-mamba-7b's
+(``chip_smoke.SCAN_BWD_TIMED``).  Each ``--other FILE`` is another version
+of one of the two sources, picked by its file name; unless
+``--unchecked``, it is first held to the plain backward by
+``chip_smoke.ssm_bwd_check`` at the timed shape (a second call bitwise
+equal, a planted error caught), then timed in turns with the shipped
+build.
 
 With ``--parent DIR`` (a checkout of another commit), each sweep also
 times that checkout's kernel on the same inputs, in turns with this one
@@ -432,15 +445,80 @@ def bwd_sweep(card, parent, others, unchecked):
     return out
 
 
+def ssm_bwd_sweep(card, parent, others, unchecked):
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.selective_scan import kernel as fk
+    from repro_torch.kernels.selective_scan import ref as fr
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ref as sr
+
+    dev = torch.device("cuda")
+    kinds = {sk.BWD_SOURCE.name: (sk, sk._bind_bwd, sr), fk.BWD_SOURCE.name: (fk, fk._bind_bwd, fr)}
+    for f in others:
+        if pathlib.Path(f).name not in kinds:
+            raise SystemExit(f"ssm: {f} is neither {' nor '.join(kinds)}")
+    jobs = [(mod.BWD_SOURCE, kbuild.NVCC_FLAGS) for mod, _, _ in kinds.values()]
+    jobs += [(staged(f, None, i + 1), kbuild.NVCC_FLAGS) for i, f in enumerate(others)]
+    if parent:
+        jobs += [(pathlib.Path(parent) / mod.BWD_SOURCE.relative_to(ROOT), kbuild.NVCC_FLAGS)
+                 for mod, _, _ in kinds.values()]
+    paths = build(jobs)
+    handles = {}   # file name -> {build name: handle}
+    for (mod, bind, _), path in zip(kinds.values(), paths[:2]):
+        handles[mod.BWD_SOURCE.name] = {"this": loaded(path, bind)}
+    for f, path in zip(others, paths[2:2 + len(others)]):
+        name = pathlib.Path(f).name
+        handles[name][f] = loaded(path, kinds[name][1])
+    if parent:
+        for (mod, bind, _), path in zip(kinds.values(), paths[2 + len(others):]):
+            handles[mod.BWD_SOURCE.name]["parent"] = loaded(path, bind)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out = {}
+    for fname, (mod, _, ref) in kinds.items():
+        if mod is sk:
+            args = cs.ssd_bwd_case(gen, dev, *cs.SSD_BWD_TIMED, False)
+            run = lambda: sk.ssd_bwd(*args)
+            plain = lambda: sr.ssd_plain_bwd(*args)
+            names, plant, shape = cs.SSD_GRADS, "dxdt", cs.SSD_BWD_TIMED
+        else:
+            fargs, dy = cs.scan_bwd_case(gen, dev, *cs.SCAN_BWD_TIMED, r=256)
+            run = lambda: fk.mamba1_scan_fused_bwd(*fargs, dy)
+            plain = lambda: fr.mamba1_scan_fused_plain_bwd(*fargs, dy)
+            names, plant, shape = cs.SCAN_GRADS, "dB", cs.SCAN_BWD_TIMED
+        builds = handles[fname]
+        for name, handle in builds.items():
+            if unchecked and name in others:
+                continue
+            route(mod.BWD_SOURCE, handle)
+            cs.ssm_bwd_check(f"ssm {fname} build {name}", run, plain, names, card, plant=plant)
+        order = []
+        if "parent" in builds:
+            order.append(("parent", "this", "this", "parent"))
+        order += [("this", f, f, "this") for f in builds if f not in ("this", "parent")]
+        turns = []
+        for turn in order or [("this",)]:
+            for name in turn:
+                route(mod.BWD_SOURCE, builds[name])
+                turns.append((name, cs.cuda_ms(run, reps=10)))
+        route(mod.BWD_SOURCE, builds["this"])
+        print(f"ssm {fname} at {shape}: " + ", ".join(f"{n} {t:.6g} ms" for n, t in turns)
+              + f" [{card}]", flush=True)
+        out[fname] = {"shape": list(shape), "turns": turns}
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("which", choices=("scan", "window", "bwd"))
+    ap.add_argument("which", choices=("scan", "window", "bwd", "ssm"))
     ap.add_argument("--parent", help="a checkout of another commit to time in turns")
     ap.add_argument("--other", action="append", default=[],
                     help="another version of the kernel's source with its C interface")
     ap.add_argument("--unchecked", action="store_true",
-                    help="window, bwd: time the --other builds without holding their "
+                    help="window, bwd, ssm: time the --other builds without holding their "
                          "outputs to the shipped build's (the plain version's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -453,6 +531,8 @@ def main() -> int:
         res = scan_sweep(card, args.parent, args.other)
     elif args.which == "window":
         res = window_sweep(card, args.parent, args.other, args.unchecked)
+    elif args.which == "ssm":
+        res = ssm_bwd_sweep(card, args.parent, args.other, args.unchecked)
     else:
         res = bwd_sweep(card, args.parent, args.other, args.unchecked)
     res["card"] = card

@@ -1,24 +1,31 @@
-"""Python wrappers of the hand-written Mamba1 selective-scan kernel
-(``csrc/selective_scan.cu``), one CUDA design in two forms:
+"""Python wrappers of the hand-written Mamba1 selective-scan kernels
+(``csrc/selective_scan.cu``, one CUDA design in two forms, and the fused
+form's gradient, ``csrc/selective_scan_bwd.cu``):
 
 - ``selective_scan``: the reference's interface, float32 in and out;
 - ``mamba1_scan_fused``: the Mamba1 block's work from the ``dt_w`` product
   to ``out_proj`` (the dt_b add and softplus, the scan, D*x, the SiLU
   gate and the bf16 cast) in one launch, reading bf16 inputs through the
-  strided views the projections leave.
+  strided views the projections leave.  Where a gradient will be taken
+  it applies ``Mamba1ScanFused``, a ``torch.autograd.Function`` whose
+  backward runs ``mamba1_scan_fused_bwd`` (the backward kernel on the
+  card, the plain reverse recurrence on the CPU).
 
-The wrappers refuse inputs that require a gradient (the kernel has no
-backward; training is a later slice of the port), check device, dtype,
-shape, strides and alignment (the kernel reads rows as 16-byte vectors),
-allocate y and, on request, the final state with ``torch.empty``, launch
-on the current CUDA stream and raise if the launch was refused.
+``selective_scan`` refuses inputs that require a gradient: the model
+trains through the fused form, and the f32 form, off its path, has no
+backward.  The wrappers check device, dtype, shape, strides and alignment
+(the kernel reads rows as 16-byte vectors), allocate y and, on request,
+the final state with ``torch.empty``, launch on the current CUDA stream
+and raise if the launch was refused.
 ``selective_scan`` takes any d, as the reference's interface does: where
 d is not a multiple of the kernel's 4-float vector, or a row does not
 start on 16 bytes, it runs on zero-padded copies (a zero channel stays
 zero) and returns the first d channels.
-``LAUNCHES`` counts the launches of each form.  On CPU tensors they run
-the plain versions (``ref.selective_scan_plain``,
-``ref.mamba1_scan_fused_plain``) instead and count nothing.
+``LAUNCHES`` counts the launches of each form and the backward's calls
+(``mamba1_scan_bwd``: one a call, for its two kernels).  On CPU tensors
+they run the plain versions (``ref.selective_scan_plain``,
+``ref.mamba1_scan_fused_plain``, ``ref.mamba1_scan_fused_plain_bwd``)
+instead and count nothing.
 """
 from __future__ import annotations
 
@@ -32,10 +39,11 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels.selective_scan import ref as _ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
+BWD_SOURCE = SOURCE.with_name("selective_scan_bwd.cu")
 MAX_STATE = 64            # csrc MAX_N
 
 #: Kernel launches per form (plain-version calls are not counted).
-LAUNCHES = {"selective_scan": 0, "mamba1_scan_fused": 0}
+LAUNCHES = {"selective_scan": 0, "mamba1_scan_fused": 0, "mamba1_scan_bwd": 0}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -45,15 +53,24 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gf_mamba1_scan.restype = I
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gf_mamba1_scan_bwd_scratch.argtypes = [I] * 4
+    lib.gf_mamba1_scan_bwd_scratch.restype = LL
+    lib.gf_mamba1_scan_bwd.argtypes = [P, LL, LL] * 5 + [P] * 13 + [I] * 4 + [P]
+    lib.gf_mamba1_scan_bwd.restype = I
+
+
 def lib() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
 
 
-def _refuse_grad(name, args) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            f"{name} has no backward: gradients belong to the training slice, "
-            f"a later slice of the port")
+def bwd_lib() -> ctypes.CDLL:
+    return _build.load(BWD_SOURCE, _bind_bwd)
+
+
+def _grad_taken(args) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in args)
 
 
 def _check_rows(t, name: str, dev, dtype, shape, vec: int = 1) -> None:
@@ -107,7 +124,11 @@ def selective_scan(x, dt, A, B, C, D, *, return_state: bool = False):
     """x/dt: (b, L, d); A: (d, n); B/C: (b, L, n); D: (d,), all float32 ->
     y (b, L, d), or (y, final state (b, d, n)) with ``return_state``."""
     args = (x, dt, A, B, C, D)
-    _refuse_grad("selective_scan", args)
+    if _grad_taken(args):
+        raise NotImplementedError(
+            "selective_scan (the reference's f32 interface, off the model's path) "
+            "has no backward: the model trains through mamba1_scan_fused, whose "
+            "backward kernel is csrc/selective_scan_bwd.cu")
     dev = x.device
     if dev.type == "cpu":
         return _ref.selective_scan_plain(*args, return_state=return_state)
@@ -141,6 +162,20 @@ def selective_scan(x, dt, A, B, C, D, *, return_state: bool = False):
 
 
 def mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = False):
+    """The Mamba1 block from the ``dt_w`` product to ``out_proj`` (see
+    ``_mamba1_scan_fused``), differentiable: where a gradient will be taken
+    it runs through ``Mamba1ScanFused`` (no final state then: the trainer
+    drops it)."""
+    args = (xc, dt_raw, dt_b, A, B, C, D, z)
+    if _grad_taken(args):
+        if return_state:
+            raise ValueError("mamba1_scan_fused: the final state takes no gradient; "
+                             "ask for it without one (serving)")
+        return Mamba1ScanFused.apply(*args)
+    return _mamba1_scan_fused(*args, return_state=return_state)
+
+
+def _mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = False):
     """The Mamba1 block from the ``dt_w`` product to ``out_proj``:
 
         (scan(xc.float(), softplus(dt_raw.float() + dt_b), A, B.float(),
@@ -153,7 +188,6 @@ def mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = F
     ``return_state`` also the final state (b, d, n) float32.
     """
     args = (xc, dt_raw, dt_b, A, B, C, D, z)
-    _refuse_grad("mamba1_scan_fused", args)
     dev = xc.device
     if dev.type == "cpu":
         return _ref.mamba1_scan_fused_plain(*args, return_state=return_state)
@@ -176,3 +210,61 @@ def mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = F
     _launch(True, xc, dt_raw, z, B, C, A, D, dt_b, y, state, b, L, d, n)
     LAUNCHES["mamba1_scan_fused"] += 1
     return (y, state) if return_state else y
+
+
+class Mamba1ScanFused(torch.autograd.Function):
+    """``_mamba1_scan_fused`` without the final state; the backward runs
+    ``mamba1_scan_fused_bwd`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, xc, dt_raw, dt_b, A, B, C, D, z):
+        ctx.save_for_backward(xc, dt_raw, dt_b, A, B, C, D, z)
+        return _mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return mamba1_scan_fused_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def mamba1_scan_fused_bwd(xc, dt_raw, dt_b, A, B, C, D, z, dy):
+    """The gradient of ``mamba1_scan_fused``: dy (b, L, d) in y's dtype ->
+    (dxc, ddt_raw, ddt_b, dA, dB, dC, dD, dz), each in its input's shape
+    and dtype (contiguous)."""
+    dev = xc.device
+    if dev.type == "cpu":
+        return _ref.mamba1_scan_fused_plain_bwd(xc, dt_raw, dt_b, A, B, C, D, z, dy)
+    if dev.type != "cuda":
+        raise ValueError(f"mamba1_scan_fused_bwd: unsupported device {dev}")
+    b, L, d = xc.shape
+    n = A.shape[-1]
+    _check_sizes("mamba1_scan_fused_bwd", b, L, d, n)
+    bf16, f32 = torch.bfloat16, (torch.float32,)
+    for name, t in (("xc", xc), ("dt_raw", dt_raw), ("z", z)):
+        _check_rows(t, name, dev, bf16, (b, L, d))
+    _check_rows(B, "B", dev, bf16, (b, L, n))
+    _check_rows(C, "C", dev, bf16, (b, L, n))
+    _build.check_tensor(dy, "dy", dev, (bf16,), (b, L, d))
+    _build.check_tensor(A, "A", dev, f32, (d, n))
+    _build.check_tensor(dt_b, "dt_b", dev, f32, (d,))
+    _build.check_tensor(D, "D", dev, f32, (d,))
+    handle = bwd_lib()
+    scratch = torch.empty(handle.gf_mamba1_scan_bwd_scratch(b, L, d, n),
+                          dtype=torch.float32, device=dev)
+    dxc, ddt, dz = (torch.empty((b, L, d), dtype=bf16, device=dev) for _ in range(3))
+    dB, dC = (torch.empty((b, L, n), dtype=bf16, device=dev) for _ in range(2))
+    dA = torch.empty((d, n), dtype=torch.float32, device=dev)
+    dD, ddt_b = (torch.empty((d,), dtype=torch.float32, device=dev) for _ in range(2))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = handle.gf_mamba1_scan_bwd(
+        xc.data_ptr(), xc.stride(0), xc.stride(1),
+        dt_raw.data_ptr(), dt_raw.stride(0), dt_raw.stride(1),
+        z.data_ptr(), z.stride(0), z.stride(1),
+        B.data_ptr(), B.stride(0), B.stride(1),
+        C.data_ptr(), C.stride(0), C.stride(1),
+        dy.data_ptr(), A.data_ptr(), D.data_ptr(), dt_b.data_ptr(),
+        dxc.data_ptr(), ddt.data_ptr(), dz.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dA.data_ptr(), dD.data_ptr(), ddt_b.data_ptr(), scratch.data_ptr(),
+        b, L, d, n, stream)
+    _build.check(rc, "mamba1_scan_fused_bwd")
+    LAUNCHES["mamba1_scan_bwd"] += 1
+    return dxc, ddt, ddt_b, dA, dB, dC, dD, dz

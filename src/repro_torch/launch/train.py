@@ -1,7 +1,8 @@
 """End-to-end trainer, mesh-free on one card, for the dense family
 (granite-3-2b, the default, starcoder2-7b, qwen3-14b, deepseek-67b), the
 MoE family (moonshot-v1-16b-a3b, llama4-scout-17b-a16e), the VLM family
-(internvl2-26b) and the enc-dec family (whisper-tiny):
+(internvl2-26b), the hybrid family (zamba2-2.7b), the ssm family
+(falcon-mamba-7b) and the enc-dec family (whisper-tiny):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --full --steps 4 --batch 8 --seq 4096 --microbatches 4
@@ -9,6 +10,10 @@ MoE family (moonshot-v1-16b-a3b, llama4-scout-17b-a16e), the VLM family
         --full --steps 20 --batch 256 --seq 448 --microbatches 8 --lr 1e-3
     PYTHONPATH=src python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \
         --full --layers 2 --steps 3 --batch 8 --seq 4096 --microbatches 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+        --full --steps 4 --batch 8 --seq 4096 --microbatches 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \
+        --full --layers 8 --steps 3 --batch 8 --seq 4096 --microbatches 4
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 --seq 64 \
         --lr 5e-3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --steps 8 \
@@ -31,9 +36,7 @@ vision prefix and cannot train the enc-dec family.  A resumed run
 restores the latest checkpoint and continues from its step count, with
 the same schedule and data.  ``on_step(i, loss, seconds)`` runs after
 each step and its checkpoint; an exception it raises ends the run there
-(a preemption), once a pending checkpoint write has finished.  The
-hybrid and ssm families are refused by name: their backward (the SSD and
-scan kernels') is a later slice.
+(a preemption), once a pending checkpoint write has finished.
 """
 from __future__ import annotations
 
@@ -47,7 +50,6 @@ from repro_torch.checkpoint.manager import AsyncCheckpointer, latest_step, resto
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.distributed.steps import build_train_step, init_train_state
-from repro_torch.models import lm
 from repro_torch.models.registry import build_api, get_api, input_specs
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -93,11 +95,6 @@ def train(
     api = get_api(arch, reduced=reduced)
     if model_dims:
         api = build_api(dataclasses.replace(api.cfg, **model_dims))
-    if api.cfg.family not in lm.TRAINED:
-        raise NotImplementedError(
-            f"{arch}: the trainer takes the dense, MoE, VLM and enc-dec families; "
-            f"training the {api.cfg.family} family is a later slice of the port "
-            "(the SSD and scan backward kernels, ROADMAP queue 1 item 6c)")
     dev = resolve_device(device)
 
     data = SyntheticTokens(api.cfg.vocab, seq, batch, seed=seed)

@@ -154,7 +154,7 @@ def encdec_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     ``batch["labels"]`` given ``batch["frames"]``; returns (loss, {"ce",
     "aux"}) with aux 0.  It takes a gradient, every layer checkpointed
     whatever ``remat`` says (the reference's rule)."""
-    _mesh_free(shd, remat, cfg.family)
+    _mesh_free(shd)
     enc_out = encode(params, cfg, batch["frames"])
     logits = decode_train(params, cfg, batch["tokens"], enc_out)
     loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab)

@@ -1,8 +1,7 @@
 """Decoder-only LM assembly for the dense (granite, starcoder2, qwen3,
 deepseek), MoE (moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2)
-and ssm (falcon-mamba) families: serving for all five, and the loss's
-gradient for the dense, MoE and VLM families (the trainer,
-``launch/train.py``).
+and ssm (falcon-mamba) families: serving, and the loss's gradient (the
+trainer, ``launch/train.py``), for all five.
 
 Entry points:
   lm_forward     — forward over a sequence -> logits (b, s, V)
@@ -24,17 +23,20 @@ per-layer parameter tables (the reference scans a stacked tree).  The
 enc-dec family (whisper) is served by ``models/encdec.py``, routed there
 by the registry; this module's entry points refuse it.
 
-The dense, MoE and VLM families' loss takes a gradient: flash attention's
-autograd op launches the backward kernel, the MoE's einsums and ``bmm``
-differentiate in plain PyTorch (the reference has no MoE kernel), and
+Every family's loss takes a gradient: flash attention's autograd op
+launches its backward kernel, the SSD's (``kernels/ssd/ops.py``) and the
+fused Mamba1 scan's (``kernels/selective_scan/kernel.py``) theirs, the
+MoE's einsums and ``bmm`` differentiate in plain PyTorch (the reference
+has no MoE kernel), as do the convs, norms and gates around the scans.
 ``remat=True`` (the reference's default in its ``lm_loss``) wraps each
 layer in ``torch.utils.checkpoint``, the counterpart of its
 ``jax.checkpoint(layer_body, policy=nothing_saveable)``; an MoE layer's
 checkpoint returns its aux loss with its output, as the reference's scan
-carries it.  The hybrid and ssm families' gradients and remat (the SSD and
-scan backward kernels, ROADMAP queue 1 item 6c), and sharding (the
-reference's ``shd=``), belong to later slices of the port and raise
-``NotImplementedError``.
+carries it; zamba2's groups (the shared block and its
+``shared_attn_every`` Mamba2 layers) are checkpointed too, around the
+checkpointed layers, as the reference nests ``group_body``'s checkpoint
+around ``layer_body``'s.  Sharding (the reference's ``shd=``) belongs to
+a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,13 +63,12 @@ from repro_torch.models.mlp import mlp_apply, mlp_specs
 COMPUTE_DTYPE = torch.bfloat16
 
 
-#: The families the port serves (enc-dec through ``models/encdec.py``).
+#: The families the port serves and trains (enc-dec through
+#: ``models/encdec.py``).
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 #: The families whose layers are attention and a feed-forward block, with
 #: a k/v cache per layer.
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
-#: The families whose loss takes a gradient (and remat): the trainer's.
-TRAINED = ("dense", "moe", "vlm", "encdec")
 
 
 def require_served(cfg: ArchConfig) -> None:
@@ -76,8 +77,7 @@ def require_served(cfg: ArchConfig) -> None:
             f"{cfg.name}: the {cfg.family!r} family is not ported; the port "
             "serves the dense (granite, starcoder2, qwen3, deepseek), MoE "
             "(moonshot, llama4-scout), VLM (internvl2), hybrid (zamba2), ssm "
-            "(falcon-mamba) and enc-dec (whisper) families, and trains the "
-            "dense, MoE, VLM and enc-dec families"
+            "(falcon-mamba) and enc-dec (whisper) families"
         )
 
 
@@ -105,30 +105,11 @@ def _layer_call(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def refuse_gradients(params, name: str, family: str) -> None:
-    """Raise where a parameter requires a gradient and ``family`` has no
-    trainer yet (the hybrid and ssm families: their SSD and scan backward
-    kernels are a later slice)."""
-    if family in TRAINED:
-        return
-    if _grad_taken(params):
-        raise NotImplementedError(
-            f"gradients of the {family} family belong to a later slice of the port "
-            "(the training slices have the dense, MoE, VLM and enc-dec families; the "
-            "SSD and scan backward kernels are next, ROADMAP queue 1 item 6c): "
-            f"{name} runs the forward only")
-
-
-def _mesh_free(shd=None, remat=False, family: str | None = None) -> None:
+def _mesh_free(shd=None) -> None:
     if shd is not None:
         raise NotImplementedError(
             "sharding (shd=) belongs to a later slice of the port: it runs "
             "mesh-free on one card")
-    if remat and family not in TRAINED:
-        raise NotImplementedError(
-            f"remat of the {family} family belongs to a later slice of the port "
-            "(the SSD and scan backward kernels, ROADMAP queue 1 item 6c): the "
-            "dense, MoE, VLM and enc-dec families train")
 
 
 def _norm_spec(d):
@@ -266,10 +247,12 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     """Embed and run every layer (zamba2: every group); with ``cache``
     (from ``init_cache``), write each attention layer's k/v, each Mamba
     layer's conv tail and state and each shared application's k/v into it.
-    With ``remat`` (the dense, MoE and VLM families) each layer is
-    checkpointed: its activations are dropped after the forward and
-    recomputed in the backward (an MoE layer routes the same tokens to the
-    same experts again: its router and dispatch are deterministic).
+    With ``remat`` each layer is checkpointed: its activations are dropped
+    after the forward and recomputed in the backward (an MoE layer routes
+    the same tokens to the same experts again: its router and dispatch are
+    deterministic); zamba2's groups are checkpointed around their
+    checkpointed layers, so the backward recomputes a group, then each of
+    its layers again.
     Returns the last hidden states (b, s, d) and the MoE layers' summed aux
     loss (float32; 0 for the other families)."""
     _decoder_only(cfg)
@@ -292,8 +275,9 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
                 cache["v"][li, :, :s] = kv[1]
         return x, aux
     if not cfg.shared_attn_every:
+        layer = _layer_call(_ssm_layer, remat)
         for li in range(cfg.n_layers):
-            x, entry = _ssm_layer(params["layers"][li], x, cfg, collect)
+            x, entry = layer(params["layers"][li], x, cfg, collect)
             if collect:
                 cache["conv"][li] = entry["conv"]
                 cache["h"][li] = entry["h"]
@@ -301,14 +285,23 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     positions = torch.arange(s, device=tokens.device)[None, :]
     x0 = x
     every = cfg.shared_attn_every
-    for g in range(n_shared_apps(cfg)):
+    layer = _layer_call(_hybrid_layer, remat)
+
+    def group_body(x, g):
         x, kv = _shared_block(params["shared"], x, x0, cfg, positions, collect)
+        entries = []
+        for li in range(g * every, (g + 1) * every):
+            x, entry = layer(params["layers"][li], x, cfg, collect)
+            entries.append(entry)
+        return x, kv, entries
+
+    group = _layer_call(group_body, remat)
+    for g in range(n_shared_apps(cfg)):
+        x, kv, entries = group(x, g)
         if collect:
             cache["shared_k"][g, :, :s] = kv[0]
             cache["shared_v"][g, :, :s] = kv[1]
-        for li in range(g * every, (g + 1) * every):
-            x, entry = _hybrid_layer(params["layers"][li], x, cfg, collect)
-            if collect:
+            for li, entry in zip(range(g * every, (g + 1) * every), entries):
                 cache["conv"][li] = entry["conv"]
                 cache["h"][li] = entry["h"]
     return x, aux
@@ -318,8 +311,8 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False,
                vision_embeds=None):
     """tokens (b, s) -> logits (b, s, V); a VLM's ``vision_embeds`` (b,
     nv, d) take its first nv positions; ``remat`` checkpoints each layer
-    (the dense, MoE and VLM families)."""
-    _mesh_free(shd, remat, cfg.family)
+    (and zamba2's groups)."""
+    _mesh_free(shd)
     x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds, remat=remat)
     return _logits(params, cfg, x)
 
@@ -329,12 +322,9 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     ``batch["vision_embeds"]``), then the mean next-token CE over
     ``batch["labels"]`` (positions labelled -1 do not count) plus 0.01 x
     the MoE layers' summed aux loss (0 for the other families).  Returns
-    (loss, {"ce", "aux"}).  The dense, MoE and VLM families' loss takes a
-    gradient, with ``remat`` checkpointing each layer; for the hybrid and
-    ssm families parameters that require a gradient, and ``remat``, raise
-    (their trainers are a later slice)."""
-    _mesh_free(shd, remat, cfg.family)
-    refuse_gradients(params, "lm_loss", cfg.family)
+    (loss, {"ce", "aux"}).  The loss takes a gradient, with ``remat``
+    checkpointing each layer (and zamba2's groups)."""
+    _mesh_free(shd)
     x, aux = _backbone(params, cfg, batch["tokens"],
                        vision_embeds=batch.get("vision_embeds"), remat=remat)
     ce = cross_entropy_loss(_logits(params, cfg, x), batch["labels"], cfg.vocab)

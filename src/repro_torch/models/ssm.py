@@ -8,7 +8,11 @@ card, the sequential recurrence on the CPU.  Mamba1's op also takes in the
 softplus before the scan and the gate after it.  One route serves every
 length; with ``return_cache`` the same op also returns the final state
 (the reference's XLA path, an associative or chunked scan, computes the
-same function).  Decode is plain ops, as in the reference.
+same function).  Decode is plain ops, as in the reference.  Both scan
+ops take a gradient: the SSD's and the fused scan's autograd functions
+run their backward kernels on the card and the plain reverse recurrences
+on the CPU; the convs, softplus, RMSNorm and gates around them
+differentiate in plain PyTorch, as the reference's do under XLA.
 """
 from __future__ import annotations
 

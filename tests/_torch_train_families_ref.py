@@ -19,6 +19,12 @@ the initial state, on the first batch and on the tokens of seeds
 
     XLA_FLAGS=--xla_allow_excess_precision=false python tests/_torch_train_families_ref.py out.npz
 
+A second argument, ``ssm``, records the hybrid and ssm configs of
+``SSM_STEPS`` (reduced zamba2-2.7b and falcon-mamba-7b, for
+``tests/test_torch_train_ssm.py``) in their place::
+
+    python tests/_torch_train_families_ref.py out.npz ssm
+
 A second argument, ``whisper-full``, records whisper-tiny's full-width
 loss and gradient alone (``full_width_whisper``): their spread between
 XLA's default and ``--xla_allow_excess_precision=false`` sets the bound of
@@ -46,6 +52,8 @@ from repro.optim.adamw import AdamWConfig
 #: arch -> train steps
 FAMILY_STEPS = {"moonshot-v1-16b-a3b": 3, "llama4-scout-17b-a16e": 3,
                 "internvl2-26b": 3, "whisper-tiny": 3}
+#: the hybrid and ssm configs, arch -> train steps (their own test file)
+SSM_STEPS = {"zamba2-2.7b": 3, "falcon-mamba-7b": 3}
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e")
 #: the token seeds whose routes are recorded (seed 0: the first batch)
 ROUTE_SEEDS = tuple(range(6))
@@ -112,7 +120,9 @@ def routes(api, params, tokens) -> list[np.ndarray]:
         j_moe.jax = saved
 
 
-def run(arch: str) -> dict:
+def run(arch: str, steps: int | None = None) -> dict:
+    """The records of ``arch`` over ``steps`` train steps (default:
+    ``FAMILY_STEPS[arch]``)."""
     api = get_api(arch, reduced=True)
     state = init_train_state(api, jax.random.PRNGKey(0))
     out = flat(jax.tree.map(np.asarray, state), f"{arch}/init")
@@ -121,7 +131,7 @@ def run(arch: str) -> dict:
             toks = family_batches(api.cfg, 1, seed)[0]["tokens"]
             for li, t in enumerate(routes(api, state["params"], toks)):
                 out[f"{arch}/routes/{seed}/{li}"] = t
-    data = family_batches(api.cfg, FAMILY_STEPS[arch])
+    data = family_batches(api.cfg, steps or FAMILY_STEPS[arch])
     grad = jax.jit(jax.grad(lambda p, b: api.loss(p, b, shd=NULL_CTX)[0]))
     out.update(flat(grad(state["params"], data[0]), f"{arch}/grads"))
     step = jax.jit(build_train_step(api, AdamWConfig(**OPT), NULL_CTX))
@@ -159,8 +169,9 @@ def main(path: str, what: str = "families") -> None:
         np.savez(path, **full_width_whisper())
         return
     out = {}
-    for arch in FAMILY_STEPS:
-        out.update(run(arch))
+    steps = SSM_STEPS if what == "ssm" else FAMILY_STEPS
+    for arch, n in steps.items():
+        out.update(run(arch, n))
     np.savez(path, **out)
 
 

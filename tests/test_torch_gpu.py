@@ -6,7 +6,11 @@ the reduced zamba2, falcon-mamba, dense, MoE and VLM slices on the card
 against the same slices on the CPU, the MoE routing on the card against
 the CPU's, and the trainer's slice: flash attention's lse and backward
 kernel against their plain versions, the autograd op's launches, and
-reduced granite train steps on the card against the CPU.  Marked ``gpu``;
+reduced granite train steps on the card against the CPU; the SSD's and
+the fused scan's backward kernels against their plain versions, the
+gradient through ``ssd_op`` and ``mamba1_scan_fused`` on the card, and
+reduced zamba2 and falcon-mamba train steps on the card against the
+CPU.  Marked ``gpu``;
 every test skips where there is no CUDA device (decided in the
 ``cuda_device`` fixture).  This file imports no JAX, so it runs on a GPU
 machine without it::
@@ -36,6 +40,7 @@ from repro_torch.kernels.placement import kernel, ops, ref
 from repro_torch.kernels.selective_scan import kernel as scan_kernel
 from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import lm, moe
 from repro_torch.models.registry import get_api
@@ -628,7 +633,7 @@ def test_selective_scan_rejects_cpu_tensors_and_gradients(cuda_device):
         scan_kernel.selective_scan(x, dt, torch.zeros((64, 65), device=cuda_device),
                                    torch.zeros((1, 16, 65), device=cuda_device),
                                    torch.zeros((1, 16, 65), device=cuda_device), D)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="trains through mamba1_scan_fused"):
         scan_kernel.selective_scan(x.requires_grad_(), dt, A, B, C, D)
     assert scan_kernel.LAUNCHES["selective_scan"] == before
 
@@ -1185,3 +1190,107 @@ def test_reduced_granite_train_steps_on_card_match_cpu(cuda_device):
     for tol, c, g in ((0.0106, cp, gp), (8.6e-3, co["m"], go["m"]),
                       (8.8e-4, co["v"], go["v"])):
         assert max(float((g[n] - c[n]).abs().max()) for n in c) <= tol
+
+
+# ---------------------------------------------------------------------------
+# the SSD's and the fused scan's backward kernels
+# ---------------------------------------------------------------------------
+
+def _smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dS_used", [True, False])
+def test_ssd_gradient_on_the_card_is_the_plain_backward(cuda_device, dS_used):
+    """A gradient through ``ssd_op`` on the card is never cut at the SSD:
+    it runs the backward kernel once and equals the plain backward within
+    ``chip_smoke.ssm_grad_errors``'s bound; the kernel wrapper itself
+    refuses inputs that require a gradient."""
+    cs = _smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(27)
+    xdt, loga, B, C, dy, dS = cs.ssd_bwd_case(gen, cuda_device, 2, 300, 4, 64, 64, True)
+    leaves = [t.clone().requires_grad_() for t in (xdt, loga, B, C)]
+    with pytest.raises(ValueError, match="ssd_op"):
+        ssd_kernel.ssd(*leaves)
+    before = dict(ssd_kernel.LAUNCHES)
+    y, S = ssd_ops.ssd_op(*leaves)
+    loss = (y * dy).sum() + ((S * dS).sum() if dS_used else 0)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd"] == before["ssd"] + 1
+    assert ssd_kernel.LAUNCHES["ssd_bwd"] == before["ssd_bwd"] + 1
+    want = ssd_ref.ssd_plain_bwd(xdt, loga, B, C, dy, dS if dS_used else None)
+    got = {k: t.grad for k, t in zip(cs.SSD_GRADS, leaves)}
+    errs = cs.ssm_grad_errors(got, dict(zip(cs.SSD_GRADS, want)))
+    assert all(e["ratio"] <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 300, 4, 64, 64, True), (1, 100, 3, 16, 8, False),
+                                  (1, 130, 2, 128, 128, True)])
+def test_ssd_bwd_kernel_matches_plain_and_is_deterministic(cuda_device, case):
+    cs = _smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(case))
+    a = cs.ssd_bwd_case(gen, cuda_device, *case)
+    cs.ssm_bwd_check(f"ssd_bwd {case}", lambda: ssd_kernel.ssd_bwd(*a),
+                     lambda: ssd_ref.ssd_plain_bwd(*a), cs.SSD_GRADS, "test", plant="dxdt")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 100, 72, 16), (2, 33, 200, 64), (1, 1, 8, 4)])
+def test_fused_scan_bwd_kernel_matches_plain_and_is_deterministic(cuda_device, case):
+    """Within the bound of the plain backward, bitwise on a second call;
+    a 1% error planted in dB is caught where dB has more than one token
+    (one token's four values sit within a bf16 ulp and the bound's 1e-3 of
+    it)."""
+    cs = _smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(case))
+    args, dy = cs.scan_bwd_case(gen, cuda_device, *case)
+    cs.ssm_bwd_check(f"mamba1_scan_bwd {case}",
+                     lambda: scan_kernel.mamba1_scan_fused_bwd(*args, dy),
+                     lambda: scan_ref.mamba1_scan_fused_plain_bwd(*args, dy),
+                     cs.SCAN_GRADS, "test", plant="dB" if case[1] > 1 else None)
+
+
+@pytest.mark.gpu
+def test_fused_scan_gradient_on_the_card_launches_the_backward(cuda_device):
+    """The fused op under autograd on the card: one forward launch, one
+    backward call, the gradients in the inputs' dtypes and within the
+    check's bound of the plain backward."""
+    cs = _smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    args, dy = cs.scan_bwd_case(gen, cuda_device, 2, 64, 128, 16)
+    leaves = [t.detach().clone().requires_grad_() if t.is_floating_point() else t
+              for t in args]
+    before = dict(scan_kernel.LAUNCHES)
+    y = scan_kernel.mamba1_scan_fused(*leaves)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES["mamba1_scan_fused"] == before["mamba1_scan_fused"] + 1
+    assert scan_kernel.LAUNCHES["mamba1_scan_bwd"] == before["mamba1_scan_bwd"] + 1
+    want = scan_ref.mamba1_scan_fused_plain_bwd(*args, dy)
+    got = {k: t.grad for k, t in zip(cs.SCAN_GRADS, leaves)}
+    assert all(got[k].dtype == w.dtype for k, w in zip(cs.SCAN_GRADS, want))
+    errs = cs.ssm_grad_errors(got, dict(zip(cs.SCAN_GRADS, want)))
+    assert all(e["ratio"] <= 1.0 for e in errs.values()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "falcon-mamba-7b"])
+def test_reduced_ssm_train_steps_on_card_match_cpu(cuda_device, arch):
+    """Reduced zamba2 and falcon-mamba train steps on the card against the
+    CPU (``chip_smoke.train_slice_compare`` at ``FAMILY_SLICE_TOL``;
+    falcon-mamba's steps each from the CPU's state, as phase 34)."""
+    cs = _smoke()
+    counters = (kernel.LAUNCHES, flash_kernel.LAUNCHES, dec_kernel.LAUNCHES,
+                ssd_kernel.LAUNCHES, scan_kernel.LAUNCHES)
+    cs.train_slice_compare(cuda_device, "test", get_api(arch, reduced=True),
+                           cs.FAMILY_SLICE_TOL[arch], counters, 3, arch,
+                           steps_from_cpu=arch in cs.SSM_STEPS_FROM_CPU)

@@ -2,8 +2,8 @@
 against the reference: the plain version (the sequential recurrence)
 against the JAX oracle ``selective_scan_ref`` and against the Pallas kernel
 called directly in interpret mode, on the cases of ``tests/test_kernels.py``
-(``SCAN_CASES``), plus chunk and length invariance, the final state, and
-the wrapper's refusals.  The tolerance is the reference's own: atol and
+(``SCAN_CASES``), plus chunk and length invariance, the final state, the
+wrapper's refusals and the fused op's float64 ``gradcheck``.  The tolerance is the reference's own: atol and
 rtol 1e-4.  The reference's XLA path returns its final state only from the
 Mamba1 block, so the state is held against it in
 ``test_torch_falcon_mamba.py``; here it is held against the recurrence run
@@ -111,15 +111,37 @@ def test_final_state_carries_the_sequence():
     np.testing.assert_allclose(h.numpy(), want.numpy(), **TOL)
 
 
+def _gradcheck_fused(seed, b, L, d, n, r):
+    """``torch.autograd.gradcheck`` of the fused op in float64 on the CPU:
+    its backward (the plain reverse recurrence) against finite
+    differences of its forward, every input at once (z, B and C the
+    strided views the block gives)."""
+    args = [a.detach().double().requires_grad_() for a in _fused_inputs(seed, b, L, d, n, r)]
+    xz = torch.cat([args[0], args[7]], dim=-1).detach().requires_grad_()
+    bc = torch.cat([args[4], args[5]], dim=-1).detach().requires_grad_()
+
+    def fn(xz, dt_raw, dt_b, A, bc, D):
+        xc, z = xz.chunk(2, dim=-1)
+        B, C = bc.split([n, n], dim=-1)
+        return kernel.mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z)
+
+    assert torch.autograd.gradcheck(fn, (xz, args[1], args[2], args[3], bc, args[6]),
+                                    eps=1e-6, atol=1e-6, rtol=1e-5)
+
+
 def test_refuses_gradients_and_bad_devices():
+    """The f32 form (the reference's interface, off the model's path) has
+    no backward and says that the model trains through the fused form,
+    whose gradient passes ``gradcheck``."""
     args = _t(_inputs(5, 1, 8, 16, 4))
     x = args[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="trains through mamba1_scan_fused"):
         kernel.selective_scan(x, *args[1:])
     with torch.no_grad():   # without autograd the forward runs
         kernel.selective_scan(x, *args[1:])
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.selective_scan(*(a.to("meta") for a in args))
+    _gradcheck_fused(5, 1, 6, 8, 4, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +240,16 @@ def test_fused_wrapper_on_cpu_runs_plain_and_launches_nothing():
 
 
 def test_fused_refuses_gradients_and_bad_devices():
+    """The fused op takes a gradient (float64 ``gradcheck`` on a ragged
+    length with a wider state); it refuses the final state under one (the
+    trainer drops it, and it has no backward) and a device it has no
+    route for."""
     args = _fused_inputs(12, 1, 8, 16, 4, 2)
     dt_b = args[2].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        kernel.mamba1_scan_fused(*args[:2], dt_b, *args[3:])
+    y = kernel.mamba1_scan_fused(*args[:2], dt_b, *args[3:])
+    assert y.grad_fn is not None
+    with pytest.raises(ValueError, match="final state"):
+        kernel.mamba1_scan_fused(*args[:2], dt_b, *args[3:], return_state=True)
     with pytest.raises(ValueError, match="unsupported device"):
         kernel.mamba1_scan_fused(*(a.to("meta") for a in args))
+    _gradcheck_fused(12, 2, 7, 8, 16, 3)

@@ -309,23 +309,24 @@ def test_remat_recomputes_each_layer_and_keeps_the_gradients(monkeypatch):
 
 
 def test_trainer_refuses_untrained_families():
-    """The hybrid and ssm families wait for the SSD and scan backward
-    kernels (ROADMAP queue 1 item 6c); the MoE family, refused before its
-    slice, now trains."""
-    for arch in ("zamba2-2.7b", "falcon-mamba-7b"):
-        with pytest.raises(NotImplementedError, match="later slice.*6c"):
-            p_train.train(arch=arch, steps=1, device="cpu")
-    _, losses, _ = p_train.train(arch="moonshot-v1-16b-a3b", steps=1, batch=2, seq=32,
-                                 log_every=100, device="cpu")
-    assert len(losses) == 1 and np.isfinite(losses[0])
+    """No family is refused any more: the MoE family (before its slice)
+    and the hybrid and ssm families (before the SSD and scan backward
+    kernels) train, and their loss takes a gradient with and without
+    remat, the same one."""
+    for arch in ("moonshot-v1-16b-a3b", "zamba2-2.7b", "falcon-mamba-7b"):
+        _, losses, _ = p_train.train(arch=arch, steps=1, batch=2, seq=32,
+                                     log_every=100, device="cpu")
+        assert len(losses) == 1 and np.isfinite(losses[0])
     for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
         api = get_api(arch, reduced=True)
-        params = api.init(0, "cpu", trainable=True)
-        toks = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="training slice.*6c"):
-            api.loss(params, {"tokens": toks, "labels": toks})
-        with pytest.raises(NotImplementedError, match="later slice.*6c"):
-            api.loss(params, {"tokens": toks, "labels": toks}, remat=True)
+        toks = torch.arange(8, dtype=torch.long)[None]
+        grads = []
+        for remat in (False, True):
+            params = api.init(0, "cpu", trainable=True)
+            loss, _ = api.loss(params, {"tokens": toks, "labels": toks}, remat=remat)
+            loss.backward()
+            grads.append([p.grad for p in params.parameters()])
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def test_train_state_round_trips_through_numpy():

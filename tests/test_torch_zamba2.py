@@ -343,20 +343,29 @@ def test_other_families_raise_not_implemented(arch):
 
 
 def test_training_remat_and_sharding_are_a_later_slice():
+    """Sharding is a later slice of the port and raises; training and
+    remat are this family's since the SSD's backward: the loss takes a
+    gradient on every parameter, and remat gives the same loss and
+    logits."""
     api = p_get_api(ARCH, reduced=True)
     params = api.init(0, "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
+    toks = torch.arange(8, dtype=torch.long)[None] % api.cfg.vocab
     batch = {"tokens": toks, "labels": toks}
     for p in params.parameters():
         p.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.loss(params, batch)
+    loss, _ = api.loss(params, batch)
+    loss.backward()
+    for name, p in params.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert float(params["layers"][0]["mamba"]["wx"].grad.abs().sum()) > 0
+    with torch.no_grad():
+        assert torch.equal(api.loss(params, batch, remat=True)[0], loss.detach())
+        assert torch.equal(p_lm.lm_forward(params, api.cfg, toks, remat=True),
+                           p_lm.lm_forward(params, api.cfg, toks))
     for p in params.parameters():
         p.requires_grad_(False)
     with pytest.raises(NotImplementedError, match="later slice"):
         api.loss(params, batch, shd=NULL_CTX)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        p_lm.lm_forward(params, api.cfg, toks, remat=True)
     with pytest.raises(NotImplementedError, match="later slice"):
         api.prefill(params, {"tokens": toks}, shd=NULL_CTX)
     with pytest.raises(NotImplementedError, match="later slice"):
