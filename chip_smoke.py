@@ -8,13 +8,14 @@
    ``placement.cu``, ``flash_attention.cu``, ``flash_attention_bwd.cu``,
    ``decode_attention.cu``, ``ssd.cu``, ``ssd_bwd.cu``,
    ``selective_scan.cu`` and ``selective_scan_bwd.cu``.  For the two
-   attention libraries and the SSD's forward it prints each kernel's
-   registers, shared memory and spills (``-Xptxas -v``; the verbose
-   build prints them for every source) and its tensor-core (HMMA, HGMMA),
-   asynchronous-copy (LDGSTS, UTMALDG) and LDSM instruction counts
-   (``cuobjdump -sass``), and fails unless the bf16 flash kernels and
-   every SSD forward kernel use the tensor cores and the bf16 attention
-   kernels and every SSD forward kernel copy asynchronously.
+   attention libraries, the SSD's forward and backward and the fused
+   scan's backward it prints each kernel's registers, shared memory and
+   spills (``-Xptxas -v``; the verbose build prints them for every
+   source) and its tensor-core (HMMA, HGMMA), asynchronous-copy (LDGSTS,
+   UTMALDG) and LDSM instruction counts (``cuobjdump -sass``), and fails
+   unless the bf16 flash kernels, every SSD forward kernel and the SSD
+   backward's two product kernels (``SSD_BWD_TC_KERNELS``) use the tensor
+   cores and copy asynchronously, as the bf16 attention kernels must.
 
 The batch placement path (the first slice):
 
@@ -325,10 +326,12 @@ rest):
 
 33. Each backward kernel against its plain version (the explicit reverse
     recurrences): the SSD's on ``SSD_BWD_CASES`` (ragged lengths against
-    its chunk, state 8, 16, 64 and 128, one token, with and without the
+    its chunk, state 5 to 128, head_dim 7 to 128, head counts that are
+    not a multiple of its 8-head group, one token, with and without the
     final state's gradient), the fused scan's on ``SCAN_BWD_CASES`` (d
-    not a multiple of its 64-channel CTA, ragged lengths, state 4 to 64,
-    one token, strided z, B and C); every gradient element within
+    not a multiple of its 64-channel CTA, ragged lengths, lengths over
+    several of its 512-token segments, state 4 to 64, one token, strided
+    z, B and C); every gradient element within
     ``ssm_grad_errors``'s bound (1e-3 of |want| + its RMS, plus one bf16
     ulp for the scan's bf16 gradients) and a second call bitwise equal.
     Then at zamba2's microbatch (2 x 4,096, 80 heads of 64, state 64) and
@@ -336,7 +339,12 @@ rest):
     error planted in the SSD's dxdt and the scan's dB caught, and timed
     beside the forward kernel, the plain backward and the bound
     (``ssd_bwd_bound_ms``, ``fused_scan_bwd_bound``); no single PyTorch
-    call computes either.
+    call computes either.  Then flash attention at zamba2's training
+    shape (``SSM_FLASH_TIMED``: 2 x 4,096, 32 heads of 80, causal, bf16;
+    the backward on the ``mma.sync`` kernel head_dim 80 keeps) as phase 26 times its
+    shapes: checked, the forward with and without the lse and the
+    backward beside the plain versions, SDPA's forward and backward and
+    the bounds.
 34. The reduced zamba2 and falcon-mamba train slices on the card against
     the CPU, as phase 30 (``FAMILY_SLICE_TOL``: twice the reference's
     spread, ``tests/test_torch_train_ssm.py``), falcon-mamba's card steps
@@ -705,26 +713,34 @@ def sass_counts(sass: str) -> dict:
     return out
 
 
-def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict:
+def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel, scan_kernel) -> dict:
     """After a verbose build: each kernel of the attention libraries (flash
-    forward and backward, decode) and of the SSD with its registers, static shared memory and spills
-    (``-Xptxas -v``) and its SASS counts (``cuobjdump -sass``), and the
-    dynamic shared memory each route asks at head_dim 80 (the SSD's at
-    zamba2's serving widths).  Raises unless every bf16 flash kernel and
-    every SSD kernel runs on the tensor cores (HMMA or HGMMA) and every
-    bf16 attention kernel and every SSD kernel copies asynchronously
-    (LDGSTS or UTMALDG), and unless the backward's wgmma kernels
+    forward and backward, decode), of the SSD (forward and backward) and
+    of the fused scan's backward with its registers, static shared memory
+    and spills (``-Xptxas -v``) and its SASS counts (``cuobjdump -sass``),
+    and the dynamic shared memory each route asks at head_dim 80 (the
+    SSD's at zamba2's widths).  Raises unless every bf16 flash kernel,
+    every SSD forward kernel and the SSD backward's product kernels
+    (``SSD_BWD_TC_KERNELS``) run on the tensor cores (HMMA or HGMMA) and
+    copy asynchronously (LDGSTS or UTMALDG), as every bf16 attention
+    kernel must copy, and unless the backward's wgmma kernels
     (``BWD_WGMMA_KERNELS``) hold both HGMMA and UTMALDG."""
     cuobjdump = pathlib.Path(kbuild.nvcc()).parent / "cuobjdump"
     fl, dl, sl = flash_kernel.lib(), dec_kernel.lib(), ssd_kernel.lib()
     bwd = types.SimpleNamespace(SOURCE=flash_kernel.BWD_SOURCE)
+    sbl = ssd_kernel.bwd_lib()
+    ssd_bwd = types.SimpleNamespace(SOURCE=ssd_kernel.BWD_SOURCE)
+    scan_bwd = types.SimpleNamespace(SOURCE=scan_kernel.BWD_SOURCE)
     dyn = [(flash_kernel, f"at d=80 {fl.gf_flash_smem(80, 1)} B (bf16 route), "
                           f"{fl.gf_flash_smem(80, 0)} B (f32 route)"),
            (bwd, "set per launch (the source's *_smem functions)"),
            (dec_kernel, f"at d=80 {dl.gf_decode_smem(1, 80, 1)} B (bf16 route), "
                         f"{dl.gf_decode_smem(1, 80, 0)} B (f32 route)"),
            (ssd_kernel, f"at chunk 128, n=hd=64 {sl.gf_ssd_smem(128, 64, 64)} B, at "
-                        f"n=hd=128 {sl.gf_ssd_smem(128, 128, 128)} B")]
+                        f"n=hd=128 {sl.gf_ssd_smem(128, 128, 128)} B"),
+           (ssd_bwd, f"at chunk 64, n=hd=64 {sbl.gf_ssd_bwd_smem(64, 64, 64)} B, at "
+                     f"chunk 32, n=hd=128 {sbl.gf_ssd_bwd_smem(32, 128, 128)} B"),
+           (scan_bwd, "fixed per state width (the source's *_smem_floats)")]
     out = {}
     for mod, smem in dyn:
         sass = subprocess.run([str(cuobjdump), "-sass", str(kbuild.library_path(mod.SOURCE))],
@@ -741,7 +757,8 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict
                   f"{row.get('spill_loads')} B; SASS "
                   + ", ".join(f"{op} {row.get(op, 0)}" for op in SASS_OPS), flush=True)
     for name, row in out.items():
-        bf16, ssd = "_bf16_kernel" in name, name.startswith("ssd")
+        bf16 = "_bf16_kernel" in name
+        ssd = name.startswith("ssd_tc_kernel") or name in SSD_BWD_TC_KERNELS
         if (ssd or bf16 and name.startswith("flash")) and not (row["HMMA"] or row["HGMMA"]):
             raise AssertionError(f"{name} has no tensor-core instruction")
         if (ssd or bf16) and not (row["LDGSTS"] or row["UTMALDG"]):
@@ -752,8 +769,10 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel) -> dict
             raise AssertionError(f"{name}: no wgmma fed by TMA ({row})")
     if not any("_bf16_kernel" in n for n in out):
         raise AssertionError("no bf16 attention kernel found in the libraries")
-    if not any(n.startswith("ssd") for n in out):
+    if not any(n.startswith("ssd_tc_kernel") for n in out):
         raise AssertionError("no SSD kernel found in its library")
+    if not set(SSD_BWD_TC_KERNELS) <= set(out):
+        raise AssertionError("the SSD backward's product kernels are missing from its library")
     return out
 
 
@@ -3889,17 +3908,37 @@ def fused_scan_bwd_bound(b, L, d, n) -> dict:
 # the backward kernels against their plain versions (phase 33).  SSD: (b, L,
 # nh, hd, n, dS given): ragged lengths against the kernel's chunk, state 8,
 # 16 and 64, the widest head and state (its smaller chunk), one token.
+# Then the edges of its head groups and chunk-parallel states: head counts
+# that leave a smaller last group of 8 (12, 20, 9), many chunks with a
+# ragged tail, state and head_dim 128 (chunk 32), and widths whose rows are
+# not 16-byte vectors (state 5, head_dim 20 and 7).
 SSD_BWD_CASES = [(2, 300, 4, 64, 64, True), (1, 100, 3, 16, 8, True),
                  (2, 77, 5, 32, 16, False), (1, 130, 2, 128, 128, True),
-                 (2, 1, 4, 64, 64, True), (1, 1000, 8, 64, 64, False)]
+                 (2, 1, 4, 64, 64, True), (1, 1000, 8, 64, 64, False),
+                 (1, 1000, 12, 64, 64, True), (2, 777, 20, 32, 16, False),
+                 (1, 300, 9, 128, 128, True), (1, 150, 9, 20, 5, True),
+                 (1, 70, 3, 7, 3, False)]
 # the fused scan: (b, L, d, n): d not a multiple of the 64-channel CTA,
-# ragged lengths against the 16-token chunk, state 8, 16 and 64, one token
+# ragged lengths against the 16-token chunk, state 8, 16 and 64, one token;
+# then lengths over several 512-token segments with a ragged last chunk, at
+# state 16, 64 (4-token chunks) and 32 (8-token chunks), and d = 100, whose
+# rows (and z's, at an offset of d) are not 16-byte vectors
 SCAN_BWD_CASES = [(2, 100, 72, 16), (1, 64, 128, 8), (2, 33, 200, 64), (1, 1, 8, 4),
-                  (1, 500, 520, 16)]
+                  (1, 500, 520, 16), (1, 1100, 200, 16), (2, 600, 136, 64),
+                  (1, 520, 72, 32), (1, 300, 100, 16)]
 # zamba2's microbatch (b=2 of the trainer's 8 x 4,096 in 4) and
 # falcon-mamba's, timed
 SSD_BWD_TIMED = (2, 4096, 80, 64, 64)
 SCAN_BWD_TIMED = (2, 4096, 8192, 16)
+# flash attention at zamba2-2.7b's training microbatch (b, s, h, kv, d):
+# its shared attention block, 32 heads of 80, causal, bf16
+SSM_FLASH_TIMED = {"zamba2-2.7b": (2, 4096, 32, 32, 80)}
+# the SSD backward's kernels that run its products on the tensor cores and
+# stage their operands by cp.async (<..., 64>: zamba2's widths, fixed at
+# compile time; <..., 0>: any widths)
+SSD_BWD_TC_KERNELS = ("ssd_bwd_local_kernel<0>", "ssd_bwd_local_kernel<64>",
+                      "ssd_bwd_chunk_kernel<1, 0>", "ssd_bwd_chunk_kernel<2, 0>",
+                      "ssd_bwd_chunk_kernel<1, 64>")
 # each gradient element within rtol (|want| + RMS(want)) of the plain
 # backward: both sides add in f32 in other orders (the SSD's kernel in
 # chunks, its plain version token by token; the scan's exp is ex2.approx);
@@ -4129,7 +4168,7 @@ def main() -> int:
               f"[{card}]", flush=True)
     print(f"build: wall {time.perf_counter() - t0:.2f} s for "
           f"{len(kbuild.BUILD_STATS)} sources in parallel [{card}]", flush=True)
-    kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel)
+    kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel, scan_kernel)
 
     # ---- 2. kernel phase ------------------------------------------------
     def score_case(seed, n, ties):
@@ -4659,6 +4698,9 @@ def main() -> int:
     # ---- 33. the SSD's and the fused scan's backward kernels -----------------
     torch.cuda.empty_cache()
     ssm_rows = ssm_bwd_checks(dev, card, ssd_kernel, ssd_ref, scan_kernel, scan_ref)
+    ssm_flash_rows = {arch: flash_bwd_row(dev, card, flash_kernel, flash_ref, *shape,
+                                          f"{arch} (h={shape[2]}, kv={shape[3]}, d={shape[4]})")
+                      for arch, shape in SSM_FLASH_TIMED.items()}
 
     # ---- 34. the reduced zamba2 and falcon-mamba train slices, card vs CPU ---
     ssm_slices = {arch: train_slice_compare(dev, card, get_api(arch, reduced=True),
@@ -4679,7 +4721,7 @@ def main() -> int:
             model_dims={"n_layers": SSM_LAYERS[arch]} if arch in SSM_LAYERS else None,
             watch=SSM_WATCH)
     ssm_training["slices"] = ssm_slices
-    ssm_training["kernels"] = ssm_rows
+    ssm_training["kernels"] = {**ssm_rows, "flash": ssm_flash_rows}
     print(json.dumps({"ssm_training": ssm_training}), flush=True)
 
     served = {**dense, **mv}
@@ -4774,6 +4816,21 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "err_over_bound": r["err"], "ms": r["ms"],
             "forward_ms": r["forward_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+    # flash at zamba2's training shape (head_dim 80), with its launches in
+    # phase 35's run
+    for arch, rows in ssm_flash_rows.items():
+        for name, tag in (("flash_attention_bwd", "flash_attention_bwd"),
+                          ("flash_attention", "flash_attention (lse)")):
+            r = rows[tag]
+            kernels.append({
+                "name": f"{name}/{arch}-train", "route": "cuda",
+                "source": BWD_FLASH_SOURCE if name.endswith("bwd") else FLASH_SOURCE,
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
+                "model": arch, "shape": r["shape"],
+                "launches": ssm_training[arch]["launches"].get(name, 0),
+                "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

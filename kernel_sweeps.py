@@ -45,7 +45,9 @@ of one of the two sources, picked by its file name; unless
 ``--unchecked``, it is first held to the plain backward by
 ``chip_smoke.ssm_bwd_check`` at the timed shape (a second call bitwise
 equal, a planted error caught), then timed in turns with the shipped
-build.
+build.  With ``--parent`` it also times the SSD's forward
+(``kernels/ssd/csrc/ssd.cu``) at zamba2's microbatch, chunk 128, in turns
+with the parent's, after holding the two builds' outputs bitwise equal.
 
 With ``--parent DIR`` (a checkout of another commit), each sweep also
 times that checkout's kernel on the same inputs, in turns with this one
@@ -460,7 +462,8 @@ def ssm_bwd_sweep(card, parent, others, unchecked):
         if pathlib.Path(f).name not in kinds:
             raise SystemExit(f"ssm: {f} is neither {' nor '.join(kinds)}")
     jobs = [(mod.BWD_SOURCE, kbuild.NVCC_FLAGS) for mod, _, _ in kinds.values()]
-    jobs += [(staged(f, None, i + 1), kbuild.NVCC_FLAGS) for i, f in enumerate(others)]
+    jobs += [(staged(f, kinds[pathlib.Path(f).name][0].BWD_SOURCE.parent, i + 1),
+              kbuild.NVCC_FLAGS) for i, f in enumerate(others)]
     if parent:
         jobs += [(pathlib.Path(parent) / mod.BWD_SOURCE.relative_to(ROOT), kbuild.NVCC_FLAGS)
                  for mod, _, _ in kinds.values()]
@@ -503,11 +506,65 @@ def ssm_bwd_sweep(card, parent, others, unchecked):
                 route(mod.BWD_SOURCE, builds[name])
                 turns.append((name, cs.cuda_ms(run, reps=10)))
         route(mod.BWD_SOURCE, builds["this"])
+        split = kernel_split(run)
         print(f"ssm {fname} at {shape}: " + ", ".join(f"{n} {t:.6g} ms" for n, t in turns)
-              + f" [{card}]", flush=True)
-        out[fname] = {"shape": list(shape), "turns": turns}
+              + "; the shipped build's kernels (a call, traced): "
+              + ", ".join(f"{k} {v:.6g} ms" for k, v in split.items()) + f" [{card}]",
+              flush=True)
+        out[fname] = {"shape": list(shape), "turns": turns, "kernels": split}
         torch.cuda.empty_cache()
+    if parent:
+        out["ssd.cu"] = ssd_forward_turns(card, parent)
     return out
+
+
+def kernel_split(run, reps=3) -> dict:
+    """Device ms of each kernel a call, averaged over ``reps`` traced calls
+    of ``run`` (after one untraced call), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]:
+            e.device_time_total / 1e3 / e.count
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def ssd_forward_turns(card, parent):
+    """The SSD's forward (``ssd.cu``) and the parent's at zamba2's
+    microbatch, chunk 128: their y and final state bitwise equal, then
+    timed in turns (parent, this, this, parent)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.ssd import kernel as sk
+
+    dev = torch.device("cuda")
+    psrc = pathlib.Path(parent) / sk.SOURCE.relative_to(ROOT)
+    paths = build([(sk.SOURCE, kbuild.NVCC_FLAGS), (psrc, kbuild.NVCC_FLAGS)])
+    builds = {"this": loaded(paths[0], sk._bind), "parent": loaded(paths[1], sk._bind)}
+    gen = torch.Generator(device=dev).manual_seed(33)
+    args = cs.ssd_bwd_case(gen, dev, *cs.SSD_BWD_TIMED, False)[:4]
+    outs = {}
+    for name, handle in builds.items():
+        route(sk.SOURCE, handle)
+        outs[name] = sk.ssd(*args, chunk=128)
+    torch.cuda.synchronize()
+    if not all(cs.bits_equal(a, b) for a, b in zip(outs["this"], outs["parent"])):
+        raise AssertionError("ssd.cu's forward differs from the parent's")
+    turns = []
+    for name in ("parent", "this", "this", "parent"):
+        route(sk.SOURCE, builds[name])
+        turns.append((name, cs.cuda_ms(lambda: sk.ssd(*args, chunk=128), reps=10)))
+    route(sk.SOURCE, builds["this"])
+    print(f"ssm ssd.cu (the forward) at {cs.SSD_BWD_TIMED}, chunk 128: y and the final "
+          f"state bitwise equal to the parent's; "
+          + ", ".join(f"{n} {t:.6g} ms" for n, t in turns) + f" [{card}]", flush=True)
+    return {"shape": list(cs.SSD_BWD_TIMED), "bitwise_equal": True, "turns": turns}
 
 
 def main() -> int:

@@ -22,7 +22,7 @@ d is not a multiple of the kernel's 4-float vector, or a row does not
 start on 16 bytes, it runs on zero-padded copies (a zero channel stays
 zero) and returns the first d channels.
 ``LAUNCHES`` counts the launches of each form and the backward's calls
-(``mamba1_scan_bwd``: one a call, for its two kernels).  On CPU tensors
+(``mamba1_scan_bwd``: one a call, for its four launches).  On CPU tensors
 they run the plain versions (``ref.selective_scan_plain``,
 ``ref.mamba1_scan_fused_plain``, ``ref.mamba1_scan_fused_plain_bwd``)
 instead and count nothing.

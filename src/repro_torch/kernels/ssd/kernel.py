@@ -5,7 +5,7 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs (and the backward's scratch) with ``torch.empty``, launches on the
 current CUDA stream and raises if a launch was refused.  ``LAUNCHES``
 counts the forward's launches (``ssd``) and the backward's calls
-(``ssd_bwd``: one a call, for its three kernels).  On CPU tensors they run
+(``ssd_bwd``: one a call, for its four launches).  On CPU tensors they run
 the plain versions (``ref.ssd_plain``, the sequential recurrence, and
 ``ref.ssd_plain_bwd``, its reverse recurrence) instead and count nothing.
 The wrappers take no part in autograd: ``ssd`` refuses inputs that

@@ -1234,7 +1234,11 @@ def test_ssd_gradient_on_the_card_is_the_plain_backward(cuda_device, dS_used):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [(2, 300, 4, 64, 64, True), (1, 100, 3, 16, 8, False),
-                                  (1, 130, 2, 128, 128, True)])
+                                  (1, 130, 2, 128, 128, True),
+                                  # heads that leave a smaller last group of 8, many
+                                  # chunks with a ragged tail, state and head_dim 128
+                                  (1, 1000, 12, 64, 64, True), (2, 777, 20, 32, 16, False),
+                                  (1, 300, 9, 128, 128, True)])
 def test_ssd_bwd_kernel_matches_plain_and_is_deterministic(cuda_device, case):
     cs = _smoke()
     gen = torch.Generator(device=cuda_device).manual_seed(sum(case))
@@ -1244,7 +1248,11 @@ def test_ssd_bwd_kernel_matches_plain_and_is_deterministic(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [(2, 100, 72, 16), (2, 33, 200, 64), (1, 1, 8, 4)])
+@pytest.mark.parametrize("case", [(2, 100, 72, 16), (2, 33, 200, 64), (1, 1, 8, 4),
+                                  # several 512-token segments with a ragged last chunk,
+                                  # d not a multiple of 64, state 64, rows that are not
+                                  # 16-byte vectors (d = 100)
+                                  (1, 1100, 200, 16), (2, 600, 136, 64), (1, 300, 100, 16)])
 def test_fused_scan_bwd_kernel_matches_plain_and_is_deterministic(cuda_device, case):
     """Within the bound of the plain backward, bitwise on a second call;
     a 1% error planted in dB is caught where dB has more than one token
