@@ -237,7 +237,9 @@ at full width, through flash attention's backward kernel:
     128, GQA groups 1, 4, 5 and 6, causal with sq = sk and sq < sk and
     not (sq = sk and sq != sk: whisper-tiny's encoder and cross-attention
     with their ragged last key tile), ragged lengths, one query row, bf16
-    and f32; o within 2e-2 (f32
+    and f32; at head_dim 80 (the wgmma route) zamba2's 32 heads of group 1
+    at 1,000, group 4, non-causal sq != sk and one query row; o within
+    2e-2 (f32
     2e-5), the lse within 1e-4 (bf16 route; f32 2e-5), each gradient
     element within 2e-2 (f32 2e-5) of |want| plus its row's RMS plus a
     tenth of the gradient's RMS, the relative Frobenius error within 1e-2
@@ -341,8 +343,9 @@ rest):
     (``ssd_bwd_bound_ms``, ``fused_scan_bwd_bound``); no single PyTorch
     call computes either.  Then flash attention at zamba2's training
     shape (``SSM_FLASH_TIMED``: 2 x 4,096, 32 heads of 80, causal, bf16;
-    the backward on the ``mma.sync`` kernel head_dim 80 keeps) as phase 26 times its
-    shapes: checked, the forward with and without the lse and the
+    the backward on the wgmma kernel, ``flash_bwd_sm90_bf16_kernel<80>``)
+    as phase 26 times its shapes: checked (the planted dk/dv rejected),
+    the forward with and without the lse and the
     backward beside the plain versions, SDPA's forward and backward and
     the bounds.
 34. The reduced zamba2 and falcon-mamba train slices on the card against
@@ -524,13 +527,19 @@ TRAIN_CKPT = ROOT / "_train_ckpt"
 # encoder (1,500 frames: 11 key tiles of 128, then 92), cross-attention
 # (448 queries: 3 tiles of 128, then 64; against the 1,500 frames) and
 # causal decoder, 6 heads of 64 (group 1), and internvl2's 48 heads over 8
-# (group 6) at 1,000 (15 tiles of 64, then 40)
+# (group 6) at 1,000 (15 tiles of 64, then 40).  Head_dim 80 on the wgmma
+# route: zamba2's 32 heads of group 1 at 1,000, group 4, non-causal with
+# sq != sk (333 keys: 2 tiles of 128, then 77) and one query row
 BWD_CASES = [
     (2, 128, 128, 4, 4, 16, True, "bfloat16"),
     (2, 200, 200, 8, 2, 64, True, "bfloat16"),
     (1, 100, 229, 10, 2, 128, True, "bfloat16"),
     (2, 257, 257, 5, 1, 128, False, "bfloat16"),
     (1, 130, 333, 4, 1, 80, True, "bfloat16"),
+    (1, 1000, 1000, 32, 32, 80, True, "bfloat16"),
+    (2, 200, 200, 8, 2, 80, True, "bfloat16"),
+    (2, 90, 333, 8, 2, 80, False, "bfloat16"),
+    (2, 1, 300, 8, 2, 80, True, "bfloat16"),
     (2, 1, 300, 8, 2, 64, True, "bfloat16"),
     (1, 1500, 1500, 6, 6, 64, False, "bfloat16"),
     (2, 448, 1500, 6, 6, 64, False, "bfloat16"),
@@ -560,9 +569,9 @@ BWD_TIMED = {"granite-3-2b": (2, 4096, 32, 8, 64), "qwen3-14b": (2, 4096, 40, 8,
 # microbatch) and a relative Frobenius error of 0.0025-0.0028, printed
 # beside this kernel's
 BWD_MMA_SYNC_ERRORS = (0.59, (0.0025, 0.0028))
-# the backward's wgmma kernels (bf16 at head_dim 64 and 128): their SASS
-# must hold warpgroup products (HGMMA) fed by TMA (UTMALDG)
-BWD_WGMMA_KERNELS = ("flash_bwd_sm90_bf16_kernel<64>", "flash_bwd_sm90_bf16_kernel<128>")
+# the backward's wgmma kernels (bf16 at head_dim 64, 80 and 128): their
+# SASS must hold warpgroup products (HGMMA) fed by TMA (UTMALDG)
+BWD_WGMMA_KERNELS = tuple(f"flash_bwd_sm90_bf16_kernel<{d}>" for d in (64, 80, 128))
 # the reduced granite train slice, card against CPU: the CPU tests' bounds,
 # twice the reference's own spread (tests/test_torch_train.py): the loss and
 # the grad norm (relative) pooled over the steps; the step-1 gradients'
@@ -3081,6 +3090,15 @@ def flash_bwd_checks(dev, card, fk, fr) -> tuple[float, float]:
     return fwd_err, err
 
 
+def bwd_instance(fk, b, sq, sk, h, kv, d) -> str:
+    """The kernel that does a bf16 backward's products at this shape, by
+    the route ``bwd_plan`` picks."""
+    import torch
+    if fk.bwd_plan(b, sq, sk, h, kv, d, torch.bfloat16).route == "wgmma":
+        return f"flash_bwd_sm90_bf16_kernel<{d}>"
+    return f"flash_bwd_dkdv_bf16_kernel<{d}> + flash_bwd_dq_bf16_kernel<{d}>"
+
+
 def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag, sk=None, causal=True) -> dict:
     """Phase 26b: at (b, s, h, kv, d) against ``sk`` keys (default s),
     bf16: the checks of ``bwd_check``, then CUDA-event times of the
@@ -3124,7 +3142,8 @@ def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag, sk=None, causal=True) 
     torch.cuda.empty_cache()
     rows = {"flash_attention_bwd": dict(ms=ms, plain_ms=plain_bwd, library_ms=lib, err=err,
                                         nbytes=nbytes, flops=flops,
-                                        shape=[b, s, sk, h, kv, d], causal=causal),
+                                        shape=[b, s, sk, h, kv, d], causal=causal,
+                                        instance=bwd_instance(fk, b, s, sk, h, kv, d)),
             "flash_attention (lse)": dict(ms=fwd_lse, ms_without_lse=fwd, plain_ms=plain_fwd,
                                           library_ms=lib_fwd, err=fwd_err, nbytes=f_bytes,
                                           flops=f_flops, shape=[b, s, sk, h, kv, d],
@@ -4766,7 +4785,7 @@ def main() -> int:
         r = rows["flash_attention_bwd"]
         kernels.append({
             "name": f"flash_attention_bwd/{arch}", "route": "cuda",
-            "source": BWD_FLASH_SOURCE,
+            "source": BWD_FLASH_SOURCE, "instance": r["instance"],
             "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
             "model": arch, "shape": r["shape"],
             "launches": training["launches"]["flash_attention_bwd"]
@@ -4786,7 +4805,7 @@ def main() -> int:
         r = rows["flash_attention_bwd"]
         kernels.append({
             "name": f"flash_attention_bwd/{tag}", "route": "cuda",
-            "source": BWD_FLASH_SOURCE,
+            "source": BWD_FLASH_SOURCE, "instance": r["instance"],
             "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
             "model": tag.split()[0], "shape": r["shape"], "causal": r["causal"],
             "launches": bwd_launches[tag], "max_abs_err": max(bwd_err, r["err"]),
@@ -4816,8 +4835,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "err_over_bound": r["err"], "ms": r["ms"],
             "forward_ms": r["forward_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
-    # flash at zamba2's training shape (head_dim 80), with its launches in
-    # phase 35's run
+    # flash at zamba2's training shape (head_dim 80; the backward on the
+    # wgmma kernel), with its launches in phase 35's run
     for arch, rows in ssm_flash_rows.items():
         for name, tag in (("flash_attention_bwd", "flash_attention_bwd"),
                           ("flash_attention", "flash_attention (lse)")):
@@ -4827,6 +4846,7 @@ def main() -> int:
                 "source": BWD_FLASH_SOURCE if name.endswith("bwd") else FLASH_SOURCE,
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:23",
                 "model": arch, "shape": r["shape"],
+                **({"instance": r["instance"]} if "instance" in r else {}),
                 "launches": ssm_training[arch]["launches"].get(name, 0),
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -29,12 +29,15 @@ window's chain bound.
 
 ``bwd`` times the shipped ``kernels/flash_attention/csrc/flash_attention_bwd.cu``
 at ``chip_smoke.BWD_TIMED``'s two shapes (granite-3-2b's and qwen3-14b's
-training microbatch, causal, bf16), beside SDPA's backward (autograd on a
+training microbatch) and ``chip_smoke.SSM_FLASH_TIMED``'s (zamba2-2.7b's,
+head_dim 80), causal, bf16, beside SDPA's backward (autograd on a
 retained graph) and the bound (``chip_smoke.flash_bwd_bound``).  Every
 build (the shipped one, each ``--other FILE`` unless ``--unchecked``, and
 the parent's) is first held to the plain backward by
-``chip_smoke.grad_errors`` / ``grad_ok`` on one ragged causal case at each
-head_dim.  Each ``--other`` runs in turns with the shipped build.
+``chip_smoke.grad_errors`` / ``grad_ok`` on one ragged causal case at
+head_dim 64, 80 and 128; at 64 and 128 the shipped build's outputs are
+held bitwise equal to the parent's there and at the timed shapes.  Each
+``--other`` runs in turns with the shipped build.
 
 ``ssm`` times the shipped backward kernels of the SSD
 (``kernels/ssd/csrc/ssd_bwd.cu``) at zamba2-2.7b's training microbatch
@@ -338,6 +341,20 @@ def window_sweep(card, parent, others, unchecked):
     return out
 
 
+# the head dims whose backward this tree leaves as its parent had it: their
+# outputs are held bitwise equal to the parent's
+PARENT_BITWISE_HEAD_DIMS = (64, 128)
+
+
+def same_bits(got, want, tag, card) -> None:
+    """dq, dk and dv of two builds, equal to the bit, or raise."""
+    import torch
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"bwd sweep {tag}: {name} differs from the parent's")
+    print(f"bwd parent {tag}: dq, dk and dv bitwise equal to the parent's [{card}]", flush=True)
+
+
 def bwd_sweep(card, parent, others, unchecked):
     import torch
     import torch.nn.functional as F
@@ -358,21 +375,17 @@ def bwd_sweep(card, parent, others, unchecked):
     handles = {"this": loaded(paths[0], fk._bind_bwd)}
     for f, path in zip(others, paths[1:]):
         handles[f] = loaded(path, fk._bind_bwd)
-    ph = None
-    if psrc is not None:
-        ph = ctypes.CDLL(str(paths[-1]))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        ph.gf_flash_attention_bwd.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, P]
-        ph.gf_flash_attention_bwd.restype = I
+    ph = loaded(paths[-1], fk._bind_bwd) if psrc is not None else None
 
     def parent_bwd(q, k, v, o, lse, do):
-        """The parent's backward (its scratch: D, (b, h, sq) f32)."""
+        """The parent's backward, with the scratch its library asks for."""
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dsum = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        work = torch.empty(ph.gf_flash_attention_bwd_workspace(b, sq, sk, h, kvh, d, 1) // 4,
+                           dtype=torch.float32, device=dev)
         rc = ph.gf_flash_attention_bwd(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, dsum, dq, dk, dv)),
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, work, dq, dk, dv)),
             b, sq, sk, h, kvh, d, 1, d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
         kbuild.check(rc, "parent flash_attention_bwd")
         return dq, dk, dv
@@ -395,14 +408,15 @@ def bwd_sweep(card, parent, others, unchecked):
     if ph is not None:
         builds["parent"] = parent_bwd
     out = {"checks": [], "shapes": {}}
-    for d in (64, 128):
+    for d in (64, 80, 128):
         case = (1, 1000, 1000, 8, 2, d)     # ragged: 1,000 is no multiple of a tile
         q, k, v, o, lse, do = inputs(3, *case[:3], *case[3:])
         want = fr.attention_plain_bwd(q, k, v, o, lse, do, causal=True)
+        got_by = {}
         for name, fn in builds.items():
             if unchecked and name in others:
                 continue
-            got = fn(q, k, v, o, lse, do)
+            got = got_by[name] = fn(q, k, v, o, lse, do)
             errs = {g: cs.grad_errors(x, y, "bfloat16")
                     for g, x, y in zip(("dq", "dk", "dv"), got, want)}
             ok = all(cs.grad_ok(e, "bfloat16") for e in errs.values())
@@ -413,10 +427,15 @@ def bwd_sweep(card, parent, others, unchecked):
                   + f" -> {'ok' if ok else 'REJECTED'} [{card}]", flush=True)
             if not ok:
                 raise AssertionError(f"bwd sweep: build {name} disagrees with the plain backward")
-        del q, k, v, o, lse, do, want
+        if "parent" in got_by and d in PARENT_BITWISE_HEAD_DIMS:
+            same_bits(got_by["this"], got_by["parent"], f"d={d} ragged causal", card)
+        del q, k, v, o, lse, do, want, got_by
     route(src, handles["this"])
-    for tag, (b, s_, h, kv, d) in cs.BWD_TIMED.items():
+    for tag, (b, s_, h, kv, d) in {**cs.BWD_TIMED, **cs.SSM_FLASH_TIMED}.items():
         q, k, v, o, lse, do = inputs(5, b, s_, s_, h, kv, d)
+        if ph is not None and d in PARENT_BITWISE_HEAD_DIMS:
+            same_bits(builds["this"](q, k, v, o, lse, do), parent_bwd(q, k, v, o, lse, do),
+                      tag, card)
         nbytes, flops = cs.flash_bwd_bound(b, s_, s_, h, kv, d, 2, True)
         bound = max(nbytes / cs.HBM_BYTES_PER_S, flops / cs.BF16_FLOPS) * 1e3
         row = {"shape": [b, s_, s_, h, kv, d], "bound_ms": bound, "turns": []}

@@ -25,8 +25,8 @@
 //
 // Routes, picked by the wrapper from the dtype and head_dim
 // (kernel.py::bwd_plan):
-// bf16 at head_dim 64 and 128 (the trainer's shapes): one pass, each of
-//   the five products once, on wgmma (HGMMA), fed by TMA.  Three launches:
+// bf16 at head_dim 64, 80 and 128 (the trainers' shapes): one pass, each
+//   of the five products once, on wgmma (HGMMA), fed by TMA.  Three launches:
 //   1. flash_bwd_prep_kernel: D = rowsum(dO * O) and lse * log2(e) into
 //      padded (b, h, sq_pad) rows; the dQ accumulator and the counters
 //      zeroed.
@@ -38,8 +38,9 @@
 //      consumers through setmaxnreg) loads the item's K and V once and, for
 //      each query tile that sees the keys (from the last down) and each
 //      head of the group, that step's Q and dO tiles (TMA, 128-byte
-//      swizzle, two 64-column boxes a row at head_dim 128, zero past the
-//      end) and its lse and D rows (bulk copies) into a 2-stage ring, with
+//      swizzle, two 64-column boxes a row at head_dim 80 and 128, zero past
+//      the end: at 80 the second box holds columns 64..79 and TMA's zeros)
+//      and its lse and D rows (bulk copies) into a 2-stage ring, with
 //      mbarrier full/empty pairs.  Two consumer warpgroups hold 64 keys
 //      each.  Per step each computes S^T = K Q^T and dP^T = V dO^T (m64 x
 //      BQ, A and B from shared memory), forms P^T = 2^(S^T scale log2e -
@@ -53,8 +54,27 @@
 //      BQ x d result, which they leave in shared memory (two buffers).  A
 //      second thread of warpgroup 0, the dQ writer, adds each dQ_part into
 //      an f32 accumulator with one bulk reduction (cp.reduce.async.bulk).
-//      BQ, the queries a step, is 128 at head_dim 64 and 64 at 128, where
-//      the dK and dV accumulators take 128 of a consumer's 232 registers.
+//      BQ, the queries a step, is 128 at head_dim 64 and 64 at 80 and 128,
+//      where the dK and dV accumulators take 80 and 128 of a consumer's 232
+//      registers.  At 80 no product runs over the second box's zeros: S^T
+//      and dP^T contract over 5 k-steps of 16 (four in the first box, one
+//      at the second's start), and dV, dK and dQ_part are m64n80, their
+//      MN-major B crossing into the second box through the descriptor's
+//      leading offset.  dQ_part's 80 columns do not halve into boxes, so
+//      at 80 each consumer multiplies its own 64 keys' dS by K (m64n80)
+//      and the two partials are added in shared memory, the first
+//      consumer's handed to the second through an mbarrier pair: as
+//      neither reads the other's dS, the two need not run in step, and
+//      one's softmax can run beside the other's products.  At 80 the
+//      writer also counts a reduction only when the next part has come,
+//      so that the reduction's completion overlaps the consumers' step.
+//      Measured on an H100 (kernel_sweeps.py bwd, scratch copies timed in
+//      turns): in step, a split by columns (64 | 16) and one by keys take
+//      the same time; out of step with the late count, 4% less (2% less
+//      than in step with it); out of step with the count at once, 4% more
+//      than in step; two writers with two reductions in flight, 23% more;
+//      without the reduction (timing only), a fifth less: the reductions
+//      hold the kernel at 80, as at 128.
 //   3. flash_bwd_dq_out_kernel: dQ = bf16(acc * scale).
 //   dQ is summed in a fixed order.  Each (batch, head, query tile) has a
 //   counter; the writer adds key tile j's part only after it reads j
@@ -69,7 +89,7 @@
 //   scratch copy that adds without waiting): the order costs ~1-2% of the
 //   call; the reductions themselves cost ~24% at head_dim 128, less than
 //   the two products a separate dQ kernel would recompute.
-// bf16 at head_dim 16 and 80: FlashAttention-2's backward on
+// bf16 at head_dim 16 (the reduced configs): FlashAttention-2's backward on
 //   mma.sync.m16n8k16 (HMMA), 4 warps of 16 rows, in three kernels and no
 //   atomics: flash_bwd_dot_kernel (D), flash_bwd_dkdv_* (one CTA per kv
 //   head, batch and 64-key tile walking its group's query tiles: S^T,
@@ -366,7 +386,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route at head_dim 16 and 80: tensor cores (mma.sync), cp.async ring
+// bf16 route at head_dim 16: tensor cores (mma.sync), cp.async ring
 // ---------------------------------------------------------------------------
 
 constexpr int T_THREADS = 128;   // 4 warps of 16 rows
@@ -668,7 +688,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route at head_dim 64 and 128: wgmma, TMA, a producer warp, one pass
+// bf16 route at head_dim 64, 80 and 128: wgmma, TMA, a producer warp, one pass
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -676,20 +696,24 @@ struct Hop {
   static constexpr int BQ = D == 64 ? 128 : 64;   // queries a streamed tile
   static constexpr int BK = 128;                   // keys a work item, 64 a consumer warpgroup
   static constexpr int STAGES = 2;                 // Q / dO ring
-  static constexpr int NBOX = D / 64;              // 64-column boxes a row
+  static constexpr int NBOX = (D + 63) / 64;       // 64-column boxes a row (at 80 the second
+                                                   // holds 16 columns and zeros)
   static constexpr int THREADS = 384;              // producer, two consumer warpgroups
-  static constexpr int KV_BYTES = BK * D * 2;      // one of K, V
-  static constexpr int QT_BYTES = BQ * D * 2;      // one of Q, dO
+  static constexpr int KV_BYTES = BK * NBOX * 128; // one of K, V, whole boxes
+  static constexpr int QT_BYTES = BQ * NBOX * 128; // one of Q, dO
   static constexpr int DS_BYTES = BK * BQ * 2;
   static constexpr int DQ_BYTES = BQ * D * 4;      // one f32 dQ_part
   static constexpr int ROW_BYTES = BQ * 4;         // one of a tile's lse, D
-  static constexpr int STAGE_TX = 2 * QT_BYTES + 2 * ROW_BYTES;
+  static constexpr int STAGE_TX = 2 * QT_BYTES + 2 * ROW_BYTES;   // TMA counts the zeros
+  // mbarriers; at 80 also dq_half[2], through which the first consumer
+  // hands its dQ partial to the second
+  static constexpr int N_BAR = 2 + 2 * STAGES + (D == 80 ? 6 : 4);
   // shared memory, from a 1,024-byte aligned base: K, V [NBOX][BK][64];
   // Q, dO [STAGES][NBOX][BQ][64]; dS [BQ / 64][BK][64] (queries innermost);
   // dQ_part [2] (fragment order, see flash_bwd_dq_out_kernel); lse (base 2),
   // D [STAGES][BQ]; each stage's and each dQ_part's step [STAGES + 2][8];
   // barriers kv_full, kv_empty, full[STAGES], empty[STAGES], dq_full[2],
-  // dq_empty[2]
+  // dq_empty[2], and at 80 dq_half[2]
   static constexpr int OFF_K = 0;
   static constexpr int OFF_V = OFF_K + KV_BYTES;
   static constexpr int OFF_Q = OFF_V + KV_BYTES;
@@ -700,7 +724,7 @@ struct Hop {
   static constexpr int OFF_DD = OFF_L + STAGES * ROW_BYTES;
   static constexpr int OFF_META = OFF_DD + STAGES * ROW_BYTES;
   static constexpr int OFF_BAR = OFF_META + (STAGES + 2) * 32;
-  static constexpr int SMEM = OFF_BAR + 8 * (2 + 2 * STAGES + 4) + 1024;   // + alignment slack
+  static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 1024;   // + alignment slack
 };
 
 // The scratch of one call, in 4-byte words from its start: lse * log2(e)
@@ -715,11 +739,11 @@ struct Workspace {
 
 Workspace workspace(int b, int sq, int h, int d, int is_bf16) {
   Workspace w{};
-  if (!(is_bf16 && (d == 64 || d == 128))) {
+  if (!(is_bf16 && (d == 64 || d == 80 || d == 128))) {
     w.words = (long)b * h * sq;
     return w;
   }
-  const int bq = d == 64 ? Hop<64>::BQ : Hop<128>::BQ;
+  const int bq = d == 64 ? Hop<64>::BQ : d == 80 ? Hop<80>::BQ : Hop<128>::BQ;
   w.n_qt = (sq + bq - 1) / bq;
   w.sq_pad = w.n_qt * bq;
   w.lse2 = 0;
@@ -794,9 +818,12 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 }
 
 // After it: dQ = bf16(acc * scale).  A query tile's BQ x d accumulator is
-// stored as the consumers hold it: [warpgroup][warp][8-column block][lane]
-// of 4 values (rows r, r + 8 of columns c, c + 1), so that a consumer
-// stores 16 contiguous bytes a thread; one thread here takes one such 4.
+// stored as the consumers hold it, in 4 values (rows r, r + 8 of columns
+// c, c + 1) a lane, so that a consumer stores 16 contiguous bytes a
+// thread; one thread here takes one such 4.  At head_dim 64 and 128 the
+// order is [warpgroup][warp][8-column block (8)][lane], the warpgroup
+// holding 64 queries (64) or 64 columns (128); at 80 it is [warp][8-column
+// block (10)][lane] over the tile's 64 queries and 80 columns.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_out_kernel(const float4* __restrict__ acc, bf16* __restrict__ dq, long n4, int sq,
@@ -806,9 +833,16 @@ flash_bwd_dq_out_kernel(const float4* __restrict__ acc, bf16* __restrict__ dq, l
        i += (long)gridDim.x * blockDim.x) {
     const long tile = i / T4;
     const int r = (int)(i % T4);
-    const int w = r >> 10, wp = (r >> 8) & 3, nb = (r >> 5) & 7, lane = r & 31;
-    const int row = (int)(tile % n_qt) * BQ + (BQ == 128 ? w * 64 : 0) + wp * 16 + (lane >> 2);
-    const int col = (BQ == 128 ? 0 : w * 64) + nb * 8 + 2 * (lane & 3);
+    int row, col;
+    if constexpr (D == 80) {
+      const int wp = r / 320, nb = (r % 320) >> 5, lane = r & 31;
+      row = (int)(tile % n_qt) * BQ + wp * 16 + (lane >> 2);
+      col = nb * 8 + 2 * (lane & 3);
+    } else {
+      const int w = r >> 10, wp = (r >> 8) & 3, nb = (r >> 5) & 7, lane = r & 31;
+      row = (int)(tile % n_qt) * BQ + (BQ == 128 ? w * 64 : 0) + wp * 16 + (lane >> 2);
+      col = (BQ == 128 ? 0 : w * 64) + nb * 8 + 2 * (lane & 3);
+    }
     const long bh = tile / n_qt;   // bi * h + hi
     const float4 a = acc[i];
     bf16* p = dq + ((bh / h * sq + row) * h + bh % h) * D + col;
@@ -853,6 +887,7 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t kv_full = base + C::OFF_BAR, kv_empty = kv_full + 8;
   const uint32_t full0 = kv_full + 16, empty0 = full0 + 8 * C::STAGES;
   const uint32_t dq_full0 = empty0 + 8 * C::STAGES, dq_empty0 = dq_full0 + 16;
+  const uint32_t dq_half0 = dq_empty0 + 16;   // at 80 only
   const int tid = threadIdx.x, wg = tid / 128;
   const int q_off = a.sk - a.sq;
 
@@ -866,6 +901,7 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < 2; ++s) {
       mbar_init(dq_full0 + 8 * s, 256);
       mbar_init(dq_empty0 + 8 * s, 1);
+      if constexpr (D == 80) mbar_init(dq_half0 + 8 * s, 128);
     }
     fence_barrier_init();
   }
@@ -933,11 +969,26 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     if (tid == 32) {
       // the dQ writer: key tile j adds into a (batch, head, query tile)
-      // after tiles 0 .. j - 1 have, then counts itself
+      // after tiles 0 .. j - 1 have, then counts itself.  At 80 it counts
+      // a reduction only once the consumers' next part has come, so that
+      // the reduction completes while they compute it: their next part
+      // needs nothing of this writer but the other buffer, freed before,
+      // so the deferred count waits on no other CTA and closes no cycle
       int buf = 0;
       uint32_t ph = 0;
+      unsigned* pending = nullptr;   // the count of a reduction in flight
+      auto count = [](unsigned* cnt) {
+        bulk_wait<0>();
+        fence_proxy_async_global();
+        __threadfence();
+        atomicAdd(cnt, 1u);
+      };
       for (;;) {
         mbar_wait(dq_full0 + 8 * buf, ph);
+        if (pending) {
+          count(pending);
+          pending = nullptr;
+        }
         const int* m = dq_meta + buf * 8;
         const int j = m[0];
         if (j < 0) return;
@@ -952,10 +1003,10 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         bulk_commit();
         bulk_wait_read<0>();
         mbar_arrive(dq_empty0 + 8 * buf);
-        bulk_wait<0>();
-        fence_proxy_async_global();
-        __threadfence();
-        atomicAdd(cnt, 1u);
+        if constexpr (D == 80)
+          pending = cnt;
+        else
+          count(cnt);
         if (++buf == 2) {
           buf = 0;
           ph ^= 1;
@@ -1058,14 +1109,16 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         da[kk][e] = pack_bf16(s[i] * (dp[i] - dd.x), s[i + 1] * (dp[i + 1] - dd.y));
       }
 
-    // dV += P^T dO and dK += dS^T Q over all d columns (at 128 the two
-    // boxes, C::BQ * 128 bytes apart)
+    // dV += P^T dO and dK += dS^T Q over all d columns (at 80 and 128 the
+    // two boxes, C::BQ * 128 bytes apart)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < QK; ++kk) {
       const uint64_t bo = desc_sw128(sdO + kk * 2048, C::BQ * 128);
       if constexpr (D == 128)
         wgmma_m64n128_rs<1>(dv, pa[kk], bo, 1);
+      else if constexpr (D == 80)
+        wgmma_m64n80_rs<1>(dv, pa[kk], bo, 1);
       else
         wgmma_m64n64_rs<1>(dv, pa[kk], bo, 1);
     }
@@ -1074,16 +1127,22 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t bq = desc_sw128(sQ + kk * 2048, C::BQ * 128);
       if constexpr (D == 128)
         wgmma_m64n128_rs<1>(dk, da[kk], bq, 1);
+      else if constexpr (D == 80)
+        wgmma_m64n80_rs<1>(dk, da[kk], bq, 1);
       else
         wgmma_m64n64_rs<1>(dk, da[kk], bq, 1);
     }
     wg_commit();
 
     // dS into shared memory while they run, once both warpgroups are done
-    // with the last step's: fragment e of k-step kk is the query pair
+    // with the last step's (at 80, where each reads only its own keys' rows,
+    // once this warpgroup is): fragment e of k-step kk is the query pair
     // (16 kk + 2 tq + 8 (e / 2), + 1) of key row key_l + 8 (e % 2); stored
     // [query / 64][key][query % 64], swizzled
-    named_sync(2, 256);
+    if constexpr (D == 80)
+      named_sync(4 + w, 128);
+    else
+      named_sync(2, 256);
 #pragma unroll
     for (int kk = 0; kk < QK; ++kk)
 #pragma unroll
@@ -1095,17 +1154,31 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   da[kk][e]);
       }
     fence_view_async_shared();
-    named_sync(1, 256);
+    if constexpr (D == 80)
+      named_sync(4 + w, 128);
+    else
+      named_sync(1, 256);
 
     // dQ_part = dS K over the tile's 128 keys: at BQ = 128 warpgroup w
     // takes queries w * 64.., all 64 columns; at BQ = 64 all 64 queries and
-    // columns w * 64..
-    float dq[32];
-    const uint32_t aDS = sDS + (C::BQ == 128 ? w : 0) * (C::BK * 128);
-    const uint32_t bK = base + C::OFF_K + (C::BQ == 128 ? 0 : w) * (C::BK * 128);
+    // columns w * 64..; at 80 (BQ = 64, 80 columns, which do not halve into
+    // boxes) its own keys w * 64.. and all 80 columns (m64n80, the second
+    // box through LBO), a partial that the two warpgroups add below
+    float dq[D == 80 ? 40 : 32];
+    if constexpr (D == 80) {
 #pragma unroll
-    for (int kk = 0; kk < C::BK / 16; ++kk)
-      wgmma_m64n64_ss<1, 1>(dq, desc_sw128(aDS + kk * 2048), desc_sw128(bK + kk * 2048), kk > 0);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n80_ss<1, 1>(dq, desc_sw128(sDS + w * 8192 + kk * 2048),
+                              desc_sw128(base + C::OFF_K + w * 8192 + kk * 2048, C::BK * 128),
+                              kk > 0);
+    } else {
+      const uint32_t aDS = sDS + (C::BQ == 128 ? w : 0) * (C::BK * 128);
+      const uint32_t bK = base + C::OFF_K + (C::BQ == 128 ? 0 : w) * (C::BK * 128);
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        wgmma_m64n64_ss<1, 1>(dq, desc_sw128(aDS + kk * 2048), desc_sw128(bK + kk * 2048),
+                              kk > 0);
+    }
     wg_commit();
     wg_wait<0>();
     fence_regs(dk);
@@ -1119,19 +1192,36 @@ flash_bwd_sm90_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (flags & LAST) mbar_arrive(kv_empty);
     }
 
-    // dQ_part to the writer, in fragment order (16 bytes a thread)
-    mbar_wait(dq_empty0 + 8 * dbuf, dph ^ 1);
+    // dQ_part to the writer, in fragment order (16 bytes a thread).  At 80
+    // warpgroup 0 stores its partial and hands it over (dq_half), and
+    // warpgroup 1 adds its own to it, in that order
     float4* part = reinterpret_cast<float4*>(gbase + C::OFF_DQ + dbuf * C::DQ_BYTES) +
-                   w * 1024 + wp * 256 + lane;
+                   (D == 80 ? wp * 320 : w * 1024 + wp * 256) + lane;
+    if (D != 80 || w == 0) {
+      mbar_wait(dq_empty0 + 8 * dbuf, dph ^ 1);
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-      part[nb * 32] = make_float4(dq[4 * nb], dq[4 * nb + 1], dq[4 * nb + 2], dq[4 * nb + 3]);
-    if (ctid == 0) {
-      int* dm = dq_meta + dbuf * 8;
-      dm[0] = j;
-      dm[1] = bi;
-      dm[2] = hi;
-      dm[3] = t;
+      for (int nb = 0; nb < (D == 80 ? 10 : 8); ++nb)
+        part[nb * 32] = make_float4(dq[4 * nb], dq[4 * nb + 1], dq[4 * nb + 2], dq[4 * nb + 3]);
+      if (ctid == 0) {
+        int* dm = dq_meta + dbuf * 8;
+        dm[0] = j;
+        dm[1] = bi;
+        dm[2] = hi;
+        dm[3] = t;
+      }
+    }
+    if constexpr (D == 80) {
+      if (w == 0) {
+        mbar_arrive(dq_half0 + 8 * dbuf);
+      } else {
+        mbar_wait(dq_half0 + 8 * dbuf, dph);
+#pragma unroll
+        for (int nb = 0; nb < 10; ++nb) {
+          const float4 q = part[nb * 32];
+          part[nb * 32] = make_float4(q.x + dq[4 * nb], q.y + dq[4 * nb + 1],
+                                      q.z + dq[4 * nb + 2], q.w + dq[4 * nb + 3]);
+        }
+      }
     }
     fence_view_async_shared();
     mbar_arrive(dq_full0 + 8 * dbuf);
@@ -1207,7 +1297,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
   return (int)cudaGetLastError();
 }
 
-// head_dim 16 and 80: mma.sync, dK/dV and dQ in two kernels
+// head_dim 16: mma.sync, dK/dV and dQ in two kernels
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
                 const float* lse, float* dsum, void* dq, void* dk, void* dv, int b, int sq,
@@ -1287,7 +1377,7 @@ int make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, 
   return r == CUDA_SUCCESS ? 0 : MAP_REFUSED + (int)r;
 }
 
-// head_dim 64 and 128: the prep kernel, the persistent wgmma kernel, dQ out
+// head_dim 64, 80 and 128: the prep kernel, the persistent wgmma kernel, dQ out
 template <int D>
 int launch_sm90(const void* q, const void* k, const void* v, const void* o, const void* dout,
                 const float* lse, float* work, void* dq, void* dk, void* dv, int b, int sq,
@@ -1356,7 +1446,7 @@ int launch(int is_bf16, const void* q, const void* k, const void* v, const void*
   if (!is_bf16)
     return launch_f32<D>(q, k, v, o, dout, lse, work, dq, dk, dv, b, sq, sk, h, kvh, scale,
                          causal, s);
-  if constexpr (D == 64 || D == 128)
+  if constexpr (D == 64 || D == 80 || D == 128)
     return launch_sm90<D>(q, k, v, o, dout, lse, work, dq, dk, dv, b, sq, sk, h, kvh, scale,
                           causal, s);
   else
@@ -1367,7 +1457,7 @@ int launch(int is_bf16, const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // The scratch `work` of gf_flash_attention_bwd in bytes: (b, h, sq) f32 for
-// D, and on the wgmma route (bf16, head_dim 64 or 128) also the padded lse,
+// D, and on the wgmma route (bf16, head_dim 64, 80 or 128) also the padded lse,
 // the dQ accumulator and the counters (see Workspace).
 extern "C" size_t gf_flash_attention_bwd_workspace(int b, int sq, int sk, int h, int kvh, int d,
                                                    int is_bf16) {

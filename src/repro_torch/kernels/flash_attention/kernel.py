@@ -14,10 +14,10 @@ CPU tensors they run the plain versions (``ref.attention_plain``,
 count nothing.
 
 The backward's route and scratch follow ``bwd_plan``, a pure function
-(CPU-tested): bf16 at head_dim 64 and 128 takes the wgmma kernel, whose
-scratch holds the padded lse and D rows, an f32 dQ accumulator and one
-counter a (batch, head, query tile) beside the work counter; the other
-shapes take the mma.sync and CUDA-core kernels with D alone.
+(CPU-tested): bf16 at head_dim 64, 80 and 128 takes the wgmma kernel,
+whose scratch holds the padded lse and D rows, an f32 dQ accumulator and
+one counter a (batch, head, query tile) beside the work counter; bf16 at
+16 takes the mma.sync kernels and f32 the CUDA-core ones, with D alone.
 """
 from __future__ import annotations
 
@@ -62,13 +62,14 @@ BWD_KEY_TILE = 128
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """How one backward call runs (``bwd_plan``).  ``route`` is "wgmma"
-    (bf16, head_dim 64 or 128), "mma_sync" (bf16, 16 or 80) or "f32".
-    On the wgmma route: ``bq`` queries a streamed tile, ``bk`` keys a work
-    item, ``n_qt`` query tiles and ``n_kt`` key tiles, and the scratch's
-    parts in 4-byte words from its start (lse * log2(e) and D, (b, h,
-    sq_pad) each; the dQ accumulator, f32 ``acc_shape`` = (b, h, n_qt, bq,
-    d), each query tile's bq x d in the kernel's fragment order; the
-    counters, ``cnt_shape``, then the work counter)."""
+    (bf16, head_dim 64, 80 or 128), "mma_sync" (bf16, 16) or "f32".
+    On the wgmma route: ``bq`` queries a streamed tile (128 at head_dim
+    64, 64 at 80 and 128), ``bk`` keys a work item, ``n_qt`` query tiles
+    and ``n_kt`` key tiles, and the scratch's parts in 4-byte words from
+    its start (lse * log2(e) and D, (b, h, sq_pad) each; the dQ
+    accumulator, f32 ``acc_shape`` = (b, h, n_qt, bq, d), each query
+    tile's bq x d in the kernel's fragment order; the counters,
+    ``cnt_shape``, then the work counter)."""
     route: str
     b: int
     sq: int
@@ -112,7 +113,7 @@ def bwd_plan(b, sq, sk, h, kvh, d, dtype, causal=True) -> BwdPlan:
     """The backward's route by (head_dim, dtype), and on the wgmma route
     its tiles, its scratch and its order (what ``csrc/flash_attention_bwd.cu``
     computes as ``workspace``); elsewhere the scratch is D, (b, h, sq) f32."""
-    if dtype == torch.bfloat16 and d in (64, 128):
+    if dtype == torch.bfloat16 and d in (64, 80, 128):
         bq, bk = (128 if d == 64 else 64), BWD_KEY_TILE
         n_qt, n_kt = -(-sq // bq), -(-sk // bk)
         sq_pad = n_qt * bq

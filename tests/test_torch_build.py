@@ -357,21 +357,23 @@ def test_gradient_check_rejects_later_keys_planted_wrong(name, factor):
     assert not cs.grad_ok(e, "bfloat16") and e["past"] > 0, e
 
 
-# the backward's plan: (b, sq, sk, h, kv, d, causal) at granite's and
-# qwen3's microbatches, ragged, sq < sk, non-causal with sq > sk, one row
+# the backward's plan: (b, sq, sk, h, kv, d, causal) at granite's, qwen3's
+# and zamba2's microbatches, ragged, sq < sk, non-causal with sq > sk, one
+# row, and head_dim 80 ragged and non-causal with sq < sk
 _PLAN_CASES = [(2, 4096, 4096, 32, 8, 64, True), (2, 4096, 4096, 40, 8, 128, True),
                (1, 100, 229, 10, 2, 128, True), (2, 257, 257, 5, 1, 128, False),
                (2, 1, 300, 8, 2, 64, True), (1, 300, 200, 4, 2, 64, False),
-               (2, 1024, 1024, 8, 2, 64, True)]
+               (2, 1024, 1024, 8, 2, 64, True), (2, 4096, 4096, 32, 32, 80, True),
+               (1, 130, 333, 4, 1, 80, False)]
 
 
 @pytest.mark.parametrize("d,dtype,route", [
-    (16, "bfloat16", "mma_sync"), (64, "bfloat16", "wgmma"), (80, "bfloat16", "mma_sync"),
+    (16, "bfloat16", "mma_sync"), (64, "bfloat16", "wgmma"), (80, "bfloat16", "wgmma"),
     (128, "bfloat16", "wgmma"), (16, "float32", "f32"), (64, "float32", "f32"),
     (80, "float32", "f32"), (128, "float32", "f32")])
 def test_bwd_plan_routes_by_head_dim_and_dtype(d, dtype, route):
-    """bf16 at head_dim 64 and 128 (the trainer's) takes the wgmma kernel
-    and its scratch; 16 and 80 keep the mma.sync kernels and f32 the
+    """bf16 at head_dim 64, 80 and 128 (the trainers') takes the wgmma
+    kernel and its scratch; 16 keeps the mma.sync kernels and f32 the
     CUDA-core ones, with D alone as scratch."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -384,14 +386,14 @@ def test_bwd_plan_routes_by_head_dim_and_dtype(d, dtype, route):
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", _PLAN_CASES)
 def test_bwd_plan_scratch_holds_the_dq_accumulator_and_counters(b, sq, sk, h, kv, d, causal):
     """On the wgmma route: 128 keys a work item, 128 queries a step at
-    head_dim 64 and 64 at 128; the scratch holds the padded lse and D rows,
-    the f32 dQ accumulator (b, h, query tile, its rows, d), one counter a
-    (batch, head, query tile) and the work counter, in that order, each
-    part 16-byte aligned."""
+    head_dim 64 and 64 at 80 and 128; the scratch holds the padded lse and
+    D rows, the f32 dQ accumulator (b, h, query tile, its rows, d), one
+    counter a (batch, head, query tile) and the work counter, in that
+    order, each part 16-byte aligned."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk
     plan = fk.bwd_plan(b, sq, sk, h, kv, d, torch.bfloat16, causal)
-    bq = 128 if d == 64 else 64
+    bq = {64: 128, 80: 64, 128: 64}[d]
     assert (plan.route, plan.bq, plan.bk) == ("wgmma", bq, 128)
     n_qt = -(-sq // bq)
     assert (plan.n_qt, plan.n_kt, plan.sq_pad) == (n_qt, -(-sk // 128), n_qt * bq)

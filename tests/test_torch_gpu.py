@@ -1009,7 +1009,10 @@ def test_paper_eval_synthetic_scenario_on_card_matches_cpu(cuda_device, capsys):
 # query row; granite's heads; whisper-tiny's encoder (1,500 frames: a
 # 92-key last tile of 128), cross-attention (448 queries, ragged in both)
 # and causal decoder (6 heads of 64, group 1), and internvl2's 48 heads
-# over 8 (group 6) at a length of 15 tiles of 64 and 40
+# over 8 (group 6) at a length of 15 tiles of 64 and 40.  Head_dim 80 on
+# the wgmma route: zamba2's 32 heads of group 1 at 1,000 (no multiple of
+# 64), group 4, non-causal with sq != sk and a ragged last key tile (333:
+# two of 128, then 77), and one query row
 BWD_CASES = [
     (2, 128, 128, 4, 4, 16, True, torch.bfloat16),
     (2, 200, 200, 8, 2, 64, True, torch.bfloat16),
@@ -1023,6 +1026,10 @@ BWD_CASES = [
     (2, 448, 1500, 6, 6, 64, False, torch.bfloat16),
     (2, 448, 448, 6, 6, 64, True, torch.bfloat16),
     (1, 1000, 1000, 48, 8, 128, True, torch.bfloat16),
+    (1, 1000, 1000, 32, 32, 80, True, torch.bfloat16),
+    (2, 200, 200, 8, 2, 80, True, torch.bfloat16),
+    (2, 90, 333, 8, 2, 80, False, torch.bfloat16),
+    (2, 1, 300, 8, 2, 80, True, torch.bfloat16),
     (1, 65, 65, 4, 4, 16, True, torch.float32),
     (2, 100, 229, 8, 2, 64, True, torch.float32),
     (1, 90, 90, 10, 2, 128, False, torch.float32),
@@ -1104,14 +1111,16 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, b, sq, sk, h, kv,
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,sk,h,kv,d,causal", [
     (2, 1024, 1024, 8, 2, 64, True), (2, 1024, 1024, 8, 2, 64, False),
-    (1, 640, 640, 8, 8, 128, True), (2, 448, 1500, 6, 6, 64, False)])
+    (1, 640, 640, 8, 8, 128, True), (2, 448, 1500, 6, 6, 64, False),
+    (2, 1024, 1024, 32, 32, 80, True), (1, 640, 900, 8, 2, 80, False)])
 def test_flash_attention_bwd_is_bitwise_the_same_call_after_call(cuda_device, b, s, sk, h,
                                                                 kv, d, causal):
     """On the wgmma route, where many key tiles add into each query tile's
     dQ (8 key tiles of 128 at 1,024, 5 at 640, 12 at whisper's 1,500
-    cross keys, the last of 92) on a persistent grid that hands them to
-    whichever SM is free: three calls give the same bits, as the counters
-    fix the order of the adds; and the gradients hold."""
+    cross keys, the last of 92, 8 at 900, the last of 4) on a persistent
+    grid that hands them to whichever SM is free: three calls give the
+    same bits, as the counters fix the order of the adds; and the
+    gradients hold."""
     q, k, v, do = _bwd_inputs(cuda_device, b, s, sk, h, kv, d, torch.bfloat16)
     o, lse = flash_kernel.flash_attention(q, k, v, causal=causal, return_lse=True)
     assert flash_kernel.bwd_plan(b, s, sk, h, kv, d, q.dtype, causal).route == "wgmma"
