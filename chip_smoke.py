@@ -368,6 +368,31 @@ rest):
     scans and 32 backwards) and nothing else; a trace of one more step
     reports the scans', their backwards' and flash's device time by name.
 
+The fleet (the eighteenth slice): GreenFaaS placing LLM jobs on a fleet of
+simulated TPU endpoints (``tpu_fleet``) and running the placed jobs on the
+card, through ``examples/torch_fleet_train.py`` and
+``examples/torch_fleet_serve.py``:
+
+36. The training job (granite-3-2b, train_4k, a 5 GB checkpoint: one
+    input, so a cluster of one on the fused window) placed by
+    ``FleetManager`` on the card, its endpoint leaving and the job placed
+    again, and the serving wave (6 granite decode, 3 qwen3 prefill, 2
+    zamba2 decode jobs: one cluster, the host SoA engine), each also on
+    the CPU: equal in every field's bits, with 2 window launches for the
+    job's two placements on the card and 0 for the wave.  Then the
+    training example at ``--full-width`` (granite-3-2b's widths, 2 of its
+    40 layers, b=8 x 4,096 in 4 microbatches) for 4 steps with a
+    checkpoint every 2: its endpoint leaves after step 2, the job is
+    re-placed and resumes; counts zeroed just before and read just after
+    (2 window launches, ``step_launches`` for each step, nothing else);
+    the losses before the leave and the resumed steps' losses and grad
+    norms equal one uninterrupted 4-step run's.  Then the serving example
+    at ``--full-width``: the wave placed as above and its first job served
+    at granite-3-2b's full width and depth, b=4, prompt 32, 16 new tokens
+    (40 flash launches, 40 decode launches a step).  Placements, launch
+    counts, step seconds, peak memory, tokens/s and the phase's wall time
+    are printed as one JSON line.
+
 Phases 28, 31, 32 and 35 are one function, ``full_width_training``.
 
 Any failed check raises and the script exits non-zero.  The last lines
@@ -622,10 +647,13 @@ SSM_STEPS_FROM_CPU = ("falcon-mamba-7b",)
 # full depth (54 Mamba2 layers, the shared block 9 times) and falcon-mamba-7b
 # with 8 of its 64 layers (its full depth needs 116.4 GB of f32 state), each
 # at granite's 8 x 4,096 tokens in 4 microbatches; zamba2 stopped after
-# step 2 with a checkpoint and resumed
+# step 2 with a checkpoint and resumed, at 6 of its 54 layers (the shared
+# block once): at full depth its stopped and resumed runs, with three
+# checkpoints' I/O of 29 GB each, took 184 s of the smoke's 1,200
 SSM_TRAIN = {"zamba2-2.7b": dict(batch=8, seq=4096, microbatches=4, steps=4),
              "falcon-mamba-7b": dict(batch=8, seq=4096, microbatches=4, steps=3)}
 SSM_STOP = {"zamba2-2.7b": 2}
+SSM_STOP_DIMS = {"zamba2-2.7b": {"n_layers": 6}}
 SSM_LAYERS = {"falcon-mamba-7b": 8}
 # kernels whose device time the traced train steps report by name
 SSM_WATCH = ("ssd_tc_kernel", "ssd_bwd", "scan_kernel", "scan_bwd", "flash_fwd", "flash_bwd")
@@ -751,9 +779,16 @@ def kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel, scan_ke
                      f"chunk 32, n=hd=128 {sbl.gf_ssd_bwd_smem(32, 128, 128)} B"),
            (scan_bwd, "fixed per state width (the source's *_smem_floats)")]
     out = {}
-    for mod, smem in dyn:
-        sass = subprocess.run([str(cuobjdump), "-sass", str(kbuild.library_path(mod.SOURCE))],
-                              capture_output=True, text=True, check=True, timeout=300).stdout
+    # one cuobjdump for each library, all started together
+    dumps = [subprocess.Popen([str(cuobjdump), "-sass", str(kbuild.library_path(mod.SOURCE))],
+                              stdout=subprocess.PIPE, text=True) for mod, _ in dyn]
+    sass_texts = []
+    for proc in dumps:
+        text, _ = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args)
+        sass_texts.append(text)
+    for (mod, smem), sass in zip(dyn, sass_texts):
         counts = sass_counts(sass)
         usage = ptxas_usage(kbuild.BUILD_STATS[mod.SOURCE.name]["report"])
         print(f"kernels of {mod.SOURCE.name}: dynamic shared memory {smem} [{card}]",
@@ -1221,6 +1256,57 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     return rows
 
 
+def trace_tables(prof, ranges=()) -> tuple[dict, dict]:
+    """The device events of a finished ``torch.profiler`` trace, read from
+    its raw Kineto events (``key_averages`` builds an object and a tree
+    node for every host event: 5.27 s of host time against 0.31 s here
+    for a trace of granite's decode with 10,936 launches on an H100's
+    host, both reading the same names, counts and times, by
+    ``smoke_tools.py trace-check``): {name: [count, device ns]} over every
+    device event but the ``ranges``' own spans on the device timeline, and
+    {range: [calls, device ns]}, a range's device time being that of the
+    kernels launched from inside its host span on its thread, as
+    ``key_averages`` counts a host event's ``device_time_total`` (a
+    kernel belongs to the frontend op it is linked to, and the op to the
+    range whose span holds its start)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    # launches: {thread: [(start ns, frontend op id)]}, the ops a range may hold
+    kernels, launches, spans, dev_ns = {}, {}, {name: [] for name in ranges}, {}
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if name in spans:
+                continue
+            row = kernels.setdefault(name, [0, 0])
+            row[0] += 1
+            row[1] += e.duration_ns()
+            if ranges:
+                # the host op that launched it (a frontend op's id)
+                op = e.linked_correlation_id()
+                dev_ns[op] = dev_ns.get(op, 0) + e.duration_ns()
+        elif ranges and not e.linked_correlation_id():
+            if name in spans:
+                spans[name].append((e.start_thread_id(), e.start_ns(), e.end_ns()))
+            launches.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.correlation_id()))
+    for rows in launches.values():
+        rows.sort()
+    out = {}
+    for name, calls in spans.items():
+        ns = 0
+        for tid, t0, t1 in calls:
+            rows = launches.get(tid, [])
+            lo = bisect.bisect_left(rows, (t0, -1))
+            hi = bisect.bisect_right(rows, (t1, float("inf")))
+            ns += sum(dev_ns.get(corr, 0) for _, corr in rows[lo:hi])
+        out[name] = [len(calls), ns]
+    return kernels, out
+
+
 def trace(label, fn, card, top_n=6, ranges=(), watch=()) -> dict:
     """A ``torch.profiler`` trace of ``fn()`` (ended by a synchronise): the
     CUDA kernels' summed time over the host clock, the launches, and the
@@ -1231,7 +1317,6 @@ def trace(label, fn, card, top_n=6, ranges=(), watch=()) -> dict:
     name fragments, each reported with the device time and launches of the
     kernels whose names hold it, whether or not they are among the top."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1239,54 +1324,40 @@ def trace(label, fn, card, top_n=6, ranges=(), watch=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    # a range's own span on the device timeline is not a kernel
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.key not in ranges]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0.0)
-
-    def total_us(e):
-        return getattr(e, "device_time_total", None) or \
-            getattr(e, "cuda_time_total", 0.0)
-
-    busy_us = sum(dev_us(e) for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:top_n]
+    kernels, range_rows = trace_tables(prof, ranges)
+    busy_us = sum(ns for _, ns in kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:top_n]
     out = {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if busy_us else None,
         "device_idle_share": 1.0 - busy_us / wall_us if busy_us else None,
-        "kernel_launches": sum(e.count for e in kernels),
-        "top_kernels": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
-                         "count": e.count} for e in top],
+        "kernel_launches": sum(n for n, _ in kernels.values()),
+        "top_kernels": [{"name": name[:80], "ms": ns / 1e6, "count": n}
+                        for name, (n, ns) in top],
     }
     share = out["device_idle_share"]
     print(f"profile {label}: wall {wall_us / 1e3:.6g} ms, device busy "
           f"{busy_us / 1e3:.6g} ms, idle share "
           f"{'not measured' if share is None else f'{share:.4f}'}, "
           f"{out['kernel_launches']} kernel launches [{card}]", flush=True)
-    for e in top:
-        print(f"  {dev_us(e) / 1e3:10.4f} ms x{e.count:5d}  {e.key[:90]}", flush=True)
+    for name, (n, ns) in top:
+        print(f"  {ns / 1e6:10.4f} ms x{n:5d}  {name[:90]}", flush=True)
     if watch:
         out["watched"] = {}
         for part in watch:
-            hits = [e for e in kernels if part in e.key]
-            out["watched"][part] = {"ms": sum(dev_us(e) for e in hits) / 1e3,
-                                    "count": sum(e.count for e in hits)}
+            hits = [v for name, v in kernels.items() if part in name]
+            out["watched"][part] = {"ms": sum(ns for _, ns in hits) / 1e6,
+                                    "count": sum(n for n, _ in hits)}
             print(f"  kernels named *{part}*: {out['watched'][part]['ms']:.6g} ms, "
                   f"{out['watched'][part]['count']} launches", flush=True)
     if ranges:
         out["ranges"] = {}
         for name in ranges:
-            cpu = [e for e in events if e.key == name and e.device_type == DeviceType.CPU]
-            ms = sum(total_us(e) for e in cpu) / 1e3
+            calls, ns = range_rows[name]
+            ms = ns / 1e6
             share = ms * 1e3 / busy_us if busy_us else None
-            out["ranges"][name] = {"calls": sum(e.count for e in cpu), "device_ms": ms,
-                                   "busy_share": share}
-            print(f"  range {name}: {out['ranges'][name]['calls']} calls, kernels "
-                  f"{ms:.6g} ms on the device"
+            out["ranges"][name] = {"calls": calls, "device_ms": ms, "busy_share": share}
+            print(f"  range {name}: {calls} calls, kernels {ms:.6g} ms on the device"
                   f"{'' if share is None else f', {share:.4f} of the busy time'}",
                   flush=True)
     return out
@@ -3182,7 +3253,7 @@ class Preempted(Exception):
 
 def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero_counts,
                         arch, train_kw, stop=None, model_dims=None, ranges_fn=None,
-                        loss_falls=False, check=None, watch=()) -> dict:
+                        loss_falls=False, check=None, watch=(), stop_dims=None) -> dict:
     """``arch`` trained at full width (``train_kw``: batch, seq,
     microbatches, steps and an lr; ``model_dims`` cuts the depth): on the
     card each step launches ``step_launches`` by the ``counters`` (remat's
@@ -3192,8 +3263,9 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
     gives its ranges and their undo; ``watch`` names kernels whose device
     time it reports), after which ``check(api, params, batch)`` runs;
     then, with ``stop``, the run stopped after step ``stop`` with its
-    checkpoint and resumed, bitwise equal to the uninterrupted run.
-    Flash's backward calls are counted by shape."""
+    checkpoint and resumed, bitwise equal to the uninterrupted run (with
+    ``stop_dims``, all three runs at that cut depth, which shrinks the
+    checkpoint's I/O).  Flash's backward calls are counted by shape."""
     import dataclasses
     import gc
     import shutil
@@ -3292,6 +3364,14 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
         return out
 
     # preempted after step ``stop`` and its checkpoint, then resumed
+    if stop_dims:
+        kw = {**kw, "model_dims": stop_dims}
+        label = f"{arch} ({stop_dims['n_layers']} of {full_layers} layers)"
+        state, losses, ref_run = p_train.train(**kw)
+        steps, prints = ref_run["steps"], fingerprint(state["params"])
+        del state, ref_run
+        gc.collect()
+        torch.cuda.empty_cache()
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     first = []
 
@@ -3341,7 +3421,8 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
           f"resumed to step {n_steps} ({resume_wall:.6g} s): losses, grad norms and every "
           f"parameter's bits equal the uninterrupted run's [{card}]", flush=True)
     return {**out, "stopped_run_wall_s": stop_wall, "resumed_run_wall_s": resume_wall,
-            "resume_equal": same}
+            "resume_layers": kw["model_dims"]["n_layers"] if kw["model_dims"]
+            else full_layers, "resume_equal": same}
 
 
 def train_loss_drop(card, p_train) -> dict:
@@ -4127,6 +4208,190 @@ def ssm_bwd_checks(dev, card, sk, sr, fk, fr) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the fleet, GreenFaaS placing LLM jobs and running them
+# ---------------------------------------------------------------------------
+
+# examples/torch_fleet_train.py at --full-width for 4 steps: it checkpoints
+# every 2, its endpoint leaves after step 2 and the job resumes from there
+FLEET_STEPS = 4
+FLEET_TRAIN_ARGS = ["--full-width", "--steps", str(FLEET_STEPS)]
+
+
+def fleet_placements(where, train_ex, serve_ex, kernel) -> dict:
+    """The fleet example's training job placed, its endpoint leaving and the
+    job placed again, and the serving wave placed, by managers on ``where``:
+    each schedule's every field with its floats as bits, the window
+    kernel's launches of each, and each ``place`` call's seconds (host
+    clock; the schedule is on the host when it returns)."""
+    import dataclasses
+
+    from repro_torch.core.endpoint import tpu_fleet
+    from repro_torch.fleet.manager import FleetJob, FleetManager
+    job = FleetJob(steps=FLEET_STEPS, **train_ex.JOB)
+    mgr = FleetManager(tpu_fleet(), None, alpha=0.5, device=where)
+    wave_mgr = FleetManager(tpu_fleet(), None, alpha=0.3, device=where)
+    seconds = []
+
+    def place(m, jobs):
+        t0 = time.perf_counter()
+        s = m.place(jobs)
+        seconds.append(time.perf_counter() - t0)
+        return s
+
+    before = kernel.LAUNCHES["greedy_window"]
+    first = place(mgr, [job])
+    mgr.endpoint_leave(first.assignments[job.id])
+    second = place(mgr, [job])
+    train_launches = kernel.LAUNCHES["greedy_window"] - before
+    before = kernel.LAUNCHES["greedy_window"]
+    wave = place(wave_mgr, serve_ex.wave())
+    return {"train": [bits(dataclasses.asdict(s)) for s in (first, second)],
+            "wave": bits(dataclasses.asdict(wave)),
+            "launches": {"train": train_launches,
+                         "wave": kernel.LAUNCHES["greedy_window"] - before},
+            "place_s": seconds}
+
+
+def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
+    """Phase 36: the fleet layer on the card.  (1) The training job and the
+    serving wave placed by ``FleetManager`` on the card and on the CPU,
+    equal in every field's bits; the job's two placements launch the
+    window kernel twice on the card, the wave (one cluster, the host SoA
+    engine) none.  (2) ``examples/torch_fleet_train.py`` on the card at
+    granite-3-2b's full width with 2 of its 40 layers (counts zeroed just
+    before, read just after: the two placements' window launches and
+    flash's launches of ``step_launches`` for each of the 4 steps, nothing
+    else), then one uninterrupted 4-step run: the losses before the leave
+    and the resumed steps' losses and grad norms equal it.  (3)
+    ``examples/torch_fleet_serve.py --full-width``: the wave placed, its
+    first job (granite-3-2b, full width and depth) served at b=4, prompt
+    32, 16 new tokens (40 flash launches, 40 decode launches a step)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import build_api, get_api
+    t_phase = time.perf_counter()
+    train_ex = load_example("torch_fleet_train")
+    serve_ex = load_example("torch_fleet_serve")
+
+    # (1) placement on the card against the CPU
+    card_p, cpu_p = (fleet_placements(w, train_ex, serve_ex, kernel) for w in (None, "cpu"))
+    if card_p["launches"] != {"train": 2, "wave": 0} or \
+            cpu_p["launches"] != {"train": 0, "wave": 0}:
+        raise AssertionError(f"fleet placement launched {card_p['launches']} on the card "
+                             f"and {cpu_p['launches']} on the CPU, expected 2 and 0 for "
+                             f"the job and 0 for the wave")
+    for k in ("train", "wave"):
+        if card_p[k] != cpu_p[k]:
+            raise AssertionError(f"fleet placement of the {k} job(s) on the card differs "
+                                 f"from the CPU: {first_difference(card_p[k], cpu_p[k])}")
+    print(f"fleet placement: the training job on {card_p['train'][0]['assignments']}, "
+          f"after its endpoint leaves on {card_p['train'][1]['assignments']} (2 window "
+          f"launches); the wave {card_p['wave']['assignments']} (0 launches); card == CPU "
+          f"in every field's bits; place s {card_p['place_s']} (CPU {cpu_p['place_s']}) "
+          f"[{card}]", flush=True)
+
+    # (2) the training example at full width, then an uninterrupted run
+    cfg = build_api(dataclasses.replace(
+        get_api(train_ex.JOB["arch"]).cfg, **train_ex.FULL_WIDTH["model_dims"])).cfg
+    n_steps, half = FLEET_STEPS, FLEET_STEPS // 2
+    per_step = step_launches(cfg, train_ex.FULL_WIDTH["microbatches"])
+    want = {"greedy_window": 2, **{k: v * n_steps for k, v in per_step.items()}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train_ex.main(FLEET_TRAIN_ARGS + ["--checkpoint-dir", str(TRAIN_CKPT)])
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    train_wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts(counters).items() if v}
+    if launches != want:
+        raise AssertionError(f"the fleet's training run launched {launches}, expected "
+                             f"{want}")
+    if bits(dataclasses.asdict(out["schedules"][0])) != card_p["train"][0]:
+        raise AssertionError("the training example's placement differs from the job's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whole, whole_run = p_train.train(arch=train_ex.JOB["arch"], steps=n_steps, log_every=20,
+                                     device=None, **train_ex.FULL_WIDTH)[1:]
+    whole_wall = time.perf_counter() - t0
+    before, resumed = out["losses"]
+    resumed_norms = [r["grad_norm"] for r in out["run"]["steps"]]
+    whole_norms = [r["grad_norm"] for r in whole_run["steps"]]
+    if not np.isfinite(whole + whole_norms).all():
+        raise AssertionError(f"a non-finite loss or grad norm: {whole}, {whole_norms}")
+    if (before != whole[:half] or resumed != whole[half:]
+            or resumed_norms != whole_norms[half:]):
+        raise AssertionError(f"the fleet's run (losses {before} then {resumed}, grad norms "
+                             f"{resumed_norms} resumed) differs from the uninterrupted "
+                             f"run's {whole}, {whole_norms}")
+    for run in (out["run"], whole_run):
+        if run["peak_mem_bytes"] >= TRAIN_PEAK_LIMIT:
+            raise AssertionError(f"the fleet's training peaked at {run['peak_mem_bytes']} B")
+    step_s = [o["seconds"] for o in out["observed"]]
+    print(f"fleet train {cfg.name} ({cfg.n_layers} layers, full width) b=8 x 4096 in 4 "
+          f"microbatches: placed on {out['targets'][0]}, left after step {half}, re-placed on "
+          f"{out['targets'][1]}, resumed; losses {before} + {resumed} == the uninterrupted "
+          f"run's, grad norms of the resumed steps equal; step s {step_s} (uninterrupted "
+          f"{[r['seconds'] for r in whole_run['steps']]}); peak memory "
+          f"{out['run']['peak_mem_bytes']} B resumed, {whole_run['peak_mem_bytes']} B "
+          f"uninterrupted; launches {launches}; wall {train_wall:.6g} s (uninterrupted "
+          f"{whole_wall:.6g} s); events {out['events']} [{card}]", flush=True)
+
+    # (3) the serving example at full width and depth
+    serve_cfg = get_api(serve_ex.wave()[0].arch).cfg
+    gen = 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    served = serve_ex.main(["--full-width"])
+    serve_wall = time.perf_counter() - t0
+    s_launches = {k: v for k, v in launch_counts(counters).items() if v}
+    per_prefill, per_decode = attention_launches(serve_cfg)
+    s_want = {"flash_attention": per_prefill, "decode_attention": per_decode * (gen - 1)}
+    if s_launches != s_want:
+        raise AssertionError(f"the fleet's serving run launched {s_launches}, expected "
+                             f"{s_want}")
+    tokens = served["served"]["tokens"]
+    if tokens.shape != (4, gen) or tokens.min() < 0 or tokens.max() >= serve_cfg.vocab:
+        raise AssertionError(f"bad served tokens {tokens.shape}")
+    if bits(dataclasses.asdict(served["schedule"])) != card_p["wave"]:
+        raise AssertionError("the serving example's placement differs from the wave's")
+    tps = 4 * (gen - 1) / served["served"]["decode_s"]
+    print(f"fleet serve {serve_cfg.name} (full width and depth) b=4 prompt 32 gen {gen} on "
+          f"{served['served']['endpoint']}: prefill {served['served']['prefill_s']:.6g} s, "
+          f"decode {served['served']['decode_s']:.6g} s ({tps:.6g} tok/s), launches "
+          f"{s_launches}, wall {serve_wall:.6g} s [{card}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "placements": {"train": card_p["train"], "wave": card_p["wave"],
+                       "train_example": [s.assignments for s in out["schedules"]]},
+        "place_s": {"card": card_p["place_s"], "cpu": cpu_p["place_s"]},
+        "launches": {"placement": card_p["launches"], "train": launches, "serve": s_launches},
+        "train": {"arch": cfg.name, "layers": cfg.n_layers, "steps": n_steps,
+                  "targets": out["targets"], "losses": before + resumed,
+                  "step_s": step_s, "peak_mem_bytes": out["run"]["peak_mem_bytes"],
+                  "uninterrupted_step_s": [r["seconds"] for r in whole_run["steps"]],
+                  "uninterrupted_peak_mem_bytes": whole_run["peak_mem_bytes"],
+                  "wall_s": train_wall, "uninterrupted_wall_s": whole_wall,
+                  "events": out["events"], "resume_equal": True},
+        "serve": {"arch": serve_cfg.name, "endpoint": served["served"]["endpoint"],
+                  "load": served["load"], "prefill_s": served["served"]["prefill_s"],
+                  "decode_s": served["served"]["decode_s"], "decode_tok_per_s": tps,
+                  "wall_s": serve_wall},
+        "wall_s": time.perf_counter() - t_phase, "card": card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4167,6 +4432,14 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
+    # each phase's wall time, the build's included, printed as it ends
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print(f"phase {name}: wall {phase_s[name]:.6g} s [{card}]", flush=True)
     # numpy's version too: seeded workloads draw through its generators
     # (the multi-tenant trace's Zipf ranks differ between its versions)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
@@ -4188,6 +4461,8 @@ def main() -> int:
     print(f"build: wall {time.perf_counter() - t0:.2f} s for "
           f"{len(kbuild.BUILD_STATS)} sources in parallel [{card}]", flush=True)
     kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel, scan_kernel)
+
+    lap("1")
 
     # ---- 2. kernel phase ------------------------------------------------
     def score_case(seed, n, ties):
@@ -4324,6 +4599,8 @@ def main() -> int:
     # the later phases' peak memory counts none of these windows
     del p, out_k, out_p
 
+    lap("2")
+
     # ---- 3. main path ---------------------------------------------------
     profiles, coefs = replica_profiles(eps, BASE_PROFILES, MACHINE_COEFS)
     sim = TestbedSim(eps, profiles=profiles, coefs=coefs, seed=0)
@@ -4373,24 +4650,34 @@ def main() -> int:
                              f"{launches['greedy_window']} times")
     print(f"main path launches: {launches}", flush=True)
 
+    lap("3")
+
     # ---- 3b. the default executor: Cluster MHRA --------------------------
     default = default_executor(dev, card, sched, eps, GreenFaaSExecutor, TestbedSim,
                                TaskProfileStore, BASE_PROFILES, MACHINE_COEFS,
                                SEBS_FUNCTIONS, kernel, counters, zero_counts)
     print(json.dumps({"default_executor": default}), flush=True)
 
+    lap("3b")
+
     # ---- 3c. the four scoring registers armed ------------------------------
     registers = registers_phase(dev, card, sched, eps, store, tm, kernel, ops,
                                 counters, zero_counts)
     print(json.dumps({"registers": registers}), flush=True)
 
+    lap("3c")
+
     # ---- 3d. the streaming path: OnlineEngine over one live state --------
     streams = streaming_phase(card, kernel, ops, counters, zero_counts)
     print(json.dumps({"streams": streams}), flush=True)
 
+    lap("3d")
+
     # ---- 3e. the paper's evaluation: six scenarios, every policy row -------
     evaluation = evaluation_phase(card, sched, kernel, ops, counters, zero_counts)
     print(json.dumps({"evaluation": evaluation}), flush=True)
+
+    lap("3e")
 
     # ---- 4. timing ------------------------------------------------------
     p_full, n_ep, n_units_full = windows[N_TASKS]
@@ -4469,6 +4756,8 @@ def main() -> int:
     print(json.dumps({"batches": batches, "large_fleets": large}), flush=True)
     print(json.dumps({"standalone_kernels": standalone}), flush=True)
 
+    lap("4")
+
     # ---- 5. zamba2 kernels against their plain versions ----------------
     from repro_torch.kernels.decode_attention import ref as dec_ref
     from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -4478,8 +4767,12 @@ def main() -> int:
     mods = (flash_kernel, flash_ref, dec_kernel, dec_ref, ssd_kernel, ssd_ref)
     errs = zamba2_kernel_checks(dev, card, *mods)
 
+    lap("5")
+
     # ---- 6. the reduced slice, card against CPU ---------------------------
     slice_err = slice_check(dev, card, get_api, ARCH, SLICE_TOL)
+
+    lap("6")
 
     # ---- 7. main path: serve zamba2-2.7b at full width --------------------
     cfg = get_api(ARCH).cfg
@@ -4520,6 +4813,8 @@ def main() -> int:
           f"prefill {t_prefill:.6g} s, decode {t_decode:.6g} s ({tps:.6g} tok/s), "
           f"peak memory {peak} B, launches {zlaunches} [{card}]", flush=True)
 
+    lap("7")
+
     # ---- 8. zamba2 kernel timing at the serving shapes ---------------------
     rows = zamba2_timing(dev, card, *mods, cfg)
     for name, source, line in (
@@ -4536,9 +4831,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"serving": serving}), flush=True)
 
+    lap("8")
+
     # ---- 9. where the serving time goes: a profiler trace -----------------
     print(json.dumps({"profile": serving_profile(dev, card, serve, get_api(ARCH))}),
           flush=True)
+
+    lap("9")
 
     # ---- 10. the scan kernel against its plain version, and its time -------
     from repro_torch.kernels.selective_scan import ref as scan_ref
@@ -4548,8 +4847,12 @@ def main() -> int:
     fused_row = falcon_fused_scan(dev, card, scan_kernel, scan_ref, fm_api.cfg)
     silu = silu_cost(dev, card, common, fm_api.cfg)
 
+    lap("10")
+
     # ---- 11. the reduced falcon-mamba slice, card against CPU --------------
     fm_slice = falcon_slice_check(dev, card, get_api, lm)
+
+    lap("11")
 
     # ---- 12. main path: falcon-mamba-7b's loss forward at full width -------
     others = [c for c in counters if c is not scan_kernel.LAUNCHES]
@@ -4557,6 +4860,8 @@ def main() -> int:
     fm_loss["slice"] = fm_slice
     fm_loss["silu_cost"] = silu
     print(json.dumps({"falcon_loss": fm_loss}), flush=True)
+
+    lap("12")
 
     # ---- 13. falcon-mamba-7b serving at full width ---------------------------
     torch.cuda.empty_cache()
@@ -4581,14 +4886,20 @@ def main() -> int:
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
         "library_ms": None}]}), flush=True)
 
+    lap("13")
+
     # ---- 14. the dense family's shapes: flash and decode against plain -----
     torch.cuda.empty_cache()
     dense_rows = attention_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
                                          dec_ref, get_api, DENSE_ARCHS)
 
+    lap("14")
+
     # ---- 15. the reduced dense slices, card against CPU ---------------------
     dense_slice = {arch: slice_check(dev, card, get_api, arch, DENSE_SLICE_TOL[arch])
                    for arch in DENSE_ARCHS}
+
+    lap("15")
 
     # ---- 16. main path: serve granite-3-2b at full width and depth ----------
     attn_counts = (flash_kernel.LAUNCHES, dec_kernel.LAUNCHES)
@@ -4596,6 +4907,8 @@ def main() -> int:
     dense = {DENSE_ARCHS[0]: attention_serving(dev, card, serve, get_api,
                                                DENSE_ARCHS[0], GEN_TOKENS, attn_counts,
                                                zero_counts, dense_others, profile=True)}
+
+    lap("16")
 
     # ---- 17. starcoder2-7b and qwen3-14b at full width and depth -------------
     for arch in DENSE_ARCHS[1:]:
@@ -4607,12 +4920,16 @@ def main() -> int:
         res["kernels"] = dense_rows[arch]
     print(json.dumps({"dense": dense}), flush=True)
 
+    lap("17")
+
     # ---- 18. the MoE and VLM shapes: flash and decode against plain ---------
     from repro_torch.models import moe
     torch.cuda.empty_cache()
     mv_rows = attention_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
                                       dec_ref, get_api, MOE_VLM_ARCHS)
     dense_rows.update(mv_rows)
+
+    lap("18")
 
     # ---- 19. the reduced MoE and VLM slices, card against CPU ---------------
     mv_slice = {arch: moe_vlm_slice_check(dev, card, get_api, moe, arch, tol,
@@ -4621,6 +4938,8 @@ def main() -> int:
     if not sum(sum(r["prefill_drops"]) for r in mv_slice.values()):
         raise AssertionError("no reduced MoE prefill dropped a token on the card: "
                              "the capacity path did not run there")
+
+    lap("19")
 
     # ---- 20-21. main path: moonshot-v1-16b-a3b and internvl2-26b at full width
     moe_ranges = {"moe.router": (moe, "_router"), "moe.dispatch": (moe, "_dispatch"),
@@ -4634,14 +4953,20 @@ def main() -> int:
             kernels=mv_rows[arch])
     print(json.dumps({"moe_vlm": mv}), flush=True)
 
+    lap("20-21")
+
     # ---- 22. whisper-tiny's shapes: flash and decode against plain ----------
     from repro_torch.models.registry import build_api
     w_cfg = get_api(WHISPER).cfg
     w_rows = whisper_kernel_checks(dev, card, flash_kernel, flash_ref, dec_kernel,
                                    dec_ref, w_cfg)
 
+    lap("22")
+
     # ---- 23. the reduced whisper slice, card against CPU ---------------------
     w_slice = whisper_slice_check(dev, card, get_api, build_api, attn_counts)
+
+    lap("23")
 
     # ---- 24. main path: serve whisper-tiny at full width ---------------------
     whisper = attention_serving(dev, card, serve, get_api, WHISPER, WHISPER_GEN,
@@ -4650,9 +4975,13 @@ def main() -> int:
     whisper.update(slice=w_slice, kernels=w_rows)
     print(json.dumps({"whisper": whisper}), flush=True)
 
+    lap("24")
+
     # ---- 25. the molecular-design campaign on the card and the CPU -----------
     moldesign = moldesign_phase(card, counters, zero_counts)
     print(json.dumps({"moldesign": moldesign}), flush=True)
+
+    lap("25")
 
     # ---- 26. flash attention's lse and backward against their plain versions
     from repro_torch.distributed import steps as train_steps
@@ -4668,18 +4997,26 @@ def main() -> int:
                            f"{tag} (h={h}, kv={kv}, d={d})", sk=sk, causal=causal)
         for tag, (b, sq, sk, h, kv, d, causal) in BWD_TIMED_FAMILIES.items()}
 
+    lap("26")
+
     # ---- 27. the reduced granite train slice, card against CPU ---------------
     train_slice = train_slice_check(dev, card, get_api, counters)
+
+    lap("27")
 
     # ---- 28. main path: granite-3-2b trained at full width and depth ---------
     training = full_width_training(dev, card, p_train, train_steps, adamw, flash_kernel,
                                    counters, zero_counts, TRAIN_ARCH, TRAIN)
     training["slice"] = train_slice
 
+    lap("28")
+
     # ---- 29. the reduced trainer's loss drop on the card ----------------------
     training["loss_drop"] = train_loss_drop(card, p_train)
     training["kernels"] = bwd_rows
     print(json.dumps({"training": training}), flush=True)
+
+    lap("29")
 
     # ---- 30. the MoE, VLM and enc-dec train slices, card against CPU ---------
     family_slices = {
@@ -4694,10 +5031,14 @@ def main() -> int:
     family_slices["whisper-tiny full width float32 gradient"] = whisper_f32_gradients(
         dev, card, get_api(WHISPER), flash_kernel, flash_ref, lm_mod, encdec_mod)
 
+    lap("30")
+
     # ---- 31. main path: whisper-tiny trained at full width and depth ---------
     families = {WHISPER: full_width_training(
         dev, card, p_train, train_steps, adamw, flash_kernel, counters, zero_counts, WHISPER,
         WHISPER_TRAIN, stop=WHISPER_STOP, loss_falls=True)}
+
+    lap("31")
 
     # ---- 32. moonshot-v1-16b-a3b and internvl2-26b at full width, 2 layers ---
     # (moonshot's trace splits the MoE's forward and backward into its four
@@ -4714,12 +5055,16 @@ def main() -> int:
     families["kernels"] = family_bwd_rows
     print(json.dumps({"family_training": families}), flush=True)
 
+    lap("32")
+
     # ---- 33. the SSD's and the fused scan's backward kernels -----------------
     torch.cuda.empty_cache()
     ssm_rows = ssm_bwd_checks(dev, card, ssd_kernel, ssd_ref, scan_kernel, scan_ref)
     ssm_flash_rows = {arch: flash_bwd_row(dev, card, flash_kernel, flash_ref, *shape,
                                           f"{arch} (h={shape[2]}, kv={shape[3]}, d={shape[4]})")
                       for arch, shape in SSM_FLASH_TIMED.items()}
+
+    lap("33")
 
     # ---- 34. the reduced zamba2 and falcon-mamba train slices, card vs CPU ---
     ssm_slices = {arch: train_slice_compare(dev, card, get_api(arch, reduced=True),
@@ -4730,19 +5075,29 @@ def main() -> int:
         ssm_slices[arch]["free_running"] = slice_drift(
             dev, card, get_api(arch, reduced=True), scan_kernel, scan_ref)
 
+    lap("34")
+
     # ---- 35. main path: zamba2-2.7b at full width and depth, falcon-mamba-7b
     # at full width with 8 layers
     ssm_training = {}
     for arch in SSM_ARCHS:
         ssm_training[arch] = full_width_training(
             dev, card, p_train, train_steps, adamw, flash_kernel, counters, zero_counts, arch,
-            SSM_TRAIN[arch], stop=SSM_STOP.get(arch),
+            SSM_TRAIN[arch], stop=SSM_STOP.get(arch), stop_dims=SSM_STOP_DIMS.get(arch),
             model_dims={"n_layers": SSM_LAYERS[arch]} if arch in SSM_LAYERS else None,
             watch=SSM_WATCH)
     ssm_training["slices"] = ssm_slices
     ssm_training["kernels"] = {**ssm_rows, "flash": ssm_flash_rows}
     print(json.dumps({"ssm_training": ssm_training}), flush=True)
 
+    lap("35")
+
+    # ---- 36. the fleet: granite's jobs placed by Cluster MHRA on the card,
+    # trained at full width through a leave and a resume, and served
+    fleet = fleet_phase(card, p_train, kernel, counters, zero_counts)
+    print(json.dumps({"fleet": fleet}), flush=True)
+
+    lap("36")
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
         for name, source, line in (
@@ -4851,6 +5206,7 @@ def main() -> int:
                 "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})
+    print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,10 @@ def pairwise_sum(x, n: int, base: int = 0):
     The SoA engine freezes its run basis with ``float(const.sum())``; the
     window greedy recomputes that scalar per run, so it must reproduce
     numpy's summation tree bitwise: sequential under 8 elements, 8-way
-    unrolled blocks to 128, halved recursion above.  Works on any
-    indexable — a 1-D array gives a scalar, an ``(n, H)`` tensor sums its
-    rows into an ``(H,)`` vector with the same tree per column.
+    unrolled blocks to 128, halved recursion above.  Works on a tensor or
+    a numpy array — 1-D gives a scalar, ``(n, H)`` sums its rows into an
+    ``(H,)`` vector with the same tree per column.  The 8 accumulators of
+    a block advance together, one elementwise add of 8 rows a step.
     """
     if n < 8:
         res = 0.0
@@ -31,16 +32,13 @@ def pairwise_sum(x, n: int, base: int = 0):
             res = res + x[base + i]
         return res
     if n <= 128:
-        r = [x[base + j] for j in range(8)]
-        i = 8
-        while i < n - (n % 8):
-            for j in range(8):
-                r[j] = r[j] + x[base + i + j]
-            i += 8
+        m = n - n % 8
+        r = x[base:base + 8]
+        for i in range(base + 8, base + m, 8):
+            r = r + x[i:i + 8]
         res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
-        while i < n:
-            res = res + x[base + i]
-            i += 1
+        for i in range(base + m, base + n):
+            res = res + x[i]
         return res
     n2 = n // 2
     n2 -= n2 % 8

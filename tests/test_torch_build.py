@@ -442,3 +442,28 @@ def test_bwd_plan_hands_out_every_dq_predecessor_first(b, sq, sk, h, kv, d, caus
     for js in adders.values():
         assert js == list(range(len(js)))
     assert len(adders) == b * h * plan.n_qt
+
+
+def test_trace_tables_counts_ranges_from_raw_events():
+    """The smoke's trace reader on a host-only trace: each
+    ``record_function`` range counted once a call (nested calls included),
+    no device event and so no device time, as ``key_averages`` reads the
+    same trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cs = _chip_smoke()
+    x = torch.ones(8, 8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with record_function("r.outer"):
+                x = x @ x
+                with record_function("r.inner"):
+                    x = x / x.sum()
+        with record_function("r.inner"):
+            x = x + 1
+    kernels, ranges = cs.trace_tables(prof, ("r.outer", "r.inner", "r.absent"))
+    assert kernels == {}
+    assert ranges == {"r.outer": [3, 0], "r.inner": [4, 0], "r.absent": [0, 0]}
+    calls = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CPU}
+    assert (calls["r.outer"], calls["r.inner"]) == (3, 4)

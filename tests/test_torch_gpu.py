@@ -150,6 +150,28 @@ def test_mhra_on_card_matches_soa(cuda_device, replicas, alive_dead):
         assert getattr(a, f) == getattr(b, f), f
 
 
+@pytest.mark.gpu
+def test_fleet_train_job_placed_on_card_equals_cpu(cuda_device):
+    """The fleet example's training job (one checkpoint input, a cluster of
+    one) placed by the manager on the card and on the CPU, before and
+    after its endpoint leaves: equal, one window launch a placement."""
+    from repro_torch.core.endpoint import tpu_fleet
+    from repro_torch.fleet.manager import FleetJob, FleetManager
+
+    job = FleetJob(id="lm-pretrain", arch="granite-3-2b", shape="train_4k", steps=4,
+                   checkpoint_bytes=5e9)
+    card, cpu = (FleetManager(tpu_fleet(), None, device=d) for d in (None, "cpu"))
+    for _ in range(2):
+        before = kernel.LAUNCHES["greedy_window"]
+        a = card.place([job])
+        assert kernel.LAUNCHES["greedy_window"] == before + 1
+        b = cpu.place([job])
+        for f in SCHEDULE_FIELDS:
+            assert getattr(a, f) == getattr(b, f), f
+        for mgr in (card, cpu):
+            mgr.endpoint_leave(a.assignments[job.id])
+
+
 # ---------------------------------------------------------------------------
 # attention and SSD kernels (tolerances of tests/test_kernels.py)
 # ---------------------------------------------------------------------------
