@@ -379,19 +379,39 @@ card, through ``examples/torch_fleet_train.py`` and
     again, and the serving wave (6 granite decode, 3 qwen3 prefill, 2
     zamba2 decode jobs: one cluster, the host SoA engine), each also on
     the CPU: equal in every field's bits, with 2 window launches for the
-    job's two placements on the card and 0 for the wave.  Then the
-    training example at ``--full-width`` (granite-3-2b's widths, 2 of its
+    job's two placements on the card and 0 for the wave.  The managers
+    read the port's own dry-run costs (``repro_torch/launch/dryrun.py``)
+    of the four cells the jobs name: a child process started after phase
+    1 counts them on meta tensors on the host through the dry-run's
+    command line (``start_dryrun``, ``dryrun_counts``), beside the card's
+    phases; each cell's FLOPs, bytes and counting seconds are printed,
+    and the placements beside those made on the profile store's priors.
+    Then the training example at ``--full-width --dryrun DIR``
+    (granite-3-2b's widths, 2 of its
     40 layers, b=8 x 4,096 in 4 microbatches) for 4 steps with a
     checkpoint every 2: its endpoint leaves after step 2, the job is
     re-placed and resumes; counts zeroed just before and read just after
     (2 window launches, ``step_launches`` for each step, nothing else);
     the losses before the leave and the resumed steps' losses and grad
     norms equal one uninterrupted 4-step run's.  Then the serving example
-    at ``--full-width``: the wave placed as above and its first job served
-    at granite-3-2b's full width and depth, b=4, prompt 32, 16 new tokens
-    (40 flash launches, 40 decode launches a step).  Placements, launch
-    counts, step seconds, peak memory, tokens/s and the phase's wall time
-    are printed as one JSON line.
+    at ``--full-width --dryrun DIR``: the wave placed as above and its
+    first job served at granite-3-2b's full width and depth, b=4, prompt
+    32, 16 new tokens (40 flash launches, 40 decode launches a step).
+    Placements, launch counts, step seconds, peak memory, tokens/s and the
+    phase's wall time are printed as one JSON line.
+37. The dry-run's count of the train steps that phases 28 and 35 time
+    (``COUNTED_STEPS``: granite-3-2b and zamba2-2.7b at b=8 x 4,096 in 4
+    microbatches, falcon-mamba-7b with 8 layers; counted by the same
+    child, ``count_cell``) against the card's runs (``count_check``): its
+    kernel launches equal the card's (granite 320 flash forwards and 160
+    backwards a step; zamba2 612 SSD forwards, 216 backwards, 72 flash
+    forwards and 36 backwards; falcon-mamba 64 fused scans and 32
+    backwards); its FLOPs over each measured step's seconds as TFLOP/s
+    and a share of 989 TFLOP/s, failing above 100%; its arguments less
+    the batch equal the bytes of the state the card held; its predicted
+    peak beside ``max_memory_allocated``.  Each kernel's work in the
+    bounds of the phases above and in the dry-run's count is one
+    definition, ``repro_torch/launch/costs.py``.
 
 Phases 28, 31, 32 and 35 are one function, ``full_width_training``.
 
@@ -402,9 +422,12 @@ the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -412,6 +435,11 @@ import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
+try:  # each kernel's work and the card's rates, one definition with the dry-run's
+    from repro_torch.launch import costs
+except ImportError:  # chip_smoke.py alone: main() says what is missing
+    costs = None
 CU_SOURCE = "src/repro_torch/kernels/placement/csrc/placement.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 BWD_FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
@@ -463,17 +491,6 @@ ARMED_USERS = ("u0", "u1", "u2", "u3")
 # examples/paper_eval.py) at the reference's paper sizes: 1,792 tasks a
 # scenario, the DAG in 4 waves of 48 docks, 48 simulations and 96 inferences
 EVAL_SIZE = "full"
-# NVIDIA's H100 SXM data sheet, at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12   # device memory rate
-FP64_FLOPS = 34e12          # FP64 outside the tensor cores (the kernels' DADD/DMUL)
-BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
-TF32_FLOPS = 495e12         # dense TF32 on the tensor cores
-FP32_FLOPS = 67e12          # f32 outside the tensor cores
-# exp on the special-function units: 16 results a clock on each SM (CUDA
-# C++ Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0), against 256 f32 FLOP a clock in the FMA lanes behind
-# FP32_FLOPS: a sixteenth of that rate
-SFU_PER_S = FP32_FLOPS / 16
 
 # zamba2-2.7b serving (the second slice's main path)
 ARCH = "zamba2-2.7b"
@@ -1112,45 +1129,6 @@ def slice_check(dev, card, get_api, arch, tol) -> float:
     return err
 
 
-def ssd_forms(b, L, nh, hd, n, chunk) -> tuple[int, int]:
-    """f32 operations of the SSD function's two forms, (chunked, recurrence).
-    The chunked form at ``chunk``: per (row, chunk of q tokens) the lower
-    triangle of G = C B^T, shared by the heads (q(q+1) n); per head the
-    triangular M @ xdt (q(q+1) hd), C @ S and the state update (2 q n hd
-    each).  The recurrence: per (row, token, head) the decayed state plus
-    B xdt^T (3 n hd) and its read-out by C (2 n hd)."""
-    chunked = 0
-    for c0 in range(0, L, chunk):
-        q = min(chunk, L - c0)
-        chunked += b * (q * (q + 1) * n + nh * (q * (q + 1) * hd + 4 * q * n * hd))
-    return chunked, b * L * nh * 5 * n * hd
-
-
-def ssd_flops(b, L, nh, hd, n, chunk) -> int:
-    """f32 operations the SSD function needs: the lesser of its two forms."""
-    return min(ssd_forms(b, L, nh, hd, n, chunk))
-
-
-def ssd_bound_ms(b, L, nh, hd, n, chunk) -> dict:
-    """The least time the SSD's function takes on the card: the larger of
-    its bytes (xdt, loga, B, C read once, y and the final state written
-    once, f32) at the memory rate and its operations, which take the lesser
-    of two times: the recurrence on the f32 CUDA cores, or the chunked form
-    as 3xTF32 products (three TF32 products a product) on the tensor cores."""
-    chunked, recurrence = ssd_forms(b, L, nh, hd, n, chunk)
-    nbytes = 4 * (2 * b * L * nh * hd + b * L * nh + 2 * b * L * n + b * nh * n * hd)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_rec = recurrence / FP32_FLOPS * 1e3
-    t_chunked = 3 * chunked / TF32_FLOPS * 1e3
-    t_ops = min(t_rec, t_chunked)
-    form = ("the recurrence on the f32 CUDA cores at 67 TFLOP/s" if t_rec <= t_chunked
-            else "the chunked form as 3xTF32 on the tensor cores at 495 TFLOP/s")
-    return dict(nbytes=nbytes, chunked_flops=chunked, recurrence_flops=recurrence,
-                t_bytes=t_bytes, t_ops=t_ops, ops_form=form,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
 def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     """Phase 8: each kernel at the serving shapes (b=8), its plain version
     once, and the one-call PyTorch yardstick; bound from the shapes."""
@@ -1176,7 +1154,7 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     nbytes = 4 * q.numel() * q.element_size()
     flops = 4 * b * h * d * (s * (s + 1) // 2)        # QK^T and PV, causal pairs
     rows["flash_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, err=err,
-                                   nbytes=nbytes, flops=flops, peak=BF16_FLOPS)
+                                   nbytes=nbytes, flops=flops, peak=costs.BF16_FLOPS)
     del q, k, v, qt, kt, vt
 
     # decode: one shared-block application of a decode step, mid-run
@@ -1199,7 +1177,7 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     nbytes = 2 * q.numel() * esize + 2 * b * live * kv * d * esize + lens.numel() * 4
     flops = 4 * b * h * d * live
     rows["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, err=err,
-                                    nbytes=nbytes, flops=flops, peak=BF16_FLOPS)
+                                    nbytes=nbytes, flops=flops, peak=costs.BF16_FLOPS)
     del q, kc, vc, qt, kt, vt, mask
 
     # ssd: one Mamba2 layer of the prefill
@@ -1217,22 +1195,22 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
     yp, stp = out.pop("p")
     err = max(check_close("ssd y at the serving shape", y, yp, TOLS["ssd"], card),
               check_close("ssd state at the serving shape", st, stp, TOLS["ssd"], card))
-    bound = ssd_bound_ms(b, s, nh, hd, n, chunk)
+    bound = costs.ssd_bound_ms(b, s, nh, hd, n, chunk)
     if bound["nbytes"] != sum(t.numel() * 4 for t in args) + y.numel() * 4 + st.numel() * 4:
         raise AssertionError("ssd_bound_ms counts other bytes than the call moves")
     rows["ssd"] = dict(ms=ms, plain_ms=plain, library_ms=None, err=err,
-                       nbytes=bound["nbytes"], flops=ssd_flops(b, s, nh, hd, n, chunk),
-                       peak=FP32_FLOPS, bound_ms=bound["bound_ms"],
+                       nbytes=bound["nbytes"], flops=costs.ssd_flops(b, s, nh, hd, n, chunk),
+                       peak=costs.FP32_FLOPS, bound_ms=bound["bound_ms"],
                        bound_by=bound["bound_by"])
     print(f"bound ssd b={b}: {bound['nbytes']} B take {bound['t_bytes']:.6g} ms at "
-          f"{HBM_BYTES_PER_S / 1e12:g} TB/s; operations {bound['t_ops']:.6g} ms, set by "
+          f"{costs.HBM_BYTES_PER_S / 1e12:g} TB/s; operations {bound['t_ops']:.6g} ms, set by "
           f"{bound['ops_form']} (chunked {bound['chunked_flops']} FLOP x 3, recurrence "
           f"{bound['recurrence_flops']} FLOP); the kernel's 3xTF32 rate "
-          f"{3 * bound['chunked_flops'] / ms / 1e9:.6g} TFLOP/s of {TF32_FLOPS / 1e12:g} "
+          f"{3 * bound['chunked_flops'] / ms / 1e9:.6g} TFLOP/s of {costs.TF32_FLOPS / 1e12:g} "
           f"[{card}]", flush=True)
 
     for name, r in rows.items():
-        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_bytes = r["nbytes"] / costs.HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / r["peak"] * 1e3
         r.setdefault("bound_ms", max(t_bytes, t_ops))
         r.setdefault("bound_by", "bytes" if t_bytes >= t_ops else "operations")
@@ -1251,7 +1229,7 @@ def zamba2_timing(dev, card, fk, fr, dk, dr, sk, sr, cfg) -> dict:
                     if r["library_ms"] is not None else "")
         print(f"rate {name} b={b}: kernel {r['tflops']:.6g} TFLOP/s (peak "
               f"{r['peak'] / 1e12:g}), {r['gbps']:.6g} GB/s (peak "
-              f"{HBM_BYTES_PER_S / 1e9:g}); {r['bound_ms'] / r['ms']:.4f} of its bound"
+              f"{costs.HBM_BYTES_PER_S / 1e9:g}); {r['bound_ms'] / r['ms']:.4f} of its bound"
               f"{lib_rate} [{card}]", flush=True)
     return rows
 
@@ -1450,24 +1428,6 @@ def serving_profile(dev, card, serve, api, counts=None, top_n=6, ranges=None,
 # ---------------------------------------------------------------------------
 
 
-def scan_bound(b, L, d, n) -> dict:
-    """The least time the selective scan's function takes on the card at
-    (b, L, d, n), without the final state: x, dt, A, B, C, D read once and
-    y written once, in f32; one exp per (token, channel, state) on the
-    special-function units, and 6 f32 operations (dt*A, the state's FMA,
-    dt*x*B, the read-out FMA) beside it, plus 3 per (token, channel)
-    (dt*x, D*x + sum).  The FMA lanes and the special-function units run
-    side by side, so the operations take the longer of their two times."""
-    nbytes = 4 * (3 * b * L * d + 2 * b * L * n + d * n + d)
-    exps = b * L * d * n
-    flops = b * L * d * (6 * n + 3)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOPS, exps / SFU_PER_S) * 1e3
-    return dict(nbytes=nbytes, exps=exps, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
 def scan_inputs(gen, b, L, d, n, dev):
     """As the reference's kernel tests draw them: dt = softplus(0.5 g - 1),
     A = -exp(0.3 g)."""
@@ -1480,30 +1440,6 @@ def scan_inputs(gen, b, L, d, n, dev):
     C = torch.randn((b, L, n), generator=gen, device=dev)
     D = torch.randn((d,), generator=gen, device=dev)
     return x, dt, A, B, C, D
-
-
-def fused_scan_bound(b, L, d, n, state=False) -> dict:
-    """The least time the fused Mamba1 scan's function takes on the card at
-    (b, L, d, n): xc, dt_raw and z read once and y written once, in bf16;
-    B and C (bf16), A, dt_b and D (f32) read once; the final state (f32)
-    written once when asked for.  On the special-function units, what the
-    function needs: one exp per (token, channel, state) and, per (token,
-    channel), the softplus's exp and log and one operation for the gate
-    (silu(z) = z/2 (1 + tanh(z/2)) takes a single tanh; the kernel takes
-    two); beside them 6 f32 operations per (token, channel, state) and 8
-    per (token, channel) (the dt_b add, the softplus's series or scale,
-    dt*x, D*x, the sum, the gate's add and two products).  The FMA lanes
-    and the special-function units run side by side."""
-    nbytes = 2 * (4 * b * L * d + 2 * b * L * n) + 4 * (d * n + 2 * d)
-    if state:
-        nbytes += 4 * b * d * n
-    sfu = b * L * d * (n + 3)
-    flops = b * L * d * (6 * n + 8)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOPS, sfu / SFU_PER_S) * 1e3
-    return dict(nbytes=nbytes, sfu=sfu, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def fused_scan_inputs(gen, b, L, d, n, r, dev):
@@ -1565,7 +1501,7 @@ def falcon_fused_scan(dev, card, sk, sr, cfg) -> dict:
     out.clear()
     y = check(f"at the loss shape b={b} L={L} d={d} n={n}", args, False)
     check("at the loss shape", args, True)
-    row = dict(fused_scan_bound(b, L, d, n), ms=ms, ms_with_state=ms_state,
+    row = dict(costs.fused_scan_bound(b, L, d, n), ms=ms, ms_with_state=ms_state,
                plain_ms=plain, library_ms=None)
     moved = sum(t.numel() * t.element_size() for t in args) + y.numel() * y.element_size()
     if row["nbytes"] != moved:
@@ -1575,8 +1511,8 @@ def falcon_fused_scan(dev, card, sk, sr, cfg) -> dict:
           f"({ms_state:.6g} ms with the state), plain version {plain:.6g} ms, library "
           f"call none, bound {row['bound_ms']:.6g} ms by {row['bound_by']} "
           f"({row['nbytes']} B take {row['t_bytes']:.6g} ms; {row['sfu']} special-"
-          f"function operations take {row['sfu'] / SFU_PER_S * 1e3:.6g} ms; "
-          f"{row['flops']} f32 FLOP take {row['flops'] / FP32_FLOPS * 1e3:.6g} ms); "
+          f"function operations take {row['sfu'] / costs.SFU_PER_S * 1e3:.6g} ms; "
+          f"{row['flops']} f32 FLOP take {row['flops'] / costs.FP32_FLOPS * 1e3:.6g} ms); "
           f"{row['bound_ms'] / ms:.4f} of its bound [{card}]", flush=True)
     del args, y
     b, L = SERVE_BATCH, PROMPT_LEN
@@ -1625,12 +1561,12 @@ def falcon_scan(dev, card, sk, sr, cfg) -> dict:
               check_close("selective_scan state at the loss shape", h, hp, SCAN_TOL,
                           card))
     # the loss forward asks for no state
-    row = dict(scan_bound(b, L, d, n), ms=ms, plain_ms=plain, library_ms=None, err=err)
+    row = dict(costs.scan_bound(b, L, d, n), ms=ms, plain_ms=plain, library_ms=None, err=err)
     print(f"time selective_scan b={b} L={L} d={d} n={n}: kernel {ms:.6g} ms, plain "
           f"version {plain:.6g} ms, library call none, bound {row['bound_ms']:.6g} ms "
           f"by {row['bound_by']} ({row['nbytes']} B take {row['t_bytes']:.6g} ms; "
-          f"{row['exps']} exp take {row['exps'] / SFU_PER_S * 1e3:.6g} ms; "
-          f"{row['flops']} f32 FLOP take {row['flops'] / FP32_FLOPS * 1e3:.6g} ms) "
+          f"{row['exps']} exp take {row['exps'] / costs.SFU_PER_S * 1e3:.6g} ms; "
+          f"{row['flops']} f32 FLOP take {row['flops'] / costs.FP32_FLOPS * 1e3:.6g} ms) "
           f"[{card}]", flush=True)
     if row["nbytes"] != sum(t.numel() * 4 for t in args) + y.numel() * 4:
         raise AssertionError("scan_bound counts other bytes than the call moves")
@@ -1827,18 +1763,6 @@ def falcon_serving(dev, card, serve, api, scan_counts, zero_counts, others) -> d
 # ---------------------------------------------------------------------------
 
 
-def attention_bound(b, sq, live, h, kv, d, esize, causal) -> tuple[int, int]:
-    """(bytes, FLOP) of one attention call: q and the output of (b, sq, h,
-    d), k and v of (b, live, kv, d) read once (decode: the live entries
-    and ``cache_len``); QK^T and PV over the pairs it attends (causal:
-    aligned bottom-right, query i sees keys <= i + live - sq)."""
-    pairs = sq * (live - sq) + sq * (sq + 1) // 2 if causal else sq * live
-    nbytes = 2 * b * sq * h * d * esize + 2 * b * live * kv * d * esize
-    if sq == 1:
-        nbytes += 4 * b
-    return nbytes, 4 * b * h * d * pairs
-
-
 def flash_row(dev, card, fk, fr, gen, b, sq, sk, h, kv, d, causal, tag) -> dict:
     """Flash attention at (b, sq, sk, h, kv, d) in bf16 against its plain
     version (2e-2), then timed by CUDA events beside the plain version and
@@ -1860,7 +1784,7 @@ def flash_row(dev, card, fk, fr, gen, b, sq, sk, h, kv, d, causal, tag) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10)
-    nbytes, flops = attention_bound(b, sq, sk, h, kv, d, 2, causal)
+    nbytes, flops = costs.attention_bound(b, sq, sk, h, kv, d, 2, causal)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err, nbytes=nbytes,
@@ -1911,7 +1835,7 @@ def decode_row(dev, card, dk, dr, gen, b, S, live, h, kv, d, tag, lens=None) -> 
         mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=50)
-    nbytes, flops = attention_bound(b, 1, live, h, kv, d, 2, False)
+    nbytes, flops = costs.attention_bound(b, 1, live, h, kv, d, 2, False)
     del q, kc, vc, qt, kt, vt, mask, got
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, err=err, nbytes=nbytes,
@@ -1922,8 +1846,8 @@ def bound_rows(rows, tag, card) -> None:
     """Each row's bound (the larger of its bytes at the memory rate and its
     FLOP at the bf16 tensor-core rate), printed beside its times."""
     for name, r in rows.items():
-        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / BF16_FLOPS * 1e3
+        t_bytes = r["nbytes"] / costs.HBM_BYTES_PER_S * 1e3
+        t_ops = r["flops"] / costs.BF16_FLOPS * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         print(f"time {name} {tag} shape {r['shape']}: kernel {r['ms']:.6g} ms, plain "
@@ -2492,8 +2416,8 @@ def registers_phase(dev, card, sched, eps, store, tm, kernel, ops, counters,
         # window; the register terms add ~25 a lane to each full pass
         w_ops = (H * n_units * (13 * n_ep + 35 + 2 * C)
                  + n_new_run * (55 * n_ep + 2 * n_ep))
-        bound = max((in_bytes + out_bytes) / HBM_BYTES_PER_S,
-                    w_ops / FP64_FLOPS) * 1e3
+        bound = max((in_bytes + out_bytes) / costs.HBM_BYTES_PER_S,
+                    w_ops / costs.FP64_FLOPS) * 1e3
         del p
         torch.cuda.synchronize()
         zero_counts()
@@ -3069,15 +2993,6 @@ def evaluation_phase(card, sched, kernel, ops, counters, zero_counts) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def flash_bwd_bound(b, sq, sk, h, kv, d, esize, causal) -> tuple[int, int]:
-    """(bytes, FLOP) of one backward call: q, o, dO, dQ (b, sq, h, d), k, v,
-    dK, dV (b, sk, kv, d) moved once and the f32 lse read; the products
-    are 2.5 times the forward's (S and dP recomputed, dV, dK and dQ)."""
-    _, fwd_flops = attention_bound(b, sq, sk, h, kv, d, esize, causal)
-    nbytes = (4 * b * sq * h * d + 4 * b * sk * kv * d) * esize + 4 * b * h * sq
-    return nbytes, int(2.5 * fwd_flops)
-
-
 def grad_errors(got, want, dt) -> dict:
     """A gradient against its plain version by the rule of ``BWD_TOL``: the
     largest |err|, the largest |err| over its element's allowance (<= 1
@@ -3206,8 +3121,8 @@ def flash_bwd_row(dev, card, fk, fr, b, s, h, kv, d, tag, sk=None, causal=True) 
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
                   reps=10)
-    nbytes, flops = flash_bwd_bound(b, s, sk, h, kv, d, 2, causal)
-    f_bytes, f_flops = attention_bound(b, s, sk, h, kv, d, 2, causal)
+    nbytes, flops = costs.flash_bwd_bound(b, s, sk, h, kv, d, 2, causal)
+    f_bytes, f_flops = costs.attention_bound(b, s, sk, h, kv, d, 2, causal)
     f_bytes += 4 * b * h * s     # the lse written
     del q, k, v, do, o, lse, qt, kt, vt, dot, out
     torch.cuda.empty_cache()
@@ -3273,6 +3188,7 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
     import numpy as np
     import torch
     from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.dryrun import storage_bytes, tensors
     from repro_torch.models.registry import build_api, get_api
     api = get_api(arch)
     full_layers = api.cfg.n_layers
@@ -3335,6 +3251,8 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
     batch.update(p_train.frontend_inputs(api, train_kw["batch"], 0, n_steps, dev))
     holder = {"state": state}
     del state
+    # the state the card holds (params, m, v, step), as the dry-run counts it
+    state_bytes = storage_bytes(tensors(holder["state"]))
     before = launch_counts(counters)
 
     def one_step():
@@ -3351,7 +3269,8 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
     print(f"profile {label} train step: launches {profile['launches']} [{card}]",
           flush=True)
     out = {"arch": arch, "layers": api.cfg.n_layers, "n_params": n_params, **train_kw,
-           "steps": steps, "wall_s": wall, "peak_mem_bytes": peak, "launches": launches,
+           "steps": steps, "wall_s": wall, "peak_mem_bytes": peak, "state_bytes": state_bytes,
+           "launches": launches,
            "launches_per_step": want, "bwd_launches_by_shape": shapes, "profile": profile,
            "card": card}
     if check:
@@ -3945,66 +3864,6 @@ def whisper_f32_gradients(dev, card, api, fk, fr, lm_mod, encdec_mod, b=2, s=448
 # ---------------------------------------------------------------------------
 
 
-def ssd_bwd_forms(b, L, nh, hd, n, chunk) -> tuple[int, int]:
-    """f32 operations of the SSD gradient's two forms, (chunked,
-    recurrence).  The chunked form at ``chunk``: per (row, chunk of q
-    tokens) the triangle of G = C B^T, shared by the heads (q(q+1) n); per
-    head the triangles of dy xdt^T and M^T dy (q(q+1) hd each) and of dM B
-    and dM^T C (q(q+1) n each), and five (q, n, hd) products: B dS,
-    dy S^T, xdt dS^T, the chunk's state and its gradient (2 q n hd each).
-    The recurrence: per (row, token, head) the recomputed state (3 n hd),
-    its gradient (3 n hd), dxdt, dB, dC and dloga (2 n hd each)."""
-    chunked = 0
-    for c0 in range(0, L, chunk):
-        q = min(chunk, L - c0)
-        chunked += b * (q * (q + 1) * n
-                        + nh * (2 * q * (q + 1) * (hd + n) + 10 * q * n * hd))
-    return chunked, b * L * nh * 14 * n * hd
-
-
-def ssd_bwd_bound_ms(b, L, nh, hd, n, chunk=64, dS=False) -> dict:
-    """The least time the SSD's gradient takes on the card: the larger of
-    its bytes (xdt, dy, loga, B, C and dS where given read once; dxdt,
-    dloga, dB, dC written once; f32) at the memory rate and its
-    operations, the lesser of the recurrence on the f32 CUDA cores and the
-    chunked form (at the kernel's chunk) as 3xTF32 on the tensor cores."""
-    chunked, recurrence = ssd_bwd_forms(b, L, nh, hd, n, chunk)
-    nbytes = 4 * (3 * b * L * nh * hd + 2 * b * L * nh + 4 * b * L * n
-                  + (b * nh * n * hd if dS else 0))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_rec = recurrence / FP32_FLOPS * 1e3
-    t_chunked = 3 * chunked / TF32_FLOPS * 1e3
-    t_ops = min(t_rec, t_chunked)
-    form = ("the recurrence on the f32 CUDA cores at 67 TFLOP/s" if t_rec <= t_chunked
-            else "the chunked form as 3xTF32 on the tensor cores at 495 TFLOP/s")
-    return dict(nbytes=nbytes, chunked_flops=chunked, recurrence_flops=recurrence,
-                t_bytes=t_bytes, t_ops=t_ops, ops_form=form,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
-def fused_scan_bwd_bound(b, L, d, n) -> dict:
-    """The least time the fused Mamba1 scan's gradient takes on the card:
-    xc, dt_raw, z and dy read and dxc, ddt_raw and dz written once (bf16),
-    B and C read and dB and dC written once (bf16), A, dt_b, D read and
-    dA, dD, ddt_b written once (f32).  On the special-function units what
-    the function needs, as the forward's bound counts it: the state's exp
-    once a (token, channel, state), and the softplus's exp and log and one
-    operation for the gate a (token, channel) (the softplus's derivative
-    is e / (1 + e) of the same exp); on the FMA lanes 18 f32 operations a
-    (token, channel, state) (the recomputed state 3, its read-out 2, the
-    state's gradient 2, dh.B 2, dA's and ddelta's terms 6, dB's part 2, the
-    decay 1) and 20 a (token, channel).  The two run side by side."""
-    nbytes = 2 * (7 * b * L * d + 4 * b * L * n) + 4 * 2 * (d * n + 2 * d)
-    sfu = b * L * d * (n + 3)
-    flops = b * L * d * (18 * n + 20)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOPS, sfu / SFU_PER_S) * 1e3
-    return dict(nbytes=nbytes, sfu=sfu, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
 # the backward kernels against their plain versions (phase 33).  SSD: (b, L,
 # nh, hd, n, dS given): ragged lengths against the kernel's chunk, state 8,
 # 16 and 64, the widest head and state (its smaller chunk), one token.
@@ -4167,7 +4026,7 @@ def ssm_bwd_checks(dev, card, sk, sr, fk, fr) -> dict:
     ms = cuda_ms(lambda: sk.ssd_bwd(*a), reps=5)
     fwd_ms = cuda_ms(lambda: sk.ssd(*a[:4]), reps=5)
     plain = event_ms(lambda: sr.ssd_plain_bwd(*a))
-    bound = ssd_bwd_bound_ms(b, L, nh, hd, n)
+    bound = costs.ssd_bwd_bound_ms(b, L, nh, hd, n)
     rows["ssd_bwd"] = dict(bound, shape=[b, L, nh, hd, n], ms=ms, forward_ms=fwd_ms,
                            plain_ms=plain, library_ms=None, err=worst["ssd_bwd"][0],
                            max_abs_err=worst["ssd_bwd"][1])
@@ -4187,7 +4046,7 @@ def ssm_bwd_checks(dev, card, sk, sr, fk, fr) -> dict:
     ms = cuda_ms(lambda: fk.mamba1_scan_fused_bwd(*args, dy), reps=5)
     fwd_ms = cuda_ms(lambda: fk.mamba1_scan_fused(*args), reps=5)
     plain = event_ms(lambda: fr.mamba1_scan_fused_plain_bwd(*args, dy))
-    bound = fused_scan_bwd_bound(b, L, d, n)
+    bound = costs.fused_scan_bwd_bound(b, L, d, n)
     outs = fk.mamba1_scan_fused_bwd(*args, dy)
     moved = sum(t.numel() * t.element_size() for t in (*args, dy, *outs))
     del outs
@@ -4202,8 +4061,8 @@ def ssm_bwd_checks(dev, card, sk, sr, fk, fr) -> dict:
           f"forward {fwd_ms:.6g} ms), plain backward {plain:.6g} ms, library call none, "
           f"bound {bound['bound_ms']:.6g} ms by {bound['bound_by']} ({bound['nbytes']} B "
           f"take {bound['t_bytes']:.6g} ms; {bound['sfu']} special-function operations "
-          f"take {bound['sfu'] / SFU_PER_S * 1e3:.6g} ms; {bound['flops']} f32 FLOP take "
-          f"{bound['flops'] / FP32_FLOPS * 1e3:.6g} ms); {bound['bound_ms'] / ms:.4f} of "
+          f"take {bound['sfu'] / costs.SFU_PER_S * 1e3:.6g} ms; {bound['flops']} f32 FLOP take "
+          f"{bound['flops'] / costs.FP32_FLOPS * 1e3:.6g} ms); {bound['bound_ms'] / ms:.4f} of "
           f"its bound [{card}]", flush=True)
     return rows
 
@@ -4216,21 +4075,104 @@ def ssm_bwd_checks(dev, card, sk, sr, fk, fr) -> dict:
 # every 2, its endpoint leaves after step 2 and the job resumes from there
 FLEET_STEPS = 4
 FLEET_TRAIN_ARGS = ["--full-width", "--steps", str(FLEET_STEPS)]
+# the train steps that phases 28 and 35 time, counted by the dry-run as they
+# run (phase 37 holds the count to the card)
+COUNTED_STEPS = {
+    TRAIN_ARCH: {k: v for k, v in TRAIN.items() if k != "steps"},
+    **{arch: {**{k: v for k, v in kw.items() if k != "steps"},
+              **({"depth": SSM_LAYERS[arch]} if arch in SSM_LAYERS else {})}
+       for arch, kw in SSM_TRAIN.items()}}
 
 
-def fleet_placements(where, train_ex, serve_ex, kernel) -> dict:
+def fleet_cells() -> list[tuple[str, str]]:
+    """The (arch, shape) cells the fleet examples' jobs name: the training
+    job's and the serving wave's."""
+    train_ex, serve_ex = load_example("torch_fleet_train"), load_example("torch_fleet_serve")
+    jobs = [(train_ex.JOB["arch"], train_ex.JOB["shape"])]
+    jobs += [(j.arch, j.shape) for j in serve_ex.wave()]
+    return sorted(set(jobs))
+
+
+def dryrun_counts(out: str) -> int:
+    """The dry-run's work for phases 36 and 37, run in a child process
+    (``start_dryrun``): the fleet examples' cells through the dry-run's
+    command line into ``out/cells``, then each of ``COUNTED_STEPS`` by
+    ``count_cell`` into ``out/steps.json``.  Meta tensors on the host, one
+    torch thread, no card."""
+    import torch
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    out = pathlib.Path(out)
+    t0 = time.perf_counter()
+    for arch, shape in fleet_cells():
+        dryrun.main(["--arch", arch, "--shape", shape, "--out", str(out / "cells")])
+    steps = {arch: dryrun.count_cell(arch, "train_4k", **kw)
+             for arch, kw in COUNTED_STEPS.items()}
+    (out / "steps.json").write_text(json.dumps(steps))
+    print(f"dry-run counts: wall {time.perf_counter() - t0:.6g} s", flush=True)
+    return 0
+
+
+def start_dryrun() -> tuple[subprocess.Popen, pathlib.Path]:
+    """Start ``dryrun_counts`` in a child process beside the card's phases
+    (it is host work: the CUDA devices are hidden from it), writing under a
+    new temporary directory, its output in ``log.txt`` there.  The child
+    and the directory go when this process exits."""
+    import tempfile
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    log = open(out / "log.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-counts", str(out)],
+        stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"})
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(out, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, out
+
+
+def dryrun_results(proc, out, card) -> tuple[pathlib.Path, dict]:
+    """Wait for the child of ``start_dryrun``; raise unless it succeeded.
+    Prints each cell's FLOPs, bytes and counting seconds; returns the cells'
+    directory and the counted steps."""
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    log = (out / "log.txt").read_text()
+    if rc != 0:
+        raise AssertionError(f"the dry-run's counts failed ({rc}):\n{log[-4000:]}")
+    cells = out / "cells"
+    for fp in sorted(cells.glob("*__single.json")):
+        r = json.loads(fp.read_text())
+        print(f"dry-run {r['arch']} {r['shape']} (b={r['global_batch']} x {r['seq']}, one "
+              f"card): {r['flops_per_device']:.6g} FLOP, {r['bytes_accessed_per_device']:.6g} "
+              f"B, kernel launches {r['kernel_launches']}, counted in {r['count_s']} s on the "
+              f"host [{card}]", flush=True)
+    print(f"{log.strip().splitlines()[-1]} (waited {waited:.6g} s for it here) [{card}]",
+          flush=True)
+    return cells, json.loads((out / "steps.json").read_text())
+
+
+def fleet_placements(where, train_ex, serve_ex, kernel, dryrun_dir=None) -> dict:
     """The fleet example's training job placed, its endpoint leaving and the
-    job placed again, and the serving wave placed, by managers on ``where``:
-    each schedule's every field with its floats as bits, the window
-    kernel's launches of each, and each ``place`` call's seconds (host
-    clock; the schedule is on the host when it returns)."""
+    job placed again, and the serving wave placed, by managers on ``where``
+    reading the dry-run's costs from ``dryrun_dir`` (None: the profile
+    store's priors): each schedule's every field with its floats as bits,
+    the window kernel's launches of each, and each ``place`` call's seconds
+    (host clock; the schedule is on the host when it returns)."""
     import dataclasses
 
     from repro_torch.core.endpoint import tpu_fleet
     from repro_torch.fleet.manager import FleetJob, FleetManager
     job = FleetJob(steps=FLEET_STEPS, **train_ex.JOB)
-    mgr = FleetManager(tpu_fleet(), None, alpha=0.5, device=where)
-    wave_mgr = FleetManager(tpu_fleet(), None, alpha=0.3, device=where)
+    mgr = FleetManager(tpu_fleet(), dryrun_dir, alpha=0.5, device=where)
+    wave_mgr = FleetManager(tpu_fleet(), dryrun_dir, alpha=0.3, device=where)
     seconds = []
 
     def place(m, jobs):
@@ -4253,12 +4195,15 @@ def fleet_placements(where, train_ex, serve_ex, kernel) -> dict:
             "place_s": seconds}
 
 
-def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
-    """Phase 36: the fleet layer on the card.  (1) The training job and the
-    serving wave placed by ``FleetManager`` on the card and on the CPU,
+def fleet_phase(card, p_train, kernel, counters, zero_counts, dryrun_dir) -> dict:
+    """Phase 36: the fleet layer on the card, on the port's own dry-run
+    costs (``dryrun_dir``: the cells the jobs name, counted by
+    ``start_dryrun``'s child).  (1) The training job and the serving wave
+    placed by ``FleetManager`` from those costs on the card and on the CPU,
     equal in every field's bits; the job's two placements launch the
     window kernel twice on the card, the wave (one cluster, the host SoA
-    engine) none.  (2) ``examples/torch_fleet_train.py`` on the card at
+    engine) none; beside them the same placed on the profile store's
+    priors.  (2) ``examples/torch_fleet_train.py --dryrun DIR`` on the card at
     granite-3-2b's full width with 2 of its 40 layers (counts zeroed just
     before, read just after: the two placements' window launches and
     flash's launches of ``step_launches`` for each of the 4 steps, nothing
@@ -4266,7 +4211,8 @@ def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
     and the resumed steps' losses and grad norms equal it.  (3)
     ``examples/torch_fleet_serve.py --full-width``: the wave placed, its
     first job (granite-3-2b, full width and depth) served at b=4, prompt
-    32, 16 new tokens (40 flash launches, 40 decode launches a step)."""
+    32, 16 new tokens (40 flash launches, 40 decode launches a step), with
+    ``--dryrun DIR`` too; each example's placement equals (1)'s."""
     import dataclasses
     import gc
     import shutil
@@ -4278,22 +4224,32 @@ def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
     train_ex = load_example("torch_fleet_train")
     serve_ex = load_example("torch_fleet_serve")
 
-    # (1) placement on the card against the CPU
-    card_p, cpu_p = (fleet_placements(w, train_ex, serve_ex, kernel) for w in (None, "cpu"))
-    if card_p["launches"] != {"train": 2, "wave": 0} or \
-            cpu_p["launches"] != {"train": 0, "wave": 0}:
-        raise AssertionError(f"fleet placement launched {card_p['launches']} on the card "
-                             f"and {cpu_p['launches']} on the CPU, expected 2 and 0 for "
-                             f"the job and 0 for the wave")
-    for k in ("train", "wave"):
-        if card_p[k] != cpu_p[k]:
-            raise AssertionError(f"fleet placement of the {k} job(s) on the card differs "
-                                 f"from the CPU: {first_difference(card_p[k], cpu_p[k])}")
-    print(f"fleet placement: the training job on {card_p['train'][0]['assignments']}, "
-          f"after its endpoint leaves on {card_p['train'][1]['assignments']} (2 window "
-          f"launches); the wave {card_p['wave']['assignments']} (0 launches); card == CPU "
-          f"in every field's bits; place s {card_p['place_s']} (CPU {cpu_p['place_s']}) "
-          f"[{card}]", flush=True)
+    # (1) placement on the card against the CPU, from the dry-run's costs and
+    # on the priors
+    placed = {}
+    for costs_from, d in (("dry-run", dryrun_dir), ("priors", None)):
+        card_p, cpu_p = (fleet_placements(w, train_ex, serve_ex, kernel, d)
+                         for w in (None, "cpu"))
+        if card_p["launches"] != {"train": 2, "wave": 0} or \
+                cpu_p["launches"] != {"train": 0, "wave": 0}:
+            raise AssertionError(f"fleet placement ({costs_from}) launched "
+                                 f"{card_p['launches']} on the card and {cpu_p['launches']} "
+                                 f"on the CPU, expected 2 and 0 for the job and 0 for the "
+                                 f"wave")
+        for k in ("train", "wave"):
+            if card_p[k] != cpu_p[k]:
+                raise AssertionError(f"fleet placement ({costs_from}) of the {k} job(s) on "
+                                     f"the card differs from the CPU: "
+                                     f"{first_difference(card_p[k], cpu_p[k])}")
+        print(f"fleet placement ({costs_from}): the training job on "
+              f"{card_p['train'][0]['assignments']}, after its endpoint leaves on "
+              f"{card_p['train'][1]['assignments']} (2 window launches); the wave "
+              f"{card_p['wave']['assignments']} (0 launches); card == CPU in every field's "
+              f"bits; place s {card_p['place_s']} (CPU {cpu_p['place_s']}) [{card}]",
+              flush=True)
+        placed[costs_from] = (card_p, cpu_p)
+    card_p, cpu_p = placed["dry-run"]
+    dryrun_args = ["--dryrun", str(dryrun_dir)]
 
     # (2) the training example at full width, then an uninterrupted run
     cfg = build_api(dataclasses.replace(
@@ -4307,7 +4263,8 @@ def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     try:
-        out = train_ex.main(FLEET_TRAIN_ARGS + ["--checkpoint-dir", str(TRAIN_CKPT)])
+        out = train_ex.main(FLEET_TRAIN_ARGS + dryrun_args
+                            + ["--checkpoint-dir", str(TRAIN_CKPT)])
     finally:
         shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     train_wall = time.perf_counter() - t0
@@ -4353,7 +4310,7 @@ def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
     torch.cuda.empty_cache()
     zero_counts()
     t0 = time.perf_counter()
-    served = serve_ex.main(["--full-width"])
+    served = serve_ex.main(["--full-width"] + dryrun_args)
     serve_wall = time.perf_counter() - t0
     s_launches = {k: v for k, v in launch_counts(counters).items() if v}
     per_prefill, per_decode = attention_launches(serve_cfg)
@@ -4375,7 +4332,8 @@ def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
     torch.cuda.empty_cache()
     return {
         "placements": {"train": card_p["train"], "wave": card_p["wave"],
-                       "train_example": [s.assignments for s in out["schedules"]]},
+                       "train_example": [s.assignments for s in out["schedules"]],
+                       "priors": {k: placed["priors"][0][k] for k in ("train", "wave")}},
         "place_s": {"card": card_p["place_s"], "cpu": cpu_p["place_s"]},
         "launches": {"placement": card_p["launches"], "train": launches, "serve": s_launches},
         "train": {"arch": cfg.name, "layers": cfg.n_layers, "steps": n_steps,
@@ -4390,6 +4348,62 @@ def fleet_phase(card, p_train, kernel, counters, zero_counts) -> dict:
                   "decode_s": served["served"]["decode_s"], "decode_tok_per_s": tps,
                   "wall_s": serve_wall},
         "wall_s": time.perf_counter() - t_phase, "card": card}
+
+
+def count_check(card, counted, trained) -> dict:
+    """Phase 37: the dry-run's count of each timed train step
+    (``COUNTED_STEPS``, counted by ``start_dryrun``'s child) against the
+    card's run of it (``trained``: ``full_width_training``'s results):
+    (a) its kernel launches times the steps equal those the card counted
+    in its run, exactly;
+    (b) its FLOPs over each measured step's seconds, as TFLOP/s and as a
+    share of the dense bf16 rate, at most 1 (a larger share means the
+    count is wrong); (c) its arguments less the batch (the
+    count's int32 tokens and labels) equal the bytes of the state the card
+    held, exactly; (d) its predicted peak (arguments + temporaries) beside
+    the card's ``max_memory_allocated``."""
+    from repro_torch.launch.dryrun import cell_api, cell_inputs, storage_bytes, tensors
+    out = {}
+    for arch, kw in COUNTED_STEPS.items():
+        c, t = counted[arch], trained[arch]
+        label = f"{arch} ({kw['depth']} layers)" if "depth" in kw else arch
+        step_s = [r["seconds"] for r in t["steps"]]
+        card_launches = {k: v for k, v in t["launches"].items() if v}
+        if {k: v * len(step_s) for k, v in c["kernel_launches"].items()} != card_launches:
+            raise AssertionError(f"the dry-run counts {c['kernel_launches']} launches in a "
+                                 f"{label} train step, the card {card_launches} in "
+                                 f"{len(step_s)} steps")
+        shares = [c["flops_per_device"] / s / costs.BF16_FLOPS for s in step_s]
+        if max(shares) > 1:
+            raise AssertionError(f"the dry-run's {c['flops_per_device']} FLOP of a {label} "
+                                 f"train step would run at {max(shares):.4f} of the card's "
+                                 f"bf16 rate in the fastest measured step ({min(step_s)} s)")
+        cfg = cell_api(arch, depth=kw.get("depth")).cfg
+        batch = storage_bytes(tensors(cell_inputs(cfg, "train_4k", kw["batch"], kw["seq"])))
+        mem = c["memory"]
+        if mem["argument_size_in_bytes"] - batch != t["state_bytes"]:
+            raise AssertionError(f"the dry-run's arguments of a {label} train step less its "
+                                 f"batch ({batch} B) are {mem['argument_size_in_bytes'] - batch}"
+                                 f" B, the card held a {t['state_bytes']} B state")
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        ratio = predicted / t["peak_mem_bytes"]
+        tflops = [c["flops_per_device"] / s / 1e12 for s in step_s]
+        print(f"dry-run against the card, {label} train step b={kw['batch']} x {kw['seq']} "
+              f"in {kw['microbatches']} microbatches: launches {c['kernel_launches']} == the "
+              f"card's; {c['flops_per_device']:.6g} FLOP ({c['kernel_flops']:.6g} in the "
+              f"kernels), {c['bytes_accessed_per_device']:.6g} B; at the measured steps "
+              f"{step_s} s: {[round(x, 2) for x in tflops]} TFLOP/s, "
+              f"{[round(x, 4) for x in shares]} of {costs.BF16_FLOPS / 1e12:g}; state "
+              f"{t['state_bytes']} B == arguments less the batch; predicted peak {predicted} B "
+              f"against the card's {t['peak_mem_bytes']} B ({ratio:.4f}); counted in "
+              f"{c['count_s']} s [{card}]", flush=True)
+        out[arch] = {"launches": c["kernel_launches"], "flops": c["flops_per_device"],
+                     "kernel_flops": c["kernel_flops"], "bytes": c["bytes_accessed_per_device"],
+                     "step_s": step_s, "tflops": tflops, "bf16_share": shares,
+                     "state_bytes": t["state_bytes"], "predicted_peak_bytes": predicted,
+                     "card_peak_bytes": t["peak_mem_bytes"], "peak_ratio": ratio,
+                     "count_s": c["count_s"]}
+    return out
 
 
 def main() -> int:
@@ -4461,6 +4475,8 @@ def main() -> int:
     print(f"build: wall {time.perf_counter() - t0:.2f} s for "
           f"{len(kbuild.BUILD_STATS)} sources in parallel [{card}]", flush=True)
     kernel_resources(kbuild, card, flash_kernel, dec_kernel, ssd_kernel, scan_kernel)
+    # the dry-run's counts for phases 36 and 37, on the host beside the card
+    dryrun_proc, dryrun_out = start_dryrun()
 
     lap("1")
 
@@ -4699,8 +4715,8 @@ def main() -> int:
     # every run boundary
     gw_ops = (H * n_units_full * (13 * n_ep + 35 + 2 * C)
               + n_new_run * (30 * n_ep + 2 * n_ep))
-    gw_bound_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    gw_bound_ops = gw_ops / FP64_FLOPS * 1e3
+    gw_bound_bytes = (in_bytes + out_bytes) / costs.HBM_BYTES_PER_S * 1e3
+    gw_bound_ops = gw_ops / costs.FP64_FLOPS * 1e3
     print(f"time greedy_window {N_TASKS}x{n_ep}x{H} (E={E}, C={C}): "
           f"{gw_ms:.6g} ms ({gw_ms * 1e3 / n_units_full:.4g} us a step; plan "
           f"{kernel.plan(E, C, p_full['staged'].shape[1])}), plain version on the card "
@@ -4717,7 +4733,7 @@ def main() -> int:
         p_ms = cuda_ms(lambda: ref.score_fleet_plain(**t, **scal), reps=2000, warmup=20)
         nbytes = n * (6 * 8 + 1) + n * 8 + 8 + 4
         ops_n = 13 * n
-        bound = max(nbytes / HBM_BYTES_PER_S, ops_n / FP64_FLOPS) * 1e3
+        bound = max(nbytes / costs.HBM_BYTES_PER_S, ops_n / costs.FP64_FLOPS) * 1e3
         sf_rows[n] = (k_ms, p_ms, bound, nbytes, ops_n)
         print(f"time score_fleet lanes={n}: kernel {k_ms * 1e3:.2f} us, plain "
               f"version on the card {p_ms * 1e3:.2f} us, bound "
@@ -4748,7 +4764,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/placement/kernel.py:22",
          "launches_on_main_path": launches["score_fleet"], "lanes": n,
          "max_abs_err": sf_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / FP64_FLOPS
+         "bound_by": ("bytes" if nbytes / costs.HBM_BYTES_PER_S >= ops_n / costs.FP64_FLOPS
                       else "operations"),
          "library_ms": None}
         for n, (k_ms, p_ms, bound, nbytes, ops_n) in sf_rows.items()
@@ -5094,10 +5110,17 @@ def main() -> int:
 
     # ---- 36. the fleet: granite's jobs placed by Cluster MHRA on the card,
     # trained at full width through a leave and a resume, and served
-    fleet = fleet_phase(card, p_train, kernel, counters, zero_counts)
+    dryrun_dir, counted = dryrun_results(dryrun_proc, dryrun_out, card)
+    fleet = fleet_phase(card, p_train, kernel, counters, zero_counts, dryrun_dir)
     print(json.dumps({"fleet": fleet}), flush=True)
 
     lap("36")
+
+    # ---- 37. the dry-run's count of the timed train steps against the card --
+    checked = count_check(card, counted, {TRAIN_ARCH: training, **ssm_training})
+    print(json.dumps({"dryrun_check": checked}), flush=True)
+
+    lap("37")
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
         for name, source, line in (
@@ -5215,4 +5238,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-counts"]:
+        sys.exit(dryrun_counts(sys.argv[2]))
     sys.exit(main())

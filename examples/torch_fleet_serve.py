@@ -10,7 +10,13 @@ first placed job is served for real, batched greedy decoding on the card.
 The wave's estimated makespan and energy are for the simulated TPU fleet
 (``tpu_fleet``'s v5e constants), not for the card.  Without ``--dryrun
 DIR`` no dry-run costs are read and the wave is placed on the profile
-store's priors.
+store's priors.  The port's dry-run writes the wave's costs into DIR (its
+three cells, counted on meta tensors on the host, ~5 s)::
+
+    for cell in granite-3-2b:decode_32k qwen3-14b:prefill_32k zamba2-2.7b:decode_32k; do
+        PYTHONPATH=src python -m repro_torch.launch.dryrun --arch ${cell%:*} \
+            --shape ${cell#*:} --out DIR
+    done
 """
 import argparse
 from collections import Counter

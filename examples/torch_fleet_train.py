@@ -18,7 +18,11 @@ run starts from there, so its losses are the uninterrupted run's.  The
 placement's energy and makespan ("est") are estimates for the simulated TPU
 fleet (``tpu_fleet``'s v5e constants), not for the card.  Without
 ``--dryrun DIR`` no dry-run costs are read and the job is placed on the
-profile store's priors.
+profile store's priors.  The port's dry-run writes the job's costs into
+DIR (counted on meta tensors on the host, ~4 s)::
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \
+        --shape train_4k --out DIR
 """
 import argparse
 import tempfile

@@ -31,7 +31,7 @@ window's chain bound.
 at ``chip_smoke.BWD_TIMED``'s two shapes (granite-3-2b's and qwen3-14b's
 training microbatch) and ``chip_smoke.SSM_FLASH_TIMED``'s (zamba2-2.7b's,
 head_dim 80), causal, bf16, beside SDPA's backward (autograd on a
-retained graph) and the bound (``chip_smoke.flash_bwd_bound``).  Every
+retained graph) and the bound (``launch/costs.py::flash_bwd_bound``).  Every
 build (the shipped one, each ``--other FILE`` unless ``--unchecked``, and
 the parent's) is first held to the plain backward by
 ``chip_smoke.grad_errors`` / ``grad_ok`` on one ragged causal case at
@@ -126,6 +126,7 @@ def scan_sweep(card, parent, others):
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import costs
     from repro_torch.kernels.selective_scan import kernel as sk
     from repro_torch.kernels.selective_scan import ref as sr
     from repro_torch.models.registry import get_api
@@ -167,9 +168,9 @@ def scan_sweep(card, parent, others):
               f"{row['fused_state_ms']:.6g}), f32 form {row['f32_ms']:.6g} ms at b={b} "
               f"L={L} d={d} n={n} [{card}]", flush=True)
     route(sk.SOURCE, handles["shipped"])
-    bound = cs.fused_scan_bound(b, L, d, n)
+    bound = costs.fused_scan_bound(b, L, d, n)
     print(f"scan bound {bound['bound_ms']:.6g} ms by {bound['bound_by']}; f32 form "
-          f"{cs.scan_bound(b, L, d, n)['bound_ms']:.6g} ms [{card}]", flush=True)
+          f"{costs.scan_bound(b, L, d, n)['bound_ms']:.6g} ms [{card}]", flush=True)
     out = {"scan": rows, "fused_bound_ms": bound["bound_ms"]}
     if psrc is not None:
         ph = ctypes.CDLL(str(paths[-1]))
@@ -360,6 +361,7 @@ def bwd_sweep(card, parent, others, unchecked):
     import torch.nn.functional as F
     import chip_smoke as cs
     from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import costs
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
 
@@ -436,8 +438,8 @@ def bwd_sweep(card, parent, others, unchecked):
         if ph is not None and d in PARENT_BITWISE_HEAD_DIMS:
             same_bits(builds["this"](q, k, v, o, lse, do), parent_bwd(q, k, v, o, lse, do),
                       tag, card)
-        nbytes, flops = cs.flash_bwd_bound(b, s_, s_, h, kv, d, 2, True)
-        bound = max(nbytes / cs.HBM_BYTES_PER_S, flops / cs.BF16_FLOPS) * 1e3
+        nbytes, flops = costs.flash_bwd_bound(b, s_, s_, h, kv, d, 2, True)
+        bound = max(nbytes / costs.HBM_BYTES_PER_S, flops / costs.BF16_FLOPS) * 1e3
         row = {"shape": [b, s_, s_, h, kv, d], "bound_ms": bound, "turns": []}
         order = []
         if ph is not None:

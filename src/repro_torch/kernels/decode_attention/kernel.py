@@ -10,7 +10,11 @@ kernel (f32 products keep the f32 tolerance); a second launch merges the
 splits.  ``LAUNCHES`` counts wrapper calls that reach the kernel (one per
 call: the partial pass and its combine).  On CPU tensors it runs the
 plain version (``ref.decode_attention_plain``) instead and counts
-nothing.
+nothing.  On ``meta`` tensors it checks the inputs as the card's route
+does and returns a ``meta`` output, adding its launch and work
+(``launch/costs.py``, the whole cache taken as live: the dry-run decodes
+at its last position) to the dry-run's count (``kernels/meta.py``);
+outside a count it raises.
 """
 from __future__ import annotations
 
@@ -20,7 +24,9 @@ import pathlib
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.decode_attention import ref as _ref
+from repro_torch.launch import costs as _costs
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (16, 64, 80, 128)
@@ -71,7 +77,9 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     dev = q.device
     if dev.type == "cpu":
         return _ref.decode_attention_plain(q, k_cache, v_cache, cache_len)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("decode_attention")
+    elif dev.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {dev}")
     b, one, h, d = q.shape
     _, S, kvh, _ = k_cache.shape
@@ -88,6 +96,10 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     _build.check_tensor(k_cache, "k_cache", dev, (q.dtype,), (b, S, kvh, d), 16)
     _build.check_tensor(v_cache, "v_cache", dev, (q.dtype,), (b, S, kvh, d), 16)
     _build.check_tensor(cache_len, "cache_len", dev, (torch.int32,), (b,))
+    if dev.type == "meta":
+        _meta.launch("decode_attention", *_costs.attention_bound(
+            b, 1, S, h, kvh, d, q.element_size(), False))
+        return torch.empty_like(q)
     handle = lib()
     is_bf16 = int(q.dtype == torch.bfloat16)
     smem = handle.gf_decode_smem(h // kvh, d, is_bf16)

@@ -11,7 +11,10 @@ counts the forward's launches (``flash_attention``) and the backward's
 calls (``flash_attention_bwd``: one a call, for its three kernels).  On
 CPU tensors they run the plain versions (``ref.attention_plain``,
 ``ref.attention_plain_lse``, ``ref.attention_plain_bwd``) instead and
-count nothing.
+count nothing.  On ``meta`` tensors they check the inputs as the card's
+route does and return ``meta`` outputs, adding their launch and work
+(``launch/costs.py``) to the dry-run's count (``kernels/meta.py``); outside
+a count they raise.
 
 The backward's route and scratch follow ``bwd_plan``, a pure function
 (CPU-tested): bf16 at head_dim 64, 80 and 128 takes the wgmma kernel,
@@ -28,7 +31,9 @@ import pathlib
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.flash_attention import ref as _ref
+from repro_torch.launch import costs as _costs
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
@@ -166,11 +171,17 @@ def flash_attention(q, k, v, *, causal: bool = True, return_lse: bool = False):
         if return_lse:
             return _ref.attention_plain_lse(q, k, v, causal=causal)
         return _ref.attention_plain(q, k, v, causal=causal)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("flash_attention")
+    elif dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     b, sq, sk, h, kvh, d = _check_shapes("flash_attention", q, k, v, causal)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if return_lse else None
+    if dev.type == "meta":
+        _meta.launch("flash_attention", *_costs.attention_bound(
+            b, sq, sk, h, kvh, d, q.element_size(), causal, lse=return_lse))
+        return (o, lse) if return_lse else o
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib().gf_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -190,13 +201,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     dev = q.device
     if dev.type == "cpu":
         return _ref.attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("flash_attention_bwd")
+    elif dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {dev}")
     b, sq, sk, h, kvh, d = _check_shapes("flash_attention_bwd", q, k, v, causal)
     align = 16 if q.dtype == torch.bfloat16 else 1
     _build.check_tensor(o, "o", dev, (q.dtype,), q.shape, align)
     _build.check_tensor(do, "do", dev, (q.dtype,), q.shape, align)
     _build.check_tensor(lse, "lse", dev, (torch.float32,), (b, h, sq))
+    if dev.type == "meta":
+        _meta.launch("flash_attention_bwd", *_costs.flash_bwd_bound(
+            b, sq, sk, h, kvh, d, q.element_size(), causal))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     is_bf16 = int(q.dtype == torch.bfloat16)
     plan = bwd_plan(b, sq, sk, h, kvh, d, q.dtype, causal)
     bl = bwd_lib()

@@ -25,7 +25,10 @@ zero) and returns the first d channels.
 (``mamba1_scan_bwd``: one a call, for its four launches).  On CPU tensors
 they run the plain versions (``ref.selective_scan_plain``,
 ``ref.mamba1_scan_fused_plain``, ``ref.mamba1_scan_fused_plain_bwd``)
-instead and count nothing.
+instead and count nothing.  On ``meta`` tensors they check the inputs as
+the card's route does and return ``meta`` outputs, adding their launch and
+work (``launch/costs.py``) to the dry-run's count (``kernels/meta.py``);
+outside a count they raise.
 """
 from __future__ import annotations
 
@@ -36,7 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.selective_scan import ref as _ref
+from repro_torch.launch import costs as _costs
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "selective_scan.cu"
 BWD_SOURCE = SOURCE.with_name("selective_scan_bwd.cu")
@@ -132,7 +137,9 @@ def selective_scan(x, dt, A, B, C, D, *, return_state: bool = False):
     dev = x.device
     if dev.type == "cpu":
         return _ref.selective_scan_plain(*args, return_state=return_state)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("selective_scan")
+    elif dev.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {dev}")
     b, L, d = x.shape
     n = A.shape[-1]
@@ -144,6 +151,13 @@ def selective_scan(x, dt, A, B, C, D, *, return_state: bool = False):
     _build.check_tensor(B, "B", dev, f32, (b, L, n))
     _build.check_tensor(C, "C", dev, f32, (b, L, n))
     _build.check_tensor(D, "D", dev, f32, (d,))
+    if dev.type == "meta":
+        work = _costs.scan_bound(b, L, d, n, return_state)
+        _meta.launch("selective_scan", work["nbytes"], work["flops"])
+        y = torch.empty_like(x)
+        if not return_state:
+            return y
+        return y, torch.empty((b, d, n), dtype=torch.float32, device=dev)
     pad = -d % 4
     if pad or x.data_ptr() % 16 or dt.data_ptr() % 16:
         # fresh copies start on 16 bytes; a padded channel (dt = A = D = 0)
@@ -191,7 +205,9 @@ def _mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = 
     dev = xc.device
     if dev.type == "cpu":
         return _ref.mamba1_scan_fused_plain(*args, return_state=return_state)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("mamba1_scan_fused")
+    elif dev.type != "cuda":
         raise ValueError(f"mamba1_scan_fused: unsupported device {dev}")
     b, L, d = xc.shape
     n = A.shape[-1]
@@ -207,6 +223,10 @@ def _mamba1_scan_fused(xc, dt_raw, dt_b, A, B, C, D, z, *, return_state: bool = 
     y = torch.empty((b, L, d), dtype=bf16, device=dev)
     state = (torch.empty((b, d, n), dtype=torch.float32, device=dev)
              if return_state else None)
+    if dev.type == "meta":
+        work = _costs.fused_scan_bound(b, L, d, n, return_state)
+        _meta.launch("mamba1_scan_fused", work["nbytes"], work["flops"])
+        return (y, state) if return_state else y
     _launch(True, xc, dt_raw, z, B, C, A, D, dt_b, y, state, b, L, d, n)
     LAUNCHES["mamba1_scan_fused"] += 1
     return (y, state) if return_state else y
@@ -233,7 +253,9 @@ def mamba1_scan_fused_bwd(xc, dt_raw, dt_b, A, B, C, D, z, dy):
     dev = xc.device
     if dev.type == "cpu":
         return _ref.mamba1_scan_fused_plain_bwd(xc, dt_raw, dt_b, A, B, C, D, z, dy)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("mamba1_scan_bwd")
+    elif dev.type != "cuda":
         raise ValueError(f"mamba1_scan_fused_bwd: unsupported device {dev}")
     b, L, d = xc.shape
     n = A.shape[-1]
@@ -247,6 +269,12 @@ def mamba1_scan_fused_bwd(xc, dt_raw, dt_b, A, B, C, D, z, dy):
     _build.check_tensor(A, "A", dev, f32, (d, n))
     _build.check_tensor(dt_b, "dt_b", dev, f32, (d,))
     _build.check_tensor(D, "D", dev, f32, (d,))
+    if dev.type == "meta":
+        work = _costs.fused_scan_bwd_bound(b, L, d, n)
+        _meta.launch("mamba1_scan_bwd", work["nbytes"], work["flops"])
+        # contiguous, as the card's: z, B and C may be strided views
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                     for t in (xc, dt_raw, dt_b, A, B, C, D, z))
     handle = bwd_lib()
     scratch = torch.empty(handle.gf_mamba1_scan_bwd_scratch(b, L, d, n),
                           dtype=torch.float32, device=dev)

@@ -8,6 +8,9 @@ counts the forward's launches (``ssd``) and the backward's calls
 (``ssd_bwd``: one a call, for its four launches).  On CPU tensors they run
 the plain versions (``ref.ssd_plain``, the sequential recurrence, and
 ``ref.ssd_plain_bwd``, its reverse recurrence) instead and count nothing.
+On ``meta`` tensors they check the inputs as the card's route does and
+return ``meta`` outputs, adding their launch and work (``launch/costs.py``)
+to the dry-run's count (``kernels/meta.py``); outside a count they raise.
 The wrappers take no part in autograd: ``ssd`` refuses inputs that
 require a gradient, and ``ops.ssd_op`` is the differentiable op.
 """
@@ -19,7 +22,9 @@ import pathlib
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.ssd import ref as _ref
+from repro_torch.launch import costs as _costs
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 BWD_SOURCE = SOURCE.with_name("ssd_bwd.cu")
@@ -67,7 +72,9 @@ def ssd(xdt, loga, B, C, *, chunk: int = 128):
     dev = xdt.device
     if dev.type == "cpu":
         return _ref.ssd_plain(xdt, loga, B, C)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("ssd")
+    elif dev.type != "cuda":
         raise ValueError(f"ssd: unsupported device {dev}")
     b, L, nh, hd = xdt.shape
     n = B.shape[-1]
@@ -81,6 +88,10 @@ def ssd(xdt, loga, B, C, *, chunk: int = 128):
     _build.check_tensor(loga, "loga", dev, f32, (b, L, nh))
     _build.check_tensor(B, "B", dev, f32, (b, L, n))
     _build.check_tensor(C, "C", dev, f32, (b, L, n))
+    if dev.type == "meta":
+        _meta.launch("ssd", *_costs.ssd_work(b, L, nh, hd, n, chunk))
+        return (torch.empty_like(xdt),
+                torch.empty((b, nh, n, hd), dtype=torch.float32, device=dev))
     handle = lib()
     smem = handle.gf_ssd_smem(chunk, n, hd)
     if smem > MAX_SMEM_BYTES:
@@ -103,7 +114,9 @@ def ssd_bwd(xdt, loga, B, C, dy, dS=None):
     dev = xdt.device
     if dev.type == "cpu":
         return _ref.ssd_plain_bwd(xdt, loga, B, C, dy, dS)
-    if dev.type != "cuda":
+    if dev.type == "meta":
+        _meta.require("ssd_bwd")
+    elif dev.type != "cuda":
         raise ValueError(f"ssd_bwd: unsupported device {dev}")
     b, L, nh, hd = xdt.shape
     n = B.shape[-1]
@@ -118,6 +131,10 @@ def ssd_bwd(xdt, loga, B, C, dy, dS=None):
     _build.check_tensor(dy, "dy", dev, f32, (b, L, nh, hd))
     if dS is not None:
         _build.check_tensor(dS, "dS", dev, f32, (b, nh, n, hd))
+    if dev.type == "meta":
+        _meta.launch("ssd_bwd", *_costs.ssd_bwd_work(b, L, nh, hd, n, dS=dS is not None))
+        return (torch.empty_like(xdt), torch.empty_like(loga), torch.empty_like(B),
+                torch.empty_like(C))
     handle = bwd_lib()
     fits = [q for q in BWD_CHUNKS if handle.gf_ssd_bwd_smem(q, n, hd) <= MAX_SMEM_BYTES]
     if not fits:

@@ -24,6 +24,20 @@ from repro_torch.models import encdec, lm
 from repro_torch.models.common import Params, init_tree, param_count
 from repro_torch.models.config import ArchConfig
 
+# the reference's architectures, in its order
+ARCH_IDS = [
+    "whisper-tiny",
+    "llama4-scout-17b-a16e",
+    "moonshot-v1-16b-a3b",
+    "qwen3-14b",
+    "granite-3-2b",
+    "starcoder2-7b",
+    "deepseek-67b",
+    "zamba2-2.7b",
+    "internvl2-26b",
+    "falcon-mamba-7b",
+]
+
 # (seq_len, global_batch, kind), the reference's cells
 SHAPES: dict[str, tuple[int, int, str]] = {
     "train_4k": (4096, 256, "train"),

@@ -1,5 +1,6 @@
 """The port's shared nvcc builder (``repro_torch.kernels.build``), the
-smoke run's operation counts for the SSD and selective-scan bounds, and its
+kernels' work and bounds that the smoke run and the dry-run read
+(``repro_torch.launch.costs``: the SSD, the scans, attention), and its
 rule for holding flash attention's backward kernel to its plain version, on
 the CPU.
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import build
+from repro_torch.launch import costs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -122,7 +124,7 @@ def test_ssd_bound_counts_the_lesser_form(b, L, nh, hd, n, chunk, form):
     chunked, recurrence = _ssd_flops_by_pairs(b, L, nh, hd, n, chunk)
     want = recurrence if form == "recurrence" else chunked
     assert want == min(chunked, recurrence)
-    assert _chip_smoke().ssd_flops(b, L, nh, hd, n, chunk) == want
+    assert costs.ssd_flops(b, L, nh, hd, n, chunk) == want
     if (b, L) == (8, 2048):
         assert want == 26_843_545_600
 
@@ -140,7 +142,7 @@ def test_ssd_bound_is_bytes_or_the_faster_form(b, L, nh, hd, n, chunk, by):
     chunked, recurrence = _ssd_flops_by_pairs(b, L, nh, hd, n, chunk)
     t_ops = min(recurrence / 67e12, 3 * chunked / 495e12) * 1e3
     t_bytes = nbytes / 3.35e12 * 1e3
-    r = _chip_smoke().ssd_bound_ms(b, L, nh, hd, n, chunk)
+    r = costs.ssd_bound_ms(b, L, nh, hd, n, chunk)
     assert r["nbytes"] == nbytes
     assert r["bound_by"] == by
     assert r["bound_ms"] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
@@ -159,14 +161,13 @@ def test_ssd_bound_is_bytes_or_the_faster_form(b, L, nh, hd, n, chunk, by):
 def test_scan_bound_counts_the_function(b, L, d, n, by):
     """Bytes of x, dt, A, B, C, D and y in f32; one exp per (token,
     channel, state) at a sixteenth of the f32 rate; the larger time."""
-    cs = _chip_smoke()
-    r = cs.scan_bound(b, L, d, n)
+    r = costs.scan_bound(b, L, d, n)
     assert r["nbytes"] == 4 * (3 * b * L * d + 2 * b * L * n + d * n + d)
     assert r["exps"] == b * L * d * n
     assert r["bound_by"] == by
-    assert r["bound_ms"] == max(r["nbytes"] / cs.HBM_BYTES_PER_S,
-                                r["exps"] * 16 / cs.FP32_FLOPS,
-                                r["flops"] / cs.FP32_FLOPS) * 1e3
+    assert r["bound_ms"] == max(r["nbytes"] / costs.HBM_BYTES_PER_S,
+                                r["exps"] * 16 / costs.FP32_FLOPS,
+                                r["flops"] / costs.FP32_FLOPS) * 1e3
     if (b, L, d, n) == (4, 4096, 8192, 16):
         assert r["exps"] == 2_147_483_648 and r["nbytes"] == 1_613_266_944
 
@@ -182,8 +183,7 @@ def test_fused_scan_bound_counts_the_call(b, L, d, n, state):
     from the tensors such a call takes (numpy shapes and item sizes);
     n + 3 special-function operations a (token, channel); the larger
     time, set by the operations at falcon-mamba's widths."""
-    cs = _chip_smoke()
-    r = cs.fused_scan_bound(b, L, d, n, state)
+    r = costs.fused_scan_bound(b, L, d, n, state)
     shapes = {"xc": ((b, L, d), 2), "dt_raw": ((b, L, d), 2), "z": ((b, L, d), 2),
               "B": ((b, L, n), 2), "C": ((b, L, n), 2), "A": ((d, n), 4),
               "dt_b": ((d,), 4), "D": ((d,), 4), "y": ((b, L, d), 2)}
@@ -264,7 +264,7 @@ def test_attention_bound_counts_the_call(b, sq, live, h, kv, d, causal):
     live entries, and cache_len); FLOP: 2d each for QK^T and PV over the
     (query, key) pairs the call attends (causal bottom-right), listed one
     by one."""
-    nbytes, flops = _chip_smoke().attention_bound(b, sq, live, h, kv, d, 2, causal)
+    nbytes, flops = costs.attention_bound(b, sq, live, h, kv, d, 2, causal)
     pairs = sum(1 for i in range(sq) for j in range(live)
                 if not causal or j <= i + live - sq)
     assert flops == b * h * pairs * 2 * 2 * d

@@ -8,7 +8,11 @@ placements with their objective, energy, makespan and transfer bits,
 straggler watch's answers and profile counts, and the live endpoints after
 a leave and a join.  The costs and the roofline estimates are held by
 bits; the examples' placements and the resumed training run are held to
-the reference's manager and to an uninterrupted run.
+the reference's manager and to an uninterrupted run.  The port's dry-run
+(``repro_torch/launch/dryrun.py``) writes the cells the examples' jobs name;
+both packages' ``load_dryrun_costs`` read them to equal dicts, and both
+managers place the jobs from them to equal schedules (~7 s to count the four
+cells).
 """
 import dataclasses
 import json
@@ -24,6 +28,7 @@ from repro.core.endpoint import tpu_fleet as ref_tpu_fleet
 from repro.fleet import manager as ref
 from repro_torch.core.endpoint import EndpointSpec, tpu_fleet
 from repro_torch.fleet import manager as port
+from repro_torch.launch import dryrun
 from repro_torch.launch.train import train
 
 SCHEDULE_FLOATS = ("objective", "energy_j", "makespan_s", "transfer_j")
@@ -161,6 +166,54 @@ def test_waves_match_reference(tmp_path, wave, costs):
     jobs, leave = _waves()[wave]
     rm, pm = managers(tmp_path, dryrun_dir(tmp_path) if costs else None,
                       alpha=0.3 if wave == "serve" else 0.5)
+    if leave:
+        for mgr in (rm, pm):
+            mgr.place(jobs_of(ref, jobs) if mgr is rm else jobs)
+            mgr.endpoint_leave(leave)
+    assert_placed_equal(rm.place(jobs_of(ref, jobs)), pm.place(jobs))
+
+
+@pytest.fixture(scope="module")
+def port_dryrun(tmp_path_factory):
+    """The port's dry-run files for the cells the fleet examples' jobs name
+    (granite-3-2b train_4k and decode_32k, qwen3-14b prefill_32k,
+    zamba2-2.7b decode_32k), written by its command line."""
+    d = tmp_path_factory.mktemp("port_dryrun")
+    jobs = [j for js, _ in _waves().values() for j in js]
+    cells = sorted({(j.arch, j.shape) for j in jobs})
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for arch, shape in cells:
+            dryrun.main(["--arch", arch, "--shape", shape, "--out", str(d)])
+    finally:
+        torch.set_num_threads(n)
+    return d, cells
+
+
+def test_port_dryrun_files_read_as_the_reference_reads_them(port_dryrun):
+    d, cells = port_dryrun
+    assert sorted(p.name for p in d.glob("*__single.json")) == \
+        sorted(f"{a}__{s}__single.json" for a, s in cells)
+    assert len(cells) == 4
+    costs = port.load_dryrun_costs(d)
+    assert costs == ref.load_dryrun_costs(d)
+    assert sorted(costs) == sorted(f"{a}:{s}" for a, s in cells)
+    for fn, c in costs.items():
+        r = json.loads((d / f"{fn.replace(':', '__')}__single.json").read_text())
+        assert "extrapolated" not in r and r["mesh"] == "single_card"
+        assert c == {"flops": r["flops_per_device"], "bytes": r["bytes_accessed_per_device"],
+                     "coll_bytes": 0, "n_devices": 1}
+        assert c["flops"] > 0 and c["bytes"] > 0
+
+
+@pytest.mark.parametrize("wave", ["train", "train after leave", "serve"])
+def test_waves_on_port_dryrun_match_reference(tmp_path, port_dryrun, wave):
+    """The training job, its re-placement after its endpoint leaves and the
+    serving wave, placed from the port's dry-run costs by the reference's
+    manager and by the port's on the CPU: equal schedules, floats by bits."""
+    jobs, leave = _waves()[wave]
+    rm, pm = managers(tmp_path, port_dryrun[0], alpha=0.3 if wave == "serve" else 0.5)
     if leave:
         for mgr in (rm, pm):
             mgr.place(jobs_of(ref, jobs) if mgr is rm else jobs)

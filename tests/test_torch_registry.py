@@ -39,6 +39,15 @@ def test_every_config_the_port_keeps_is_covered():
     assert len(ARCHS) == len(CONFIG_FILES) == 10
 
 
+def test_arch_ids_and_cells_are_the_references():
+    """The port's ``ARCH_IDS`` (the dry-run's sweep) in the reference's
+    order, and its 32 (arch x shape) cells."""
+    assert p_reg.ARCH_IDS == j_reg.ARCH_IDS
+    cells = [(a, s) for a in p_reg.ARCH_IDS for s in p_reg.shape_cells(a)]
+    assert cells == [(a, s) for a in j_reg.ARCH_IDS for s in j_reg.shape_cells(a)]
+    assert len(cells) == 32
+
+
 def test_shapes_are_the_reference_cells():
     assert p_reg.SHAPES == j_reg.SHAPES
 

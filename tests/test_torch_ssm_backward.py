@@ -38,6 +38,7 @@ from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
+from repro_torch.launch import costs
 
 #: (b, L, nh, hd, n, chunk of the plain backward): the reduced zamba2
 #: widths, a ragged L against the chunk, zamba2's head_dim and state, a
@@ -261,8 +262,7 @@ def test_ssd_bwd_bound_counts_the_function(b, L, nh, hd, n, chunk):
     (dxdt, dloga, dB, dC) in f32, counted from the tensors such a call
     takes; the operations the lesser of the chunked form as 3xTF32 and the
     recurrence on the f32 cores; the larger time."""
-    cs = _chip_smoke()
-    r = cs.ssd_bwd_bound_ms(b, L, nh, hd, n, chunk)
+    r = costs.ssd_bwd_bound_ms(b, L, nh, hd, n, chunk)
     a = _ssd_inputs(0, b, min(L, 8), nh, hd, n)   # the shapes, at a short L
     per_token = sum(v[0].size if k != "dS" else 0 for k, v in a.items()) // min(L, 8)
     per_token += sum(a[k][0].size for k in ("xdt", "loga", "B", "C")) // min(L, 8)
@@ -270,8 +270,8 @@ def test_ssd_bwd_bound_counts_the_function(b, L, nh, hd, n, chunk):
     chunked = _ssd_bwd_flops_by_pairs(b, L, nh, hd, n, chunk)
     assert r["chunked_flops"] == chunked
     assert r["recurrence_flops"] == b * L * nh * 14 * n * hd
-    t_ops = min(r["recurrence_flops"] / cs.FP32_FLOPS, 3 * chunked / cs.TF32_FLOPS) * 1e3
-    assert r["bound_ms"] == pytest.approx(max(r["nbytes"] / cs.HBM_BYTES_PER_S * 1e3, t_ops),
+    t_ops = min(r["recurrence_flops"] / costs.FP32_FLOPS, 3 * chunked / costs.TF32_FLOPS) * 1e3
+    assert r["bound_ms"] == pytest.approx(max(r["nbytes"] / costs.HBM_BYTES_PER_S * 1e3, t_ops),
                                           rel=1e-12)
     if (b, L) == (2, 4096):
         assert r["bound_by"] == "operations" and r["nbytes"] == 516_947_968
@@ -284,9 +284,8 @@ def test_fused_scan_bwd_bound_counts_the_call():
     n + 3 special-function operations and 18 n + 20 f32 operations a
     (token, channel); the larger time, set by the operations at
     falcon-mamba's widths."""
-    cs = _chip_smoke()
     b, L, d, n = 2, 4096, 8192, 16
-    r = cs.fused_scan_bwd_bound(b, L, d, n)
+    r = costs.fused_scan_bwd_bound(b, L, d, n)
     reads = {"xc": (b * L * d, 2), "dt_raw": (b * L * d, 2), "z": (b * L * d, 2),
              "dy": (b * L * d, 2), "B": (b * L * n, 2), "C": (b * L * n, 2),
              "A": (d * n, 4), "dt_b": (d, 4), "D": (d, 4)}
@@ -294,8 +293,8 @@ def test_fused_scan_bwd_bound_counts_the_call():
     assert r["nbytes"] == sum(c * s for c, s in (*reads.values(), *writes.values()))
     assert r["sfu"] == b * L * d * (n + 3) and r["flops"] == b * L * d * (18 * n + 20)
     assert r["bound_by"] == "operations"
-    assert r["bound_ms"] == max(r["t_bytes"], r["flops"] / cs.FP32_FLOPS * 1e3,
-                                r["sfu"] / cs.SFU_PER_S * 1e3)
+    assert r["bound_ms"] == max(r["t_bytes"], r["flops"] / costs.FP32_FLOPS * 1e3,
+                                r["sfu"] / costs.SFU_PER_S * 1e3)
     assert round(r["bound_ms"], 4) == 0.3085
 
 
