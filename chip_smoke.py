@@ -412,6 +412,22 @@ card, through ``examples/torch_fleet_train.py`` and
     peak beside ``max_memory_allocated``.  Each kernel's work in the
     bounds of the phases above and in the dry-run's count is one
     definition, ``repro_torch/launch/costs.py``.
+38. The sharded trainer (``sharded_training``): granite-3-2b trained as
+    phase 28 trains it, under ``make_host_mesh()`` (a (1, 1) ("data",
+    "model") mesh over a one-rank NCCL group on an in-process store), the
+    state placed by ``param_shardings``; counts zeroed just before and
+    read just after (320 flash forwards and 160 backwards a step); the
+    four losses ``==`` phase 28's and every parameter's bits equal (at
+    world size 1 every collective is an identity); step seconds and peak
+    memory beside phase 28's, and one more step traced for the card's idle
+    share.  Then each kernel under the layouts the sharded path gives it,
+    rank by rank of a 4-wide "model" axis (``sharded_kernel_checks``):
+    flash at granite's microbatch under head_tp (forward and backward
+    ``==`` the whole call's slices) and seq_cp (o within the bf16 flash
+    tolerance, dq and the ranks' summed dk / dv by ``grad_ok``), the SSD at
+    zamba2's microbatch on a quarter of its heads and the fused scan at
+    falcon-mamba's on a quarter of its channels (outputs and per-head or
+    per-channel gradients ``==``, the summed dB / dC within their bounds).
 
 Phases 28, 31, 32 and 35 are one function, ``full_width_training``.
 
@@ -3168,7 +3184,8 @@ class Preempted(Exception):
 
 def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero_counts,
                         arch, train_kw, stop=None, model_dims=None, ranges_fn=None,
-                        loss_falls=False, check=None, watch=(), stop_dims=None) -> dict:
+                        loss_falls=False, check=None, watch=(), stop_dims=None,
+                        keep_prints=False) -> dict:
     """``arch`` trained at full width (``train_kw``: batch, seq,
     microbatches, steps and an lr; ``model_dims`` cuts the depth): on the
     card each step launches ``step_launches`` by the ``counters`` (remat's
@@ -3180,7 +3197,9 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
     then, with ``stop``, the run stopped after step ``stop`` with its
     checkpoint and resumed, bitwise equal to the uninterrupted run (with
     ``stop_dims``, all three runs at that cut depth, which shrinks the
-    checkpoint's I/O).  Flash's backward calls are counted by shape."""
+    checkpoint's I/O).  Flash's backward calls are counted by shape.  With
+    ``keep_prints`` the result holds the parameters' ``fingerprint`` after
+    the ``train_kw`` steps (``"fingerprint"``)."""
     import dataclasses
     import gc
     import shutil
@@ -3272,7 +3291,7 @@ def full_width_training(dev, card, p_train, steps_mod, adamw, fk, counters, zero
            "steps": steps, "wall_s": wall, "peak_mem_bytes": peak, "state_bytes": state_bytes,
            "launches": launches,
            "launches_per_step": want, "bwd_launches_by_shape": shapes, "profile": profile,
-           "card": card}
+           "card": card, **({"fingerprint": prints} if keep_prints else {})}
     if check:
         out["check"] = check(api, holder["state"]["params"], batch)
     holder.clear()
@@ -4406,6 +4425,261 @@ def count_check(card, counted, trained) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 38: the sharded trainer (distributed/sharding.py, launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+# the "model" axis each kernel's layouts are emulated on, one rank at a time
+SHARD_RANKS = 4
+
+
+def sharded_training(dev, card, p_train, steps_mod, adamw, counters, zero_counts, trained,
+                     mesh_free_prints) -> dict:
+    """Phase 38 (a): granite-3-2b trained as phase 28 trains it (``TRAIN``,
+    seed 0) under ``make_host_mesh()``, a (1, 1) ("data", "model") mesh over
+    a one-rank NCCL group, the state placed by ``param_shardings``.  At
+    world size 1 every collective is an identity, so the four losses and
+    every parameter's bits (``fingerprint``) must equal phase 28's, and
+    each step launches ``step_launches`` (320 flash forwards and 160
+    backwards).  Then one more step, traced beside phase 28's: the host's
+    DTensor dispatch shows as the card's idle share."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.distributed.sharding import ctx_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import get_api
+    api = get_api(TRAIN_ARCH)
+    want = step_launches(api.cfg, TRAIN["microbatches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    per_step = []
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        state, losses, run = p_train.train(
+            arch=TRAIN_ARCH, reduced=False, seed=0, log_every=1, device=None, mesh=mesh,
+            on_step=lambda i, loss, dt: per_step.append(launch_counts(counters)), **TRAIN)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        zero = {k: 0 for k in launches}
+        deltas = [launch_deltas(a, b) for a, b in zip(per_step, [zero] + per_step)]
+        if any(d != want for d in deltas) or launch_deltas(launches, per_step[-1]):
+            raise AssertionError(f"the sharded {TRAIN_ARCH} training launched {deltas} a "
+                                 f"step (expected {want}), {launches} in all")
+        free = [r["loss"] for r in trained["steps"]]
+        if losses != free:
+            raise AssertionError(f"the sharded {TRAIN_ARCH} losses {losses} differ from the "
+                                 f"mesh-free run's {free}")
+        local = [p.to_local() for p in state["params"].parameters()]
+        prints = fingerprint(types.SimpleNamespace(parameters=lambda: local))
+        differ = [n for (n, _), a, b in zip(state["params"].named_parameters(), prints,
+                                            mesh_free_prints) if a != b]
+        if len(prints) != len(mesh_free_prints) or differ:
+            raise AssertionError(f"the sharded {TRAIN_ARCH} parameters differ in bits from "
+                                 f"the mesh-free run's: {differ[:8]} ({len(differ)} leaves)")
+        del local
+        peak = run["peak_mem_bytes"]
+        steps = run["steps"]
+        for r, f in zip(steps, trained["steps"]):
+            print(f"train {TRAIN_ARCH} under a (1, 1) mesh step {r['step']}: loss "
+                  f"{r['loss']:.6g} (== mesh-free), grad norm {r['grad_norm']:.6g}, "
+                  f"{r['seconds']:.6g} s against mesh-free {f['seconds']:.6g} s [{card}]",
+                  flush=True)
+        print(f"train {TRAIN_ARCH} under a (1, 1) mesh, b={TRAIN['batch']} x {TRAIN['seq']} "
+              f"in {TRAIN['microbatches']} microbatches, {TRAIN['steps']} steps: wall "
+              f"{wall:.6g} s, peak memory {peak} B against mesh-free "
+              f"{trained['peak_mem_bytes']} B, launches {launches} ({want} a step); the "
+              f"losses and every parameter's bits equal phase 28's [{card}]", flush=True)
+
+        # one more step, traced
+        ctx = ctx_for(api.cfg, mesh)
+        n_steps = TRAIN["steps"]
+        step_fn = steps_mod.build_train_step(api, adamw.AdamWConfig(
+            lr=3e-3, warmup_steps=min(20, n_steps // 5 + 1), total_steps=n_steps),
+            microbatches=TRAIN["microbatches"], shd=ctx)
+        data = SyntheticTokens(api.cfg.vocab, TRAIN["seq"], TRAIN["batch"], seed=0)
+        batch = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in data.batch_at(n_steps).items()}
+        holder = {"state": state}
+        del state
+
+        def one_step():
+            holder["state"], _ = step_fn(holder["state"], batch)
+
+        profile = trace(f"{TRAIN_ARCH} train step under a (1, 1) mesh (b={TRAIN['batch']} x "
+                        f"{TRAIN['seq']}, {TRAIN['microbatches']} microbatches)", one_step,
+                        card, top_n=8)
+        free_idle = trained["profile"]["device_idle_share"]
+        print(f"profile {TRAIN_ARCH} train step: the card idle "
+              f"{profile['device_idle_share']} under the mesh, {free_idle} mesh-free; wall "
+              f"{profile['wall_ms']:.6g} ms against {trained['profile']['wall_ms']:.6g} ms "
+              f"[{card}]", flush=True)
+        holder.clear()
+        del step_fn, batch
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "mesh": [1, 1], **TRAIN, "steps": steps, "wall_s": wall,
+            "peak_mem_bytes": peak, "mesh_free_peak_mem_bytes": trained["peak_mem_bytes"],
+            "mesh_free_step_s": [r["seconds"] for r in trained["steps"]],
+            "launches": launches, "launches_per_step": want, "losses_equal": True,
+            "parameter_bits_equal": True, "profile": profile,
+            "mesh_free_idle_share": free_idle, "card": card}
+
+
+def sharded_kernel_checks(dev, card, fk, sk, scan_k) -> dict:
+    """Phase 38 (b): each kernel under the layouts the sharded path gives
+    it, rank by rank of a ``SHARD_RANKS``-wide "model" axis, against the
+    whole call on the same inputs.  flash at granite's microbatch
+    (``BWD_TIMED``): head_tp (a rank's 8 query heads with its 2 kv heads)
+    forward and backward ``torch.equal`` to the whole call's slice of
+    heads; seq_cp (a rank's 1,024 queries against the keys up to its
+    block's end) its o within ``TOLS["bfloat16"]``, its dq and the ranks'
+    dk and dv (summed in f32 and rounded once, as the gather's backward
+    reduces them) by ``grad_ok``.  The SSD at zamba2's microbatch (``SSD_BWD_TIMED``) with a
+    quarter of the heads, and the fused scan at falcon-mamba's
+    (``SCAN_BWD_TIMED``) with a quarter of the channels: y, the final
+    state and every per-head or per-channel gradient ``torch.equal`` to
+    the whole call's slice; the ranks' dB and dC summed in f32 (the SSD's
+    within ``ssm_grad_errors``' bound, the scan's rounded to bf16 by
+    ``grad_ok``)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(38)
+    n, bf = SHARD_RANKS, "bfloat16"
+    out = {}
+
+    def same(label, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the rank's call differs from the whole call's "
+                                 f"slice (max |err| {max_abs_err(got, want)})")
+
+    b, s, h, kv, d = BWD_TIMED[TRAIN_ARCH]
+    q = randn(gen, (b, s, h, d), bf, dev)
+    k, v = randn(gen, (b, s, kv, d), bf, dev), randn(gen, (b, s, kv, d), bf, dev)
+    do = randn(gen, (b, s, h, d), bf, dev)
+    o, lse = fk.flash_attention(q, k, v, causal=True, return_lse=True)
+    dq, dk, dv = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    hl, kl = h // n, kv // n
+    for r in range(n):
+        qs, ks = slice(r * hl, (r + 1) * hl), slice(r * kl, (r + 1) * kl)
+        args = (q[:, :, qs].contiguous(), k[:, :, ks].contiguous(), v[:, :, ks].contiguous())
+        o_r, lse_r = fk.flash_attention(*args, causal=True, return_lse=True)
+        grads = fk.flash_attention_bwd(*args, o_r, lse_r, do[:, :, qs].contiguous())
+        for name, got, want in (("o", o_r, o[:, :, qs]), ("lse", lse_r, lse[:, qs]),
+                                ("dq", grads[0], dq[:, :, qs]), ("dk", grads[1], dk[:, :, ks]),
+                                ("dv", grads[2], dv[:, :, ks])):
+            same(f"flash head_tp rank {r} {name}", got, want)
+    print(f"kernel flash_attention and flash_attention_bwd head_tp at {TRAIN_ARCH}'s "
+          f"microbatch (b={b}, s={s}, h={h}, kv={kv}, d={d}), {n} ranks of {hl} heads over "
+          f"{kl}: o, lse, dq, dk and dv equal to the whole call's slices [{card}]", flush=True)
+    out["flash_head_tp"] = {"shape": [b, s, h, kv, d], "ranks": n, "equal": True}
+
+    blk = s // n
+    dk_sum = torch.zeros(k.shape, device=dev)
+    dv_sum = torch.zeros(v.shape, device=dev)
+    fwd_err, dq_worst = 0.0, None
+    for r in range(n):
+        qs, keys = slice(r * blk, (r + 1) * blk), (r + 1) * blk
+        args = (q[:, qs].contiguous(), k[:, :keys].contiguous(), v[:, :keys].contiguous())
+        o_r, lse_r = fk.flash_attention(*args, causal=True, return_lse=True)
+        fwd_err = max(fwd_err, check_close(f"flash_attention seq_cp rank {r} o", o_r,
+                                           o[:, qs], TOLS[bf], card))
+        dq_r, dk_r, dv_r = fk.flash_attention_bwd(*args, o_r, lse_r, do[:, qs].contiguous())
+        e = grad_errors(dq_r, dq[:, qs], bf)
+        if not grad_ok(e, bf):
+            raise AssertionError(f"flash seq_cp rank {r} dq disagrees with the whole "
+                                 f"call's: {e}")
+        dq_worst = e if dq_worst is None or e["ratio"] > dq_worst["ratio"] else dq_worst
+        dk_sum[:, :keys] += dk_r
+        dv_sum[:, :keys] += dv_r
+    errs = {"dq": dq_worst}
+    for name, got, want in (("dk", dk_sum.to(dk.dtype), dk), ("dv", dv_sum.to(dv.dtype), dv)):
+        errs[name] = grad_errors(got, want, bf)
+        if not grad_ok(errs[name], bf):
+            raise AssertionError(f"flash seq_cp: the {n} ranks' summed {name} disagrees "
+                                 f"with the whole call's: {errs[name]}")
+    print(f"kernel flash_attention and flash_attention_bwd seq_cp at {TRAIN_ARCH}'s "
+          f"microbatch, {n} ranks of {blk} queries: o within {TOLS[bf]} (max |err| "
+          f"{fwd_err:.6g}); " + ", ".join(
+              f"{k} at most {e['ratio']:.4g} of its allowance, relative Frobenius "
+              f"{e['fro']:.4g}" for k, e in errs.items())
+          + f" (dk and dv summed over the ranks in f32, then rounded to bf16) [{card}]",
+          flush=True)
+    out["flash_seq_cp"] = {"shape": [b, s, h, kv, d], "ranks": n, "o_max_abs_err": fwd_err,
+                           "grads": errs}
+    del q, k, v, do, o, lse, dq, dk, dv, dk_sum, dv_sum
+
+    b, L, nh, hd, st = SSD_BWD_TIMED
+    xdt, loga, B, C, dy, _ = ssd_bwd_case(gen, dev, b, L, nh, hd, st, False)
+    y, S = sk.ssd(xdt, loga, B, C)
+    g = dict(zip(SSD_GRADS, sk.ssd_bwd(xdt, loga, B, C, dy)))
+    hl = nh // n
+    sums = {"dB": torch.zeros_like(B), "dC": torch.zeros_like(C)}
+    for r in range(n):
+        hs = slice(r * hl, (r + 1) * hl)
+        xr, lr_ = xdt[:, :, hs].contiguous(), loga[:, :, hs].contiguous()
+        y_r, S_r = sk.ssd(xr, lr_, B, C)
+        g_r = dict(zip(SSD_GRADS, sk.ssd_bwd(xr, lr_, B, C, dy[:, :, hs].contiguous())))
+        for name, got, want in (("y", y_r, y[:, :, hs]), ("state", S_r, S[:, hs]),
+                                ("dxdt", g_r["dxdt"], g["dxdt"][:, :, hs]),
+                                ("dloga", g_r["dloga"], g["dloga"][:, :, hs])):
+            same(f"ssd rank {r} {name}", got, want)
+        sums["dB"] += g_r["dB"]
+        sums["dC"] += g_r["dC"]
+    ssd_errs = ssm_grad_errors(sums, {"dB": g["dB"], "dC": g["dC"]})
+    if max(e["ratio"] for e in ssd_errs.values()) > 1.0:
+        raise AssertionError(f"ssd: the {n} ranks' summed dB / dC disagree: {ssd_errs}")
+    print(f"kernel ssd and ssd_bwd at zamba2's microbatch (b={b}, L={L}, nh={nh}, hd={hd}, "
+          f"n={st}), {n} ranks of {hl} heads: y, the state, dxdt and dloga equal to the "
+          f"whole call's slices; the summed dB / dC at most "
+          f"{ssd_errs['dB']['ratio']:.4g} / {ssd_errs['dC']['ratio']:.4g} of their bound "
+          f"[{card}]", flush=True)
+    out["ssd"] = {"shape": [b, L, nh, hd, st], "ranks": n, "equal": True, "summed": ssd_errs}
+    del xdt, loga, B, C, dy, y, S, g, sums
+
+    b, L, dd, st = SCAN_BWD_TIMED
+    args, dy = scan_bwd_case(gen, dev, b, L, dd, st, r=256)
+    xc, dt_raw, dt_b, A, B, C, D, z = args
+    y = scan_k.mamba1_scan_fused(*args)
+    g = dict(zip(SCAN_GRADS, scan_k.mamba1_scan_fused_bwd(*args, dy)))
+    cl = dd // n
+    sums = {"dB": torch.zeros(B.shape, device=dev), "dC": torch.zeros(C.shape, device=dev)}
+    # B and C reach a rank whole and contiguous (x_proj's partial sum reduced)
+    Bc, Cc = B.contiguous(), C.contiguous()
+    for r in range(n):
+        cs = slice(r * cl, (r + 1) * cl)
+        a_r = (xc[..., cs].contiguous(), dt_raw[..., cs].contiguous(), dt_b[cs], A[cs], Bc,
+               Cc, D[cs], z[..., cs])
+        y_r = scan_k.mamba1_scan_fused(*a_r)
+        g_r = dict(zip(SCAN_GRADS, scan_k.mamba1_scan_fused_bwd(*a_r,
+                                                                 dy[..., cs].contiguous())))
+        same(f"mamba1_scan_fused rank {r} y", y_r, y[..., cs])
+        for name in ("dxc", "ddt_raw", "dz"):
+            same(f"mamba1_scan_bwd rank {r} {name}", g_r[name], g[name][..., cs])
+        for name in ("ddt_b", "dA", "dD"):
+            same(f"mamba1_scan_bwd rank {r} {name}", g_r[name], g[name][cs])
+        sums["dB"] += g_r["dB"]
+        sums["dC"] += g_r["dC"]
+    scan_errs = {k: grad_errors(v.to(g[k].dtype), g[k], bf) for k, v in sums.items()}
+    if not all(grad_ok(e, bf) for e in scan_errs.values()):
+        raise AssertionError(f"mamba1_scan_bwd: the {n} ranks' summed dB / dC disagree: "
+                             f"{scan_errs}")
+    print(f"kernel mamba1_scan_fused and mamba1_scan_bwd at falcon-mamba's microbatch "
+          f"(b={b}, L={L}, d={dd}, n={st}), {n} ranks of {cl} channels: y and every "
+          f"per-channel gradient equal to the whole call's slices; the summed dB / dC (in "
+          f"f32, rounded to bf16) at most {scan_errs['dB']['ratio']:.4g} / {scan_errs['dC']['ratio']:.4g} "
+          f"of their allowance, relative Frobenius {scan_errs['dB']['fro']:.4g} / "
+          f"{scan_errs['dC']['fro']:.4g} [{card}]", flush=True)
+    out["mamba1_scan"] = {"shape": [b, L, dd, st], "ranks": n, "equal": True,
+                          "summed": scan_errs}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5022,7 +5296,8 @@ def main() -> int:
 
     # ---- 28. main path: granite-3-2b trained at full width and depth ---------
     training = full_width_training(dev, card, p_train, train_steps, adamw, flash_kernel,
-                                   counters, zero_counts, TRAIN_ARCH, TRAIN)
+                                   counters, zero_counts, TRAIN_ARCH, TRAIN, keep_prints=True)
+    mesh_free_prints = training.pop("fingerprint")
     training["slice"] = train_slice
 
     lap("28")
@@ -5121,6 +5396,16 @@ def main() -> int:
     print(json.dumps({"dryrun_check": checked}), flush=True)
 
     lap("37")
+
+    # ---- 38. the sharded trainer: granite-3-2b under a (1, 1) host mesh,
+    # then each kernel under the sharded path's layouts, rank by rank
+    sharded = {"training": sharded_training(dev, card, p_train, train_steps, adamw, counters,
+                                            zero_counts, training, mesh_free_prints),
+               "kernels": sharded_kernel_checks(dev, card, flash_kernel, ssd_kernel,
+                                                scan_kernel)}
+    print(json.dumps({"sharded": sharded}), flush=True)
+
+    lap("38")
     served = {**dense, **mv}
     for arch in DENSE_ARCHS + MOE_VLM_ARCHS:
         for name, source, line in (

@@ -17,6 +17,17 @@ tensors, in place: each keeps its device and dtype (bfloat16 casts back
 from the stored float32).  ``AsyncCheckpointer`` copies the state to the
 host synchronously and writes it in a thread, one write in flight, so the
 write overlaps the next train step.
+
+Sharded states (the trainer under a mesh): each DTensor leaf is gathered
+whole (``full_tensor()``, on the calling thread: every rank takes part)
+and rank 0 writes; a sharded save ends with a barrier once the file is
+out, so no rank reads a checkpoint before it exists.  The files do not
+depend on the mesh.  ``restore_checkpoint`` writes each rank's shard of a
+leaf into a DTensor leaf of the template, and ``shardings`` (a tree of
+``(mesh, placements)`` beside the template's, None where a leaf stays as
+it is) first re-places the template's leaves: a checkpoint written under
+one mesh restores under another, or under none (the reference's elastic
+restore).
 """
 from __future__ import annotations
 
@@ -27,6 +38,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import whole
+from repro_torch.models.common import is_dtensor
 
 
 def flatten(state: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -38,11 +53,40 @@ def flatten(state: Any, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix.rstrip("/"), state)]
 
 
+def _slots(state: Any, prefix: str = "") -> list[tuple[str, Any, Any]]:
+    """(path, leaf, setter) triples in ``flatten``'s order: the setter puts a
+    new tensor in the leaf's place (a ``Params`` module's parameter, a dict
+    entry)."""
+    if isinstance(state, torch.nn.Module):
+        out = []
+        for n, p in state.named_parameters():
+            mod_name, _, leaf = n.rpartition(".")
+            mod = state.get_submodule(mod_name) if mod_name else state
+
+            def put(t, mod=mod, leaf=leaf, grad=p.requires_grad):
+                mod._parameters[leaf] = torch.nn.Parameter(t, requires_grad=grad)
+            out.append((prefix + n, p, put))
+        return out
+    out = []
+    for k, v in state.items():
+        if isinstance(v, (dict, torch.nn.Module)):
+            out.extend(_slots(v, f"{prefix}{k}/"))
+        else:
+            out.append((prefix + k, v, lambda t, d=state, k=k: d.__setitem__(k, t)))
+    return out
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or any process outside a group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(x) -> np.ndarray:
     """A host copy of ``x``: the trainer updates its tensors in place, so a
-    CPU tensor's array must not share its memory while a write is pending."""
+    CPU tensor's array must not share its memory while a write is pending.
+    A DTensor is gathered whole first (a collective)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach()
+        x = whole(x.detach())
         if x.dtype == torch.bfloat16:
             x = x.float()   # numpy has no bfloat16
         return x.numpy().copy() if x.device.type == "cpu" else x.cpu().numpy()
@@ -64,8 +108,14 @@ def _write(names: list[str], arrays: list[np.ndarray], directory: pathlib.Path,
 
 def save_checkpoint(state: Any, directory: str | pathlib.Path, step: int) -> pathlib.Path:
     leaves = flatten(state)
-    return _write([n for n, _ in leaves], [_to_host(x) for _, x in leaves],
-                  pathlib.Path(directory), step)
+    host = [_to_host(x) for _, x in leaves]
+    directory = pathlib.Path(directory)
+    final = directory / f"step_{step:08d}.npz"
+    if _writer():
+        final = _write([n for n, _ in leaves], host, directory, step)
+    if any(is_dtensor(x) for _, x in leaves):
+        dist.barrier()
+    return final
 
 
 def latest_step(directory: str | pathlib.Path) -> int | None:
@@ -78,10 +128,13 @@ def latest_step(directory: str | pathlib.Path) -> int | None:
 
 @torch.no_grad()
 def restore_checkpoint(template: Any, directory: str | pathlib.Path,
-                       step: int | None = None) -> Any:
+                       step: int | None = None, shardings: Any = None) -> Any:
     """Write checkpoint ``step`` (default: the latest) into ``template``'s
-    tensors in place, each cast to its dtype on its device, and return the
-    template."""
+    tensors in place, each cast to its dtype on its device (a DTensor's
+    local shard on each rank), and return the template.  ``shardings``
+    (module doc) re-places the template's leaves first."""
+    if shardings is not None:
+        _place(template, shardings)
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -96,8 +149,32 @@ def restore_checkpoint(template: Any, directory: str | pathlib.Path,
             a = data[f"leaf_{i}"]
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"checkpoint leaf {name}: shape {a.shape} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(a).to(t.device, t.dtype))
+            full = torch.from_numpy(a).to(t.device, t.dtype)
+            if is_dtensor(t):
+                from torch.distributed.tensor import distribute_tensor
+
+                full = distribute_tensor(full, t.device_mesh, t.placements,
+                                         src_data_rank=None).to_local()
+                t = t.to_local()
+            t.copy_(full)
     return template
+
+
+def _place(template: Any, shardings: Any) -> None:
+    """Re-place each leaf of ``template`` that ``shardings`` gives a
+    ``(mesh, placements)`` for (None: as it is): a DTensor on that mesh, or
+    with a mesh of None a plain tensor, its values kept."""
+    from torch.distributed.tensor import distribute_tensor
+
+    targets = dict(flatten(shardings))
+    for path, t, put in _slots(template):
+        target = targets.get(path)
+        if target is None:
+            continue
+        mesh, place = target
+        full = whole(t.detach())
+        put(full.clone() if mesh is None
+            else distribute_tensor(full, mesh, place, src_data_rank=None))
 
 
 class AsyncCheckpointer:
@@ -106,17 +183,23 @@ class AsyncCheckpointer:
     def __init__(self, directory: str | pathlib.Path):
         self.directory = pathlib.Path(directory)
         self._thread: threading.Thread | None = None
+        self._sharded = False   # the write in flight is of a sharded state
 
     def save(self, state: Any, step: int) -> None:
         self.wait()
         # snapshot to host synchronously (cheap vs write), write in thread
         leaves = flatten(state)
         names, host = [n for n, _ in leaves], [_to_host(x) for _, x in leaves]
-        self._thread = threading.Thread(
-            target=_write, args=(names, host, self.directory, step))
-        self._thread.start()
+        self._sharded = any(is_dtensor(x) for _, x in leaves)
+        if _writer():
+            self._thread = threading.Thread(
+                target=_write, args=(names, host, self.directory, step))
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()

@@ -1,1 +1,2 @@
-"""Train, prefill and decode steps (``distributed/steps.py``)."""
+"""Train, prefill and decode steps (``distributed/steps.py``) and the
+sharding rules over ``torch.distributed`` (``distributed/sharding.py``)."""

@@ -4,9 +4,11 @@
 int8 quantization with one scale a leaf and error feedback: the residual
 is carried into the next step so the compression is unbiased over time.
 Trees are dicts of tensors ({name: tensor}, nested dicts allowed) or a
-``Params`` module (its named parameters).  The reference's
-``psum_compressed`` (the compressed all-reduce over a mesh axis) needs a
-group of cards and comes with the sharded slice.
+``Params`` module (its named parameters).  ``psum_compressed`` is the
+compressed all-reduce over one axis of a ``DeviceMesh``, in the
+reference's arithmetic: the int8 values summed as int32, the scales'
+maximum, and the sum times that maximum over the group's size (not the
+mean of the dequantized gradients where the scales differ).
 """
 from __future__ import annotations
 
@@ -46,6 +48,28 @@ def compress_tree(grads, error):
 
     out = _map(one, _named(grads), _named(error))
     return tuple(_map(lambda t, i=i: t[i], out) for i in range(3))
+
+
+def psum_compressed(grads, error, mesh, axis_name: str):
+    """The compressed all-reduce of ``grads`` (with ``error``'s feedback)
+    over ``mesh``'s axis ``axis_name``: returns (the average tree, the new
+    error tree).  Three collectives a leaf: SUM of the int8 values as
+    int32 (safe for groups under 2^23), MAX of the scales, and the group's
+    size; then ``q_sum * s_max / n`` in float32."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+    q, s, err = compress_tree(grads, error)
+
+    def one(qq, ss):
+        q32 = qq.to(torch.int32)
+        dist.all_reduce(q32, op=dist.ReduceOp.SUM, group=group)
+        s_max = ss.clone()
+        dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+        return q32.to(torch.float32) * s_max / n
+
+    return _map(one, q, s), err
 
 
 def init_error(params):

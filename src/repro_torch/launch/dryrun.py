@@ -44,12 +44,14 @@ Eager counting walks every layer, so a cell's counts are its own at its
 full depth: the reference's ``extrapolate_cost`` (two shallow unrolled
 compiles fitted to the depth, needed because XLA counts a scanned layer
 once) has no counterpart and no ``extrapolated`` block is written; the
-manager then reads the ``*_per_device`` fields.  The mesh (``--mesh
-multi``, the ``__multi`` files), the collectives and the mesh-only options
-of the reference's ``lower_cell`` (``rule_overrides``, ``batch_axes``,
-``unroll``, ``remat_policy``, ``moe_group``) belong to the sharded path,
-which the port does not have yet: ``collectives`` is ``{}`` and the
-collective bytes 0.  Nothing runs on a device: as the reference's dry-run
+manager then reads the ``*_per_device`` fields.  The trainer has its
+sharded path (``distributed/sharding.py``, ``launch/mesh.py``); the
+dry-run's mesh waits for ROADMAP item 9b: ``--mesh multi`` (the
+``__multi`` files, counted over a fake 512-rank group), the collectives
+and the mesh-only options of the reference's ``lower_cell``
+(``rule_overrides``, ``batch_axes``, ``unroll``, ``remat_policy``,
+``moe_group``).  Until then ``collectives`` is ``{}`` and the collective
+bytes 0.  Nothing runs on a device: as the reference's dry-run
 runs nothing on its TPU, this one allocates nothing on the card.
 """
 from __future__ import annotations
@@ -322,8 +324,8 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=str(RESULTS_DIR))
     args = ap.parse_args(argv)
     if args.mesh == "multi":
-        raise SystemExit("--mesh multi needs the sharded path (ROADMAP queue 1, item 9), "
-                         "which the port does not have yet")
+        raise SystemExit("--mesh multi: the dry-run's mesh (the __multi cells and their "
+                         "collectives) is ROADMAP item 9b")
     archs = ARCH_IDS if args.arch == "all" else [args.arch]
     outdir = pathlib.Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)

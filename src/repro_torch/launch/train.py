@@ -1,4 +1,4 @@
-"""End-to-end trainer, mesh-free on one card, for the dense family
+"""End-to-end trainer, mesh-free or under a mesh, for the dense family
 (granite-3-2b, the default, starcoder2-7b, qwen3-14b, deepseek-67b), the
 MoE family (moonshot-v1-16b-a3b, llama4-scout-17b-a16e), the VLM family
 (internvl2-26b), the hybrid family (zamba2-2.7b), the ssm family
@@ -18,14 +18,26 @@ MoE family (moonshot-v1-16b-a3b, llama4-scout-17b-a16e), the VLM family
         --lr 5e-3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --steps 8 \
         --checkpoint ckpt --resume --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+        --full --steps 4 --batch 8 --seq 4096 --microbatches 4 --mesh host
 
-The reference's trainer (``launch/train.py``) without its mesh: float32
+The reference's trainer (``launch/train.py``): float32
 master weights drawn from a ``torch.Generator`` seeded with ``seed``,
 bf16 compute, remat per layer, AdamW with the reference's schedule
 (``warmup_steps = min(20, steps // 5 + 1)``, ``total_steps = steps``),
 gradient accumulation over ``microbatches``, the reference's synthetic
 structured token stream (``SyntheticTokens``), and asynchronous atomic
-checkpoints every ``checkpoint_every`` steps and at the end.  The inputs
+checkpoints every ``checkpoint_every`` steps and at the end.
+
+``mesh=None`` (the default, and the measured path) runs mesh-free.
+``mesh="host"`` (``--mesh host``) runs the reference's sharded trainer:
+``make_host_mesh()`` over the default process group (a one-rank group
+started on the card, or the CPU with ``device="cpu"``, where none
+exists), ``ctx_for`` and the state placed by ``param_shardings``
+(``place_train_state``); a ``DeviceMesh`` may be passed instead.  Every
+rank draws the same global batch and the loss shards it on ``"data"``.
+The dense, hybrid and ssm families train under a mesh; the others raise
+(ROADMAP item 9b).  The inputs
 that the family's train cell lists beside the tokens and labels
 (``registry.input_specs(cfg, "train_4k")``: a VLM's ``vision_embeds``,
 an enc-dec's audio ``frames``) are drawn for each step, standard normal
@@ -49,7 +61,8 @@ import torch
 from repro_torch.checkpoint.manager import AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.device import resolve_device
-from repro_torch.distributed.steps import build_train_step, init_train_state
+from repro_torch.distributed.sharding import NULL_CTX, ctx_for
+from repro_torch.distributed.steps import build_train_step, init_train_state, place_train_state
 from repro_torch.models.registry import build_api, get_api, input_specs
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -87,6 +100,7 @@ def train(
     model_dims: dict | None = None,
     on_step=None,
     device=None,
+    mesh=None,
 ):
     """Returns (state, the losses of the steps this call ran, run), where
     ``run`` holds each of those steps' metrics (``"steps"``: loss, ce, aux,
@@ -96,11 +110,18 @@ def train(
     if model_dims:
         api = build_api(dataclasses.replace(api.cfg, **model_dims))
     dev = resolve_device(device)
+    if mesh == "host":
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(device=dev)
+    ctx = NULL_CTX if mesh is None else ctx_for(api.cfg, mesh)
 
     data = SyntheticTokens(api.cfg.vocab, seq, batch, seed=seed)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1), total_steps=steps)
-    step_fn = build_train_step(api, opt_cfg, microbatches=microbatches)
+    step_fn = build_train_step(api, opt_cfg, microbatches=microbatches, shd=ctx)
     state = init_train_state(api, torch.Generator(device=dev).manual_seed(seed), dev)
+    if ctx.mesh is not None:
+        place_train_state(state, ctx, api)
 
     start_step = 0
     ckpt = None
@@ -108,6 +129,7 @@ def train(
         ckpt = AsyncCheckpointer(checkpoint_dir)
         if resume and latest_step(checkpoint_dir) is not None:
             start_step = latest_step(checkpoint_dir)
+            # a placed state restores each rank's shards in place
             state = restore_checkpoint(state, checkpoint_dir)
             print(f"[train] resumed from step {start_step}")
 
@@ -165,6 +187,8 @@ def main() -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
+    ap.add_argument("--mesh", default=None, choices=["host"],
+                    help="train under the host mesh (default: mesh-free)")
     args = ap.parse_args()
     _, losses, run = train(
         arch=args.arch, reduced=not args.full, steps=args.steps,
@@ -172,6 +196,7 @@ def main() -> None:
         checkpoint_dir=args.checkpoint, resume=args.resume,
         microbatches=args.microbatches, seed=args.seed, device=args.device,
         model_dims={"n_layers": args.layers} if args.layers else None,
+        mesh=args.mesh,
     )
     if losses:
         print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")

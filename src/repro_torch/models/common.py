@@ -4,7 +4,10 @@ the cross-entropy loss.
 
 A spec records what the port needs to make a parameter of its own:
 shape, init kind, fan-in and whether the weight is cast to the
-activation dtype at use.  The reference (``models/common.py``) draws
+activation dtype at use, and the reference's logical axes, one a
+dimension, which ``distributed/sharding.py`` maps onto a mesh (a
+per-layer spec has no ``"layers"`` axis: the port keeps one table a
+layer where the reference stacks them).  The reference (``models/common.py``) draws
 its weights from ``jax.random``; the port draws them from an explicit
 ``torch.Generator``, so the two give different numbers from one seed
 and the parity tests carry the reference's weights across instead
@@ -30,6 +33,12 @@ class ParamSpec:
     # casts to the activation dtype at use; False for the float32 leaves
     # it reads in float32 (norm scales, A_log, D, dt_bias)
     cast: bool = True
+    # the reference's logical axes, one a dimension ("embed", "heads", ...)
+    axes: tuple[str | None, ...] | None = None
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
 
     def scale(self) -> float:
         if self.init == "embed":
@@ -68,6 +77,26 @@ def leaves(tree) -> Iterator[ParamSpec]:
             yield v
         else:
             yield from leaves(v)
+
+
+def named_leaves(tree, prefix: str = "") -> Iterator[tuple[str, ParamSpec]]:
+    """(dotted name, spec) pairs in table order; the names are those of the
+    parameters ``init_tree`` and ``Params`` make (``layers.3.attn.wq``)."""
+    if isinstance(tree, ParamSpec):
+        yield prefix[:-1], tree
+        return
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        yield from named_leaves(v, f"{prefix}{k}.")
+
+
+def param_axes(specs):
+    """The tree of ``specs`` with each leaf's logical axes."""
+    if isinstance(specs, ParamSpec):
+        return specs.axes
+    if isinstance(specs, dict):
+        return {k: param_axes(v) for k, v in specs.items()}
+    return [param_axes(v) for v in specs]
 
 
 def param_count(specs) -> int:
@@ -123,6 +152,59 @@ class Params(nn.Module):
 # Numerics (the reference's op order and dtypes)
 # ---------------------------------------------------------------------------
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed on a mesh)."""
+    dtensor = getattr(getattr(torch.distributed, "tensor", None), "DTensor", None)
+    return dtensor is not None and isinstance(x, dtensor)
+
+
+def _replicated_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """A constant ``t`` (the same on every rank) as a DTensor replicated on
+    ``ref``'s mesh where ``ref`` is a DTensor; ``t`` itself otherwise."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _rows_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each dimension between its first and its last that is
+    sharded (the sequence of an ``act_seq`` activation) gathered."""
+    from torch.distributed.tensor import Replicate
+
+    place = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p
+             for p in x.placements]
+    return x if place == list(x.placements) else x.redistribute(x.device_mesh, place)
+
+
+class _RowsWholeGrad(torch.autograd.Function):
+    """The identity, whose gradient comes back through ``_rows_whole``."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_whole(g)
+
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: an activation (b, s, ..., d) times a weight (cast by the
+    caller).  The product flattens x's leading dimensions, and its backward
+    the output gradient's, but DTensor cannot flatten a sharded dimension
+    into the one before it (torch 2.11).  So under a mesh the sequence of
+    an ``act_seq`` activation is gathered first, as GSPMD gathers it for
+    these products, and the output's gradient, which a consumer on the
+    sequence-sharded residual stream hands back sharded, is gathered in the
+    backward; without a mesh it is ``x @ w``."""
+    if not is_dtensor(x):
+        return x @ w
+    return _RowsWholeGrad.apply(_rows_whole(x) @ w)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
@@ -161,6 +243,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     angles = positions[..., :, None].float() * freq      # (..., seq, half)
     angles = angles[..., :, None, :]                    # broadcast over heads
     cos, sin = torch.cos(angles), torch.sin(angles)
+    cos, sin = _replicated_like(cos, x), _replicated_like(sin, x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -187,15 +270,24 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     (the reference's ``cross_entropy_loss``).  The label logit is gathered
     rather than picked by an iota mask of the logits' shape, which gives
     the same value; beside the float32 logits the loss holds one more
-    logits-sized tensor (the shifted exponentials, taken in place)."""
+    logits-sized tensor (the shifted exponentials, taken in place).
+
+    Over DTensor logits (vocab-sharded under a mesh) the label's logit is
+    the reference's iota-mask-sum, a partial sum over the vocab shards:
+    one logit and zeros, so the same value as the gather."""
     logits = logits.float()
     vocab = logits.shape[-1]
+    viota = torch.arange(vocab, device=logits.device)
     if vocab > true_vocab:
-        keep = torch.arange(vocab, device=logits.device) < true_vocab
+        keep = _replicated_like(viota < true_vocab, logits)
         logits = torch.where(keep, logits, -1e30)
     m = logits.amax(dim=-1)
     lse = m + torch.log((logits - m[..., None]).exp_().sum(dim=-1))
-    ll = logits.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        sel = _replicated_like(viota, logits) == labels.clamp(min=0)[..., None]
+        ll = torch.where(sel, logits, 0.0).sum(dim=-1)
+    else:
+        ll = logits.gather(-1, labels.clamp(min=0)[..., None].long())[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - ll) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)

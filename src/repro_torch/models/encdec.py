@@ -50,15 +50,15 @@ from repro_torch.models.common import (
     stacked,
 )
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.lm import _grad_taken, _layer_call, _mesh_free, embed_tokens
+from repro_torch.models.lm import _grad_taken, _layer_call, embed_tokens, sharding_ctx
 from repro_torch.models.mlp import mlp_apply, mlp_specs
 
 COMPUTE_DTYPE = torch.bfloat16
 
 
 def _ln_spec(d):
-    return {"scale": ParamSpec((d,), init="ones", cast=False),
-            "bias": ParamSpec((d,), init="zeros", cast=False)}
+    return {"scale": ParamSpec((d,), init="ones", cast=False, axes=("embed",)),
+            "bias": ParamSpec((d,), init="zeros", cast=False, axes=("embed",))}
 
 
 def _ln(p, x, eps):
@@ -80,12 +80,12 @@ def encdec_specs(cfg: ArchConfig) -> dict[str, Any]:
     vp = pad_vocab(cfg.vocab)
     d = cfg.d_model
     return {
-        "embed": ParamSpec((vp, d), init="embed"),
+        "embed": ParamSpec((vp, d), init="embed", axes=("vocab", "embed")),
         "enc_layers": [stacked(_enc_layer_specs(cfg), cfg.n_enc_layers)] * cfg.n_enc_layers,
         "enc_ln": _ln_spec(d),
         "dec_layers": [stacked(_dec_layer_specs(cfg), cfg.n_layers)] * cfg.n_layers,
         "dec_ln": _ln_spec(d),
-        "unembed": ParamSpec((d, vp)),
+        "unembed": ParamSpec((d, vp), axes=("embed", "vocab")),
     }
 
 
@@ -154,7 +154,7 @@ def encdec_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     ``batch["labels"]`` given ``batch["frames"]``; returns (loss, {"ce",
     "aux"}) with aux 0.  It takes a gradient, every layer checkpointed
     whatever ``remat`` says (the reference's rule)."""
-    _mesh_free(shd)
+    sharding_ctx(cfg, shd, "forward")
     enc_out = encode(params, cfg, batch["frames"])
     logits = decode_train(params, cfg, batch["tokens"], enc_out)
     loss = cross_entropy_loss(logits, batch["labels"], cfg.vocab)
@@ -191,7 +191,7 @@ def encdec_prefill(params, cfg: ArchConfig, frames, tokens, *,
     position's logits (b, V), caches).  The self caches are allocated at
     ``max_len`` (default: the prompt length), zero past the prompt; the
     cross caches hold every layer's k/v of the encoder output."""
-    _mesh_free(shd)
+    sharding_ctx(cfg, shd, "prefill")
     enc_out = encode(params, cfg, frames)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device)
@@ -209,7 +209,7 @@ def encdec_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=
     """tokens: (b, 1) at position ``pos`` -> (logits (b, 1, V), cache).  The
     self caches are written at ``pos`` in place (the same dict is
     returned) and read up to ``pos + 1``; the cross caches are read whole."""
-    _mesh_free(shd)
+    sharding_ctx(cfg, shd, "decode")
     pos = int(pos)
     b = tokens.shape[0]
     dev = tokens.device

@@ -35,8 +35,19 @@ checkpoint returns its aux loss with its output, as the reference's scan
 carries it; zamba2's groups (the shared block and its
 ``shared_attn_every`` Mamba2 layers) are checkpointed too, around the
 checkpointed layers, as the reference nests ``group_body``'s checkpoint
-around ``layer_body``'s.  Sharding (the reference's ``shd=``) belongs to
-a later slice of the port and raises ``NotImplementedError``.
+around ``layer_body``'s.
+
+Sharding (``shd=``, a ``ShardCtx``; None and ``NULL_CTX`` are the
+mesh-free path): ``lm_forward`` and ``lm_loss`` run the dense, hybrid and
+ssm families under a mesh, with the parameters and the batch as DTensors.
+The activations are placed at the reference's sites (the embedding and
+every layer's output on ``("batch", "act_seq", None)``, the logits on
+``("batch", None, "vocab")``, the attention, MLP and Mamba sites in their
+modules) and the kernels run on each rank's local shards.  Over
+vocab-sharded logits the cross-entropy takes the label's logit by the
+reference's iota-mask-sum, a partial sum over the vocab shards.  The MoE,
+VLM and enc-dec families under a mesh, and every prefill and decode given
+one, raise ``NotImplementedError`` (ROADMAP item 9b).
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import LATER, NULL_CTX, ShardCtx, check_ctx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -54,6 +66,7 @@ from repro_torch.models.common import (
     ParamSpec,
     cross_entropy_loss,
     pad_vocab,
+    proj,
     rms_norm,
     stacked,
 )
@@ -69,6 +82,8 @@ FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
 #: The families whose layers are attention and a feed-forward block, with
 #: a k/v cache per layer.
 _ATTN_FAMILIES = ("dense", "moe", "vlm")
+#: The families whose forward and loss run under a mesh.
+MESH_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 def require_served(cfg: ArchConfig) -> None:
@@ -105,15 +120,30 @@ def _layer_call(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _mesh_free(shd=None) -> None:
-    if shd is not None:
+def sharding_ctx(cfg: ArchConfig, shd, what: str) -> ShardCtx:
+    """``shd`` as a ShardCtx (None: ``NULL_CTX``; anything but a ShardCtx
+    is refused).  A mesh is taken by the forward and the loss of the
+    dense, hybrid and ssm families; elsewhere it raises."""
+    shd = check_ctx(shd)
+    if shd.mesh is not None and (what != "forward" or cfg.family not in MESH_FAMILIES):
         raise NotImplementedError(
-            "sharding (shd=) belongs to a later slice of the port: it runs "
-            "mesh-free on one card")
+            f"{cfg.name}: the {cfg.family} family's {what} under a mesh is {LATER}; "
+            f"the forward and loss of the {', '.join(MESH_FAMILIES)} families take one")
+    return shd
+
+
+def _on_mesh(t, shd: ShardCtx):
+    """A plain tensor as a DTensor replicated on ``shd``'s mesh (every rank
+    holds the same global batch); ``t`` itself without a mesh."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if shd.mesh is None or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, shd.mesh, [Replicate()] * shd.mesh.ndim, run_check=False)
 
 
 def _norm_spec(d):
-    return ParamSpec((d,), init="zeros", cast=False)
+    return ParamSpec((d,), init="zeros", cast=False, axes=("embed",))
 
 
 def _layer_specs(cfg: ArchConfig) -> dict[str, Any]:
@@ -139,9 +169,10 @@ def _shared_block_specs(cfg: ArchConfig) -> dict[str, Any]:
     d = cfg.d_model
     specs = attn.attn_specs(_wide_cfg(cfg))
     # output projection maps back to d (residual width), not 2d
-    specs["wo"] = ParamSpec((cfg.n_heads, cfg.hd, d), fan_in=cfg.n_heads * cfg.hd)
+    specs["wo"] = ParamSpec((cfg.n_heads, cfg.hd, d), fan_in=cfg.n_heads * cfg.hd,
+                            axes=("heads", None, "embed"))
     return {
-        "ln1": ParamSpec((2 * d,), init="zeros", cast=False),
+        "ln1": ParamSpec((2 * d,), init="zeros", cast=False, axes=("embed",)),
         "attn": specs,
         "ln2": _norm_spec(d),
         "mlp": mlp_specs(cfg),
@@ -153,9 +184,9 @@ def lm_specs(cfg: ArchConfig) -> dict[str, Any]:
     vp = pad_vocab(cfg.vocab)
     layer = stacked(_layer_specs(cfg), cfg.n_layers)
     specs: dict[str, Any] = {
-        "embed": ParamSpec((vp, d), init="embed"),
+        "embed": ParamSpec((vp, d), init="embed", axes=("vocab", "embed")),
         "final_norm": _norm_spec(d),
-        "unembed": ParamSpec((d, vp)),
+        "unembed": ParamSpec((d, vp), axes=("embed", "vocab")),
         "layers": [layer] * cfg.n_layers,
     }
     if cfg.shared_attn_every:
@@ -175,54 +206,56 @@ def n_shared_apps(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _attn_block(pl, x, cfg, positions, collect):
+def _attn_block(pl, x, cfg, positions, collect, shd=NULL_CTX):
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
-    q, k, v = attn.project_qkv(pl["attn"], h, cfg, positions)
-    o = attn.chunked_attention(q, k, v, causal=True)
+    q, k, v = attn.project_qkv(pl["attn"], h, cfg, positions, shd=shd)
+    o = attn.chunked_attention(q, k, v, causal=True, shd=shd)
     x = x + attn.attn_output(pl["attn"], o, x.dtype)
     return x, ((k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE)) if collect else None)
 
 
-def _dense_layer(pl, x, cfg, positions, collect):
-    x, kv = _attn_block(pl, x, cfg, positions, collect)
+def _dense_layer(pl, x, cfg, positions, collect, shd=NULL_CTX):
+    x, kv = _attn_block(pl, x, cfg, positions, collect, shd)
     h = rms_norm(x, pl["ln2"], cfg.norm_eps)
-    return x + mlp_apply(pl["mlp"], h, cfg), kv
+    x = x + mlp_apply(pl["mlp"], h, cfg, shd)
+    return shd.act(x, "batch", "act_seq", None), kv
 
 
-def _moe_layer(pl, x, cfg, positions, collect):
+def _moe_layer(pl, x, cfg, positions, collect, shd=NULL_CTX):
     """Returns (x, aux, kv): the layer's output, its float32 aux loss and
-    (with ``collect``) its k/v."""
+    (with ``collect``) its k/v.  ``shd`` has no mesh: the MoE family under
+    one is ROADMAP item 9b, refused before the layers run."""
     x, kv = _attn_block(pl, x, cfg, positions, collect)
     h = rms_norm(x, pl["ln2"], cfg.norm_eps)
     out, aux = moe_mod.moe_apply(pl["moe"], h, cfg)
     return x + out, aux, kv
 
 
-def _ssm_layer(pl, x, cfg, collect):
+def _ssm_layer(pl, x, cfg, collect, shd=NULL_CTX):
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
-    out, state = ssm_mod.mamba1_apply(pl["mamba"], h, cfg, return_cache=collect)
-    return x + out, state
+    out, state = ssm_mod.mamba1_apply(pl["mamba"], h, cfg, return_cache=collect, shd=shd)
+    return shd.act(x + out, "batch", "act_seq", None), state
 
 
-def _hybrid_layer(pl, x, cfg, collect):
+def _hybrid_layer(pl, x, cfg, collect, shd=NULL_CTX):
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
-    out, state = ssm_mod.mamba2_apply(pl["mamba"], h, cfg, return_cache=collect)
-    return x + out, state
+    out, state = ssm_mod.mamba2_apply(pl["mamba"], h, cfg, return_cache=collect, shd=shd)
+    return shd.act(x + out, "batch", "act_seq", None), state
 
 
-def _shared_block(ps, x, x0, cfg, positions, collect):
+def _shared_block(ps, x, x0, cfg, positions, collect, shd=NULL_CTX):
     cat = torch.cat([x, x0], dim=-1)
     h = rms_norm(cat, ps["ln1"], cfg.norm_eps)
-    q, k, v = attn.project_qkv(ps["attn"], h, _wide_cfg(cfg), positions)
-    o = attn.chunked_attention(q, k, v, causal=True)
+    q, k, v = attn.project_qkv(ps["attn"], h, _wide_cfg(cfg), positions, shd=shd)
+    o = attn.chunked_attention(q, k, v, causal=True, shd=shd)
     x = x + attn.attn_output(ps["attn"], o, x.dtype)
     h2 = rms_norm(x, ps["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(ps["mlp"], h2, cfg)
+    x = x + mlp_apply(ps["mlp"], h2, cfg, shd)
     kv = (k.to(COMPUTE_DTYPE), v.to(COMPUTE_DTYPE)) if collect else None
     return x, kv
 
 
-def embed_tokens(params, tokens, cfg=None, vision_embeds=None):
+def embed_tokens(params, tokens, cfg=None, vision_embeds=None, shd=NULL_CTX):
     """(b, s) token ids -> (b, s, d) in the compute dtype.  The table is
     cast and then gathered, as the reference does: with bf16 weights the
     cast is a no-op, and with float32 masters the gradient is the
@@ -234,16 +267,18 @@ def embed_tokens(params, tokens, cfg=None, vision_embeds=None):
     if cfg is not None and cfg.family == "vlm" and vision_embeds is not None:
         nv = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(COMPUTE_DTYPE), x[:, nv:]], dim=1)
-    return x
+    return shd.act(x, "batch", "act_seq", None)
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, shd=NULL_CTX):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["unembed"].to(x.dtype)
+    # vocab -> model (not act_seq): the float32 logits and the CE stay
+    # vocab-sharded
+    return shd.act(proj(x, params["unembed"].to(x.dtype)), "batch", None, "vocab")
 
 
 def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
-              remat=False):
+              remat=False, shd=NULL_CTX):
     """Embed and run every layer (zamba2: every group); with ``cache``
     (from ``init_cache``), write each attention layer's k/v, each Mamba
     layer's conv tail and state and each shared application's k/v into it.
@@ -253,10 +288,12 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     deterministic); zamba2's groups are checkpointed around their
     checkpointed layers, so the backward recomputes a group, then each of
     its layers again.
+    Under a mesh ``tokens`` is a DTensor (or is replicated onto the mesh).
     Returns the last hidden states (b, s, d) and the MoE layers' summed aux
     loss (float32; 0 for the other families)."""
     _decoder_only(cfg)
-    x = embed_tokens(params, tokens, cfg, vision_embeds)
+    tokens = _on_mesh(tokens, shd)
+    x = embed_tokens(params, tokens, cfg, vision_embeds, shd)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     collect = cache is not None
     s = tokens.shape[1]
@@ -264,7 +301,7 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
         positions = torch.arange(s, device=tokens.device)[None, :]
         layer = _layer_call(_moe_layer if cfg.family == "moe" else _dense_layer, remat)
         for li in range(cfg.n_layers):
-            out = layer(params["layers"][li], x, cfg, positions, collect)
+            out = layer(params["layers"][li], x, cfg, positions, collect, shd)
             if cfg.family == "moe":
                 x, aux_i, kv = out
                 aux = aux + aux_i
@@ -277,7 +314,7 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     if not cfg.shared_attn_every:
         layer = _layer_call(_ssm_layer, remat)
         for li in range(cfg.n_layers):
-            x, entry = layer(params["layers"][li], x, cfg, collect)
+            x, entry = layer(params["layers"][li], x, cfg, collect, shd)
             if collect:
                 cache["conv"][li] = entry["conv"]
                 cache["h"][li] = entry["h"]
@@ -288,10 +325,10 @@ def _backbone(params, cfg: ArchConfig, tokens, cache=None, vision_embeds=None,
     layer = _layer_call(_hybrid_layer, remat)
 
     def group_body(x, g):
-        x, kv = _shared_block(params["shared"], x, x0, cfg, positions, collect)
+        x, kv = _shared_block(params["shared"], x, x0, cfg, positions, collect, shd)
         entries = []
         for li in range(g * every, (g + 1) * every):
-            x, entry = layer(params["layers"][li], x, cfg, collect)
+            x, entry = layer(params["layers"][li], x, cfg, collect, shd)
             entries.append(entry)
         return x, kv, entries
 
@@ -311,10 +348,11 @@ def lm_forward(params, cfg: ArchConfig, tokens, *, shd=None, remat=False,
                vision_embeds=None):
     """tokens (b, s) -> logits (b, s, V); a VLM's ``vision_embeds`` (b,
     nv, d) take its first nv positions; ``remat`` checkpoints each layer
-    (and zamba2's groups)."""
-    _mesh_free(shd)
-    x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds, remat=remat)
-    return _logits(params, cfg, x)
+    (and zamba2's groups); under a mesh (``shd``) DTensor logits."""
+    shd = sharding_ctx(cfg, shd, "forward")
+    x, _ = _backbone(params, cfg, tokens, vision_embeds=vision_embeds, remat=remat,
+                     shd=shd)
+    return _logits(params, cfg, x, shd)
 
 
 def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
@@ -323,11 +361,13 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *, shd=None, remat=False):
     ``batch["labels"]`` (positions labelled -1 do not count) plus 0.01 x
     the MoE layers' summed aux loss (0 for the other families).  Returns
     (loss, {"ce", "aux"}).  The loss takes a gradient, with ``remat``
-    checkpointing each layer (and zamba2's groups)."""
-    _mesh_free(shd)
+    checkpointing each layer (and zamba2's groups).  Under a mesh
+    (``shd``) the loss and its parts are replicated DTensor scalars."""
+    shd = sharding_ctx(cfg, shd, "forward")
     x, aux = _backbone(params, cfg, batch["tokens"],
-                       vision_embeds=batch.get("vision_embeds"), remat=remat)
-    ce = cross_entropy_loss(_logits(params, cfg, x), batch["labels"], cfg.vocab)
+                       vision_embeds=batch.get("vision_embeds"), remat=remat, shd=shd)
+    ce = cross_entropy_loss(_logits(params, cfg, x, shd), _on_mesh(batch["labels"], shd),
+                            cfg.vocab)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -387,7 +427,7 @@ def lm_prefill(params, cfg: ArchConfig, tokens, *, max_len: int | None = None,
     The cache is allocated at ``max_len`` (default: the prompt length),
     with the seq-indexed buffers zero past the prompt, as the reference's
     ``extend_cache`` leaves them."""
-    _mesh_free(shd)
+    sharding_ctx(cfg, shd, "prefill")
     b, s = tokens.shape
     cache = init_cache(cfg, b, max(max_len or s, s), device=tokens.device)
     x, _ = _backbone(params, cfg, tokens, cache, vision_embeds)
@@ -411,7 +451,7 @@ def lm_decode_step(params, cfg: ArchConfig, tokens, cache, pos: int, *, shd=None
     layer routes the step's b tokens as a group of one token each (capacity
     ``top_k``), so it never drops a token; its aux loss is not kept."""
     _decoder_only(cfg)
-    _mesh_free(shd)
+    sharding_ctx(cfg, shd, "decode")
     x = embed_tokens(params, tokens)
     if cfg.family == "ssm":
         for li in range(cfg.n_layers):

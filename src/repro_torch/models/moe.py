@@ -22,10 +22,10 @@ from repro_torch.models.config import ArchConfig
 def moe_specs(cfg: ArchConfig):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": ParamSpec((d, e), init="small"),
-        "wi": ParamSpec((e, d, f), fan_in=d),
-        "wg": ParamSpec((e, d, f), fan_in=d),
-        "wo": ParamSpec((e, f, d), fan_in=f),
+        "router": ParamSpec((d, e), init="small", axes=("embed", None)),
+        "wi": ParamSpec((e, d, f), fan_in=d, axes=("experts", "embed", "mlp")),
+        "wg": ParamSpec((e, d, f), fan_in=d, axes=("experts", "embed", "mlp")),
+        "wo": ParamSpec((e, f, d), fan_in=f, axes=("experts", "mlp", "embed")),
     }
 
 

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, lm
-from repro_torch.models.common import Params, init_tree, param_count
+from repro_torch.models.common import Params, init_tree, param_axes, param_count
 from repro_torch.models.config import ArchConfig
 
 # the reference's architectures, in its order
@@ -63,6 +63,10 @@ class ModelAPI:
 
     def n_params(self) -> int:
         return param_count(self.specs())
+
+    def axes(self):
+        """Each parameter's logical axes, in the specs' layout."""
+        return param_axes(self.specs())
 
     def init(self, gen: torch.Generator | int, device=None,
              dtype=lm.COMPUTE_DTYPE, trainable: bool = False) -> Params:

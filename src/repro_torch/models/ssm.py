@@ -13,6 +13,14 @@ ops take a gradient: the SSD's and the fused scan's autograd functions
 run their backward kernels on the card and the plain reverse recurrences
 on the CPU; the convs, softplus, RMSNorm and gates around them
 differentiate in plain PyTorch, as the reference's do under XLA.
+
+Under a mesh (``shd``) the inner activations are placed at the
+reference's sites and both scan ops run on each rank's local shards
+through ``local_map``: the SSD with its heads on the mesh axes of
+``"ssm_inner"`` and B/C replicated, the fused Mamba1 scan with its
+channels there (A, D and ``dt_b`` sharded on their first dimension) and
+B/C replicated once ``x_proj``'s partial sum is reduced.  A rank's B/C
+gradient is its heads' or channels' share, a partial sum over the ranks.
 """
 from __future__ import annotations
 
@@ -20,9 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import NULL_CTX, ShardCtx, partial_on
 from repro_torch.kernels.selective_scan.kernel import mamba1_scan_fused
 from repro_torch.kernels.ssd.ops import ssd_op
-from repro_torch.models.common import ParamSpec, rms_norm, silu
+from repro_torch.models.common import ParamSpec, proj, rms_norm, silu
 from repro_torch.models.config import ArchConfig
 
 
@@ -31,8 +40,7 @@ def _causal_conv(x, w, b, state=None):
     Returns (out, new state): the state is the pre-conv tail of the input."""
     width = w.shape[-1]
     if state is None:
-        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -50,15 +58,16 @@ def _causal_conv(x, w, b, state=None):
 def mamba1_specs(cfg: ArchConfig):
     d, din, st, r, w = cfg.d_model, cfg.inner, cfg.ssm_state, cfg.dtrank, cfg.conv_width
     return {
-        "in_proj": ParamSpec((d, 2 * din)),
-        "conv_w": ParamSpec((din, w), init="small"),
-        "conv_b": ParamSpec((din,), init="zeros"),
-        "x_proj": ParamSpec((din, r + 2 * st)),
-        "dt_w": ParamSpec((r, din)),
-        "dt_b": ParamSpec((din,), init="small", cast=False),
-        "A_log": ParamSpec((din, st), init="small", cast=False),
-        "D": ParamSpec((din,), init="ones", cast=False),
-        "out_proj": ParamSpec((din, d)),
+        "in_proj": ParamSpec((d, 2 * din), axes=("embed", "ssm_inner")),
+        "conv_w": ParamSpec((din, w), init="small", axes=("ssm_inner", None)),
+        "conv_b": ParamSpec((din,), init="zeros", axes=("ssm_inner",)),
+        "x_proj": ParamSpec((din, r + 2 * st), axes=("ssm_inner", None)),
+        "dt_w": ParamSpec((r, din), axes=(None, "ssm_inner")),
+        "dt_b": ParamSpec((din,), init="small", cast=False, axes=("ssm_inner",)),
+        "A_log": ParamSpec((din, st), init="small", cast=False,
+                           axes=("ssm_inner", "state")),
+        "D": ParamSpec((din,), init="ones", cast=False, axes=("ssm_inner",)),
+        "out_proj": ParamSpec((din, d), axes=("ssm_inner", "embed")),
     }
 
 
@@ -66,11 +75,64 @@ def _mamba1_x_proj(p, xc, cfg: ArchConfig):
     """x_proj and dt_w in the compute dtype -> (dt_raw (b, L, din), B, C
     (b, L, st)); B and C are views of the x_proj product."""
     r, st = cfg.dtrank, cfg.ssm_state
-    dtv, B, C = torch.split(xc @ p["x_proj"].to(xc.dtype), [r, st, st], dim=-1)
-    return dtv @ p["dt_w"].to(xc.dtype), B, C
+    dtv, B, C = torch.split(proj(xc, p["x_proj"].to(xc.dtype)), [r, st, st], dim=-1)
+    return proj(dtv, p["dt_w"].to(xc.dtype)), B, C
 
 
-def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
+def _sharded(fn, shd: ShardCtx, ins, outs, partial: dict):
+    """``fn`` on each rank's local shards: the inputs placed by their
+    logical axes (``ins``, one tuple an input), the outputs wrapped by
+    theirs (``outs(*args)``: (axes, shape) an output).  ``partial`` maps an
+    input's index to the logical axis over whose mesh axes its gradient is
+    a partial sum: B/C summed over a rank's heads or channels
+    (``"ssm_inner"``), a parameter summed over its batch rows
+    (``"batch"``)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = shd.mesh
+    over = {i: shd.spec((name,))[0] for i, name in partial.items()}
+
+    def call(*args):
+        in_pl = tuple(list(shd.sharding_for_shape(ax, a.shape)) for ax, a in zip(ins, args))
+        grad_pl = tuple(list(partial_on(mesh, pl, over[i])) if over.get(i) else pl
+                        for i, pl in enumerate(in_pl))
+        out_pl = tuple(list(shd.sharding_for_shape(ax, shape)) for ax, shape in outs(*args))
+        # local_map reads a tuple as one placement list an output
+        return local_map(fn, out_placements=out_pl if len(out_pl) > 1 else out_pl[0],
+                         in_placements=in_pl, in_grad_placements=grad_pl,
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+    return call
+
+
+def _scan_fused(shd: ShardCtx):
+    """``mamba1_scan_fused`` (no final state), on local shards under a mesh."""
+    if shd.mesh is None:
+        return mamba1_scan_fused
+    inner, row = ("batch", None, "ssm_inner"), ("batch", None, None)
+    return _sharded(mamba1_scan_fused, shd,
+                    (inner, inner, ("ssm_inner",), ("ssm_inner", "state"), row, row,
+                     ("ssm_inner",), inner),
+                    lambda xc, *_: ((inner, xc.shape),),
+                    {2: "batch", 3: "batch", 4: "ssm_inner", 5: "ssm_inner", 6: "batch"})
+
+
+def _ssd(shd: ShardCtx, chunk: int):
+    """``ssd_op``, on local shards under a mesh."""
+    op = lambda xdt, loga, B, C: ssd_op(xdt, loga, B, C, chunk=chunk)  # noqa: E731
+    if shd.mesh is None:
+        return op
+    heads, row = ("batch", None, "ssm_inner", None), ("batch", None, None)
+
+    def outs(xdt, loga, B, C):
+        b, L, nh, hd = xdt.shape
+        return ((heads, xdt.shape),
+                (("batch", "ssm_inner", None, None), (b, nh, B.shape[-1], hd)))
+    return _sharded(op, shd, (heads, ("batch", None, "ssm_inner"), row, row), outs,
+                    {2: "ssm_inner", 3: "ssm_inner"})
+
+
+def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False,
+                 shd: ShardCtx = NULL_CTX):
     """Full-sequence Mamba1 block. x: (b, s, d) -> ((b, s, d), cache|None).
     The cache keeps the pre-conv tail of xin and the scan's final state.
     Between the dt_w product and out_proj one op runs: the fused scan (the
@@ -78,14 +140,22 @@ def mamba1_apply(p, x, cfg: ArchConfig, return_cache: bool = False):
     kernel launch."""
     dt_ = x.dtype
     A = -torch.exp(p["A_log"].float())
-    xin, z = (x @ p["in_proj"].to(dt_)).chunk(2, dim=-1)
+    xin, z = proj(x, p["in_proj"].to(dt_)).chunk(2, dim=-1)
+    xin = shd.act(xin, "batch", None, "ssm_inner")
     xc, _ = _causal_conv(xin, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     xc = silu(xc)
     dt_raw, B, C = _mamba1_x_proj(p, xc, cfg)
-    res = mamba1_scan_fused(xc, dt_raw, p["dt_b"], A, B, C, p["D"], z,
-                            return_state=return_cache)
+    if shd.mesh is None:
+        res = mamba1_scan_fused(xc, dt_raw, p["dt_b"], A, B, C, p["D"], z,
+                                return_state=return_cache)
+    elif return_cache:
+        raise NotImplementedError("mamba1_apply's cache under a mesh (serving) "
+                                  "is ROADMAP item 9b")
+    else:
+        res = _scan_fused(shd)(xc, dt_raw, p["dt_b"], A, B, C, p["D"], z)
     y, h = res if return_cache else (res, None)
-    out = y @ p["out_proj"].to(dt_)
+    y = shd.act(y, "batch", None, "ssm_inner")
+    out = proj(y, p["out_proj"].to(dt_))
     if not return_cache:
         return out, None
     w = cfg.conv_width
@@ -135,30 +205,30 @@ def mamba2_specs(cfg: ArchConfig):
     nh = din // cfg.ssm_head_dim
     g = 1  # B/C groups
     return {
-        "wz": ParamSpec((d, din)),
-        "wx": ParamSpec((d, din)),
-        "wB": ParamSpec((d, g * st)),
-        "wC": ParamSpec((d, g * st)),
-        "wdt": ParamSpec((d, nh)),
-        "conv_x": ParamSpec((din, cfg.conv_width), init="small"),
-        "conv_B": ParamSpec((g * st, cfg.conv_width), init="small"),
-        "conv_C": ParamSpec((g * st, cfg.conv_width), init="small"),
-        "conv_b": ParamSpec((din + 2 * g * st,), init="zeros"),
-        "A_log": ParamSpec((nh,), init="small", cast=False),
-        "dt_bias": ParamSpec((nh,), init="small", cast=False),
-        "D": ParamSpec((nh,), init="ones", cast=False),
-        "norm": ParamSpec((din,), init="zeros", cast=False),
-        "out_proj": ParamSpec((din, d)),
+        "wz": ParamSpec((d, din), axes=("embed", "ssm_inner")),
+        "wx": ParamSpec((d, din), axes=("embed", "ssm_inner")),
+        "wB": ParamSpec((d, g * st), axes=("embed", None)),
+        "wC": ParamSpec((d, g * st), axes=("embed", None)),
+        "wdt": ParamSpec((d, nh), axes=("embed", "heads")),
+        "conv_x": ParamSpec((din, cfg.conv_width), init="small", axes=("ssm_inner", None)),
+        "conv_B": ParamSpec((g * st, cfg.conv_width), init="small", axes=(None, None)),
+        "conv_C": ParamSpec((g * st, cfg.conv_width), init="small", axes=(None, None)),
+        "conv_b": ParamSpec((din + 2 * g * st,), init="zeros", axes=(None,)),
+        "A_log": ParamSpec((nh,), init="small", cast=False, axes=("heads",)),
+        "dt_bias": ParamSpec((nh,), init="small", cast=False, axes=("heads",)),
+        "D": ParamSpec((nh,), init="ones", cast=False, axes=("heads",)),
+        "norm": ParamSpec((din,), init="zeros", cast=False, axes=("ssm_inner",)),
+        "out_proj": ParamSpec((din, d), axes=("ssm_inner", "embed")),
     }
 
 
 def _mamba2_project(p, x):
     dt_ = x.dtype
-    z = x @ p["wz"].to(dt_)
-    xi = x @ p["wx"].to(dt_)
-    B = x @ p["wB"].to(dt_)
-    C = x @ p["wC"].to(dt_)
-    dt = x @ p["wdt"].to(dt_)
+    z = proj(x, p["wz"].to(dt_))
+    xi = proj(x, p["wx"].to(dt_))
+    B = proj(x, p["wB"].to(dt_))
+    C = proj(x, p["wC"].to(dt_))
+    dt = proj(x, p["wdt"].to(dt_))
     return z, xi, B, C, dt
 
 
@@ -173,7 +243,8 @@ def _mamba2_conv(p, xi, B, C, state=None):
     return out[..., :din], out[..., din:din + st], out[..., din + st:], new_state
 
 
-def mamba2_apply(p, x, cfg: ArchConfig, chunk: int = 128, return_cache: bool = False):
+def mamba2_apply(p, x, cfg: ArchConfig, chunk: int = 128, return_cache: bool = False,
+                 shd: ShardCtx = NULL_CTX):
     """Full-sequence Mamba2 block. x: (b, s, d) -> ((b, s, d), cache|None).
     The cache keeps the pre-conv tail of concat([xi, B, C]) and the SSD's
     final state."""
@@ -181,17 +252,19 @@ def mamba2_apply(p, x, cfg: ArchConfig, chunk: int = 128, return_cache: bool = F
     dt_ = x.dtype
     nh = cfg.inner // cfg.ssm_head_dim
     z, xi, B, C, dt = _mamba2_project(p, x)
+    xi = shd.act(xi, "batch", None, "ssm_inner")
     xcv, Bcv, Ccv, _ = _mamba2_conv(p, xi, B, C)
     xh = xcv.reshape(b, s, nh, cfg.ssm_head_dim)
     # bf16 + f32 -> f32, as the reference promotes
     dtf = F.softplus((dt + p["dt_bias"]).float())
     A = -torch.exp(p["A_log"].float())
-    y, S = ssd_op(xh.float() * dtf[..., None], dtf * A, Bcv.float(), Ccv.float(),
-                  chunk=chunk)
+    y, S = _ssd(shd, chunk)(xh.float() * dtf[..., None], dtf * A, Bcv.float(),
+                            Ccv.float())
     y = y + xh.float() * p["D"][:, None]
     y = y.reshape(b, s, -1)
     y = rms_norm((y * F.silu(z.float())).to(dt_), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    y = shd.act(y, "batch", None, "ssm_inner")
+    out = proj(y, p["out_proj"].to(dt_))
     if not return_cache:
         return out, None
     w = cfg.conv_width

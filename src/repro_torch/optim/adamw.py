@@ -16,6 +16,13 @@ returns them.
 order (``jax.tree.leaves`` of its tree: dict keys sorted, each stacked
 layer parameter one leaf), so a layer parameter's squared sums over the
 port's per-layer tables are added up first (``reference_leaves``).
+
+Over DTensor leaves (the sharded trainer) a leaf's squared sum is a
+``Partial`` over the mesh axes that shard it and is reduced to a plain
+scalar before the sums are added, in the same order; the update is
+elementwise, so it runs on each rank's local shards of the parameter,
+its gradient and its moments (all in the parameter's placements) with the
+same float32 ops.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import math
 import re
 
 import torch
+
+from repro_torch.distributed.sharding import local, whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +93,8 @@ def global_norm(tree: dict) -> torch.Tensor:
     stacked leaf's per-layer sums added first."""
     sums = []
     for group in reference_leaves(tree):
-        parts = [torch.sum(torch.square(tree[n].to(torch.float32))) for n in group]
+        parts = [whole(torch.sum(torch.square(tree[n].to(torch.float32))))
+                 for n in group]
         sums.append(parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts)))
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
@@ -104,8 +114,9 @@ def adamw_update(cfg: AdamWConfig, grads: dict, params, state: dict):
     bc1 = 1 - b1 ** step_f
     bc2 = 1 - b2 ** step_f
     for name, p in params.named_parameters():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].to(torch.float32) * scale
+        m, v = local(state["m"][name]), local(state["v"][name])
+        p = local(p)
+        g = local(grads[name]).to(torch.float32) * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         del g

@@ -238,7 +238,7 @@ def test_count_tracks_arguments_outputs_and_peak():
 
 
 def test_cli_refuses_the_mesh_and_skips_what_exists(tmp_path, capsys):
-    with pytest.raises(SystemExit, match="item 9"):
+    with pytest.raises(SystemExit, match="item 9b"):
         dryrun.main(["--mesh", "multi", "--out", str(tmp_path)])
     (tmp_path / "granite-3-2b__decode_32k__single.json").write_text("{}")
     dryrun.main(["--arch", "granite-3-2b", "--shape", "decode_32k", "--out", str(tmp_path)])

@@ -38,6 +38,7 @@ def test_port_imports_without_jax():
         "import repro_torch.kernels.placement.ops\n"
         "import repro_torch.launch.serve, repro_torch.models.registry\n"
         "import repro_torch.launch.dryrun, repro_torch.launch.costs\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "assert not any(m == 'repro' or m.startswith('repro.') "
         "for m in sys.modules), 'the port imported the JAX package'\n"
     )

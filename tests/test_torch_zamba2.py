@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from _torch_zamba2_ref import ARCH, MAX_LEN, S, STEPS, reference_case, run_slice
 from repro.distributed.sharding import NULL_CTX
@@ -45,6 +46,8 @@ from repro.models import ssm as j_ssm
 from repro.models.registry import get_api as j_get_api
 from repro.models.registry import get_config as j_get_config
 from repro_torch import convert
+from repro_torch.distributed.sharding import NULL_CTX as P_NULL_CTX
+from repro_torch.distributed.sharding import ShardCtx
 from repro_torch.launch import serve
 from repro_torch.models import attention as p_attn
 from repro_torch.models import common as p_common
@@ -342,11 +345,12 @@ def test_other_families_raise_not_implemented(arch):
         p_lm.cache_shapes(cfg, 1, 8)
 
 
-def test_training_remat_and_sharding_are_a_later_slice():
-    """Sharding is a later slice of the port and raises; training and
-    remat are this family's since the SSD's backward: the loss takes a
-    gradient on every parameter, and remat gives the same loss and
-    logits."""
+def test_training_remat_null_ctx_and_meshes_refused_for_serving():
+    """Training and remat are this family's since the SSD's backward: the
+    loss takes a gradient on every parameter, and remat gives the same loss
+    and logits.  The port's ``NULL_CTX`` is the mesh-free path (results
+    equal to ``shd=None``); prefill and decode under a mesh are ROADMAP
+    item 9b and raise; a context that is not the port's is refused."""
     api = p_get_api(ARCH, reduced=True)
     params = api.init(0, "cpu")
     toks = torch.arange(8, dtype=torch.long)[None] % api.cfg.vocab
@@ -364,10 +368,19 @@ def test_training_remat_and_sharding_are_a_later_slice():
                            p_lm.lm_forward(params, api.cfg, toks))
     for p in params.parameters():
         p.requires_grad_(False)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with torch.no_grad():
+        assert torch.equal(api.loss(params, batch, shd=P_NULL_CTX)[0], loss.detach())
+        logits, cache = api.prefill(params, {"tokens": toks}, max_len=9, shd=P_NULL_CTX)
+        want_logits, want_cache = api.prefill(params, {"tokens": toks}, max_len=9)
+        assert torch.equal(logits, want_logits)
+        step = api.decode_step(params, toks[:, :1], cache, 8, shd=P_NULL_CTX)[0]
+        assert torch.equal(step, api.decode_step(params, toks[:, :1], want_cache, 8)[0])
+    mesh = ShardCtx(mesh=DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                                    mesh_dim_names=("data", "model"),
+                                    _init_backend=False, _rank=0))
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        api.prefill(params, {"tokens": toks}, shd=mesh)
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        api.decode_step(params, toks[:, :1], api.init_cache(1, 8, "cpu"), 0, shd=mesh)
+    with pytest.raises(TypeError, match="ShardCtx"):
         api.loss(params, batch, shd=NULL_CTX)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.prefill(params, {"tokens": toks}, shd=NULL_CTX)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        api.decode_step(params, toks[:, :1], api.init_cache(1, 8, "cpu"), 0,
-                        shd=NULL_CTX)
